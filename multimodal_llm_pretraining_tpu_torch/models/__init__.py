@@ -1,0 +1,194 @@
+"""Model zoo contract (counterpart of ``models/__init__.py:81-220,275``).
+
+Same model-type literals and per-model recipe properties as the JAX package;
+``build_model`` returns a :class:`ModelBundle` holding a ``torch.nn.Module``
+and its loss function. Only the Pythia family is ported so far.
+"""
+
+import enum
+from abc import ABC, abstractmethod
+from dataclasses import dataclass
+from typing import Any, Callable, Generic, Literal, TypeVar
+
+import torch
+
+from ..benchmarking.data import DummyDataset, DummyTextModelingDataset
+
+PythiaT = Literal[
+    "pythia-14m",
+    "pythia-31m",
+    "pythia-70m",
+    "pythia-160m",
+    "pythia-410m",
+    "pythia-1b",
+    "pythia-1.4b",
+    "pythia-2.8b",
+    "pythia-6.9b",
+    "pythia-12b",
+]
+
+ModelT = str
+
+
+class SchedulerType(str, enum.Enum):
+    """LR schedules used by the zoo: linear, cosine, cosine_with_min_lr."""
+
+    LINEAR = "linear"
+    COSINE = "cosine"
+    COSINE_WITH_MIN_LR = "cosine_with_min_lr"
+
+
+OptimizerT = Literal["adam", "adamw"]  # torch.optim.{Adam,AdamW} semantics
+
+
+@dataclass
+class ModelBundle:
+    """What ``build_model`` returns.
+
+    ``module`` holds the parameters (uninitialised until the session's
+    ``init_state`` fills them from a generator or a converted state dict).
+    ``loss_fn(module, batch)`` returns ``(scalar_loss, metrics_dict)``.
+    ``init_fn(module, generator)`` draws fresh parameters in place.
+    """
+
+    module: torch.nn.Module
+    loss_fn: Callable
+    init_fn: Callable
+
+
+T = TypeVar("T", bound=ModelT)
+
+
+class BaseModelClass(ABC, Generic[T]):
+    """Defines a model and its pretraining recipe."""
+
+    def __init__(self, model_type: T) -> None:
+        self.model_type: T = model_type
+
+    @abstractmethod
+    def build_model(
+        self,
+        use_custom_kernels: bool = True,
+        activation_checkpointing: bool = False,
+        compute_dtype: torch.dtype | None = None,
+        device: torch.device | str = "cpu",
+    ) -> ModelBundle:
+        """``use_custom_kernels`` selects the hand-written attention kernel
+        ("flash") over the f32 eager path ("naive")."""
+        raise NotImplementedError
+
+    @property
+    def supports_activation_checkpointing(self) -> bool:
+        return True
+
+    @property
+    def supports_compilation(self) -> bool:
+        return True
+
+    @property
+    @abstractmethod
+    def batch_size(self) -> int:
+        raise NotImplementedError
+
+    @property
+    @abstractmethod
+    def training_steps(self) -> int:
+        raise NotImplementedError
+
+    @property
+    @abstractmethod
+    def mixed_precision(self) -> Literal[None, "bf16", "fp16"]:
+        """None = fp32 compute; "bf16" and "fp16" both run as bf16 compute,
+        as in the JAX package."""
+        raise NotImplementedError
+
+    @property
+    @abstractmethod
+    def optimizer(self) -> OptimizerT:
+        raise NotImplementedError
+
+    @property
+    @abstractmethod
+    def optimizer_kwargs(self) -> dict[str, Any]:
+        """lr / betas / eps / weight_decay. "adam" applies weight decay as L2
+        into the gradient; "adamw" decouples it."""
+        raise NotImplementedError
+
+    @property
+    @abstractmethod
+    def scheduler_type(self) -> SchedulerType:
+        raise NotImplementedError
+
+    @property
+    @abstractmethod
+    def scheduler_kwargs(self) -> dict[str, Any]:
+        raise NotImplementedError
+
+    @property
+    @abstractmethod
+    def max_grad_norm(self) -> float:
+        """0.0 disables clipping."""
+        raise NotImplementedError
+
+    @property
+    def extra_training_args(self) -> dict[str, Any]:
+        return {}
+
+    @property
+    def fsdp_layers_to_wrap(self) -> list[str]:
+        return []
+
+    @abstractmethod
+    def load_dummy_dataset(self) -> DummyDataset:
+        raise NotImplementedError
+
+
+class LanguageModelClass(Generic[T], BaseModelClass[T]):
+    @property
+    @abstractmethod
+    def vocab_size(self) -> int:
+        raise NotImplementedError
+
+    @property
+    @abstractmethod
+    def sequence_length(self) -> int:
+        raise NotImplementedError
+
+    def load_dummy_dataset(self) -> DummyDataset:
+        return DummyTextModelingDataset(vocab_size=self.vocab_size, sequence_length=self.sequence_length)
+
+
+# Families not ported yet, with the ROADMAP item that ports each.
+_NOT_PORTED = {
+    "roberta": "ROADMAP Queue 1 item 9 (roberta)",
+    "mamba": "ROADMAP Queue 1 item 9 (mamba) and Queue 2 items 3-4 (scan kernels)",
+    "convnext": "ROADMAP Queue 1 item 9 (convnext)",
+    "vit": "ROADMAP Queue 1 item 9 (vit)",
+    "llava": "ROADMAP Queue 1 item 9 (llava) and Queue 2 item 2 (varlen flash attention)",
+    "vilt": "ROADMAP Queue 1 item 9 (vilt)",
+}
+
+
+def get_model_class(model_type: ModelT) -> BaseModelClass:
+    if model_type.startswith("pythia"):
+        from .pythia import PYTHIA_SIZES, PythiaModelClass
+
+        if model_type not in PYTHIA_SIZES:
+            raise ValueError(f"unknown model type: {model_type}")
+        return PythiaModelClass(model_type)
+    for prefix, item in _NOT_PORTED.items():
+        if model_type.startswith(prefix):
+            raise NotImplementedError(f"{model_type} is not ported to PyTorch yet: {item}")
+    raise ValueError(f"unknown model type: {model_type}")
+
+
+__all__ = [
+    "ModelT",
+    "PythiaT",
+    "ModelBundle",
+    "SchedulerType",
+    "OptimizerT",
+    "BaseModelClass",
+    "LanguageModelClass",
+    "get_model_class",
+]
