@@ -2,7 +2,7 @@
 
 Same model-type literals and per-model recipe properties as the JAX package;
 ``build_model`` returns a :class:`ModelBundle` holding a ``torch.nn.Module``
-and its loss function. Only the Pythia family is ported so far.
+and its loss function. The Pythia and Mamba families are ported so far.
 """
 
 import enum
@@ -26,6 +26,8 @@ PythiaT = Literal[
     "pythia-6.9b",
     "pythia-12b",
 ]
+
+MambaT = Literal["mamba"]
 
 ModelT = str
 
@@ -73,8 +75,8 @@ class BaseModelClass(ABC, Generic[T]):
         compute_dtype: torch.dtype | None = None,
         device: torch.device | str = "cpu",
     ) -> ModelBundle:
-        """``use_custom_kernels`` selects the hand-written attention kernel
-        ("flash") over the f32 eager path ("naive")."""
+        """``use_custom_kernels`` selects the hand-written kernels (flash
+        attention, selective scan) over their plain eager paths."""
         raise NotImplementedError
 
     @property
@@ -161,7 +163,6 @@ class LanguageModelClass(Generic[T], BaseModelClass[T]):
 # Families not ported yet, with the ROADMAP item that ports each.
 _NOT_PORTED = {
     "roberta": "ROADMAP Queue 1 item 9 (roberta)",
-    "mamba": "ROADMAP Queue 1 item 9 (mamba) and Queue 2 items 3-4 (scan kernels)",
     "convnext": "ROADMAP Queue 1 item 9 (convnext)",
     "vit": "ROADMAP Queue 1 item 9 (vit)",
     "llava": "ROADMAP Queue 1 item 9 (llava) and Queue 2 item 2 (varlen flash attention)",
@@ -176,6 +177,10 @@ def get_model_class(model_type: ModelT) -> BaseModelClass:
         if model_type not in PYTHIA_SIZES:
             raise ValueError(f"unknown model type: {model_type}")
         return PythiaModelClass(model_type)
+    if model_type == "mamba":
+        from .mamba import MambaModelClass
+
+        return MambaModelClass(model_type)
     for prefix, item in _NOT_PORTED.items():
         if model_type.startswith(prefix):
             raise NotImplementedError(f"{model_type} is not ported to PyTorch yet: {item}")
@@ -185,6 +190,7 @@ def get_model_class(model_type: ModelT) -> BaseModelClass:
 __all__ = [
     "ModelT",
     "PythiaT",
+    "MambaT",
     "ModelBundle",
     "SchedulerType",
     "OptimizerT",

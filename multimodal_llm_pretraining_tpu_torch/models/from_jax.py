@@ -1,4 +1,5 @@
-"""JAX GPTNeoX param tree -> the port's ``GPTNeoXLM.state_dict()``.
+"""JAX param trees -> the port's state dicts: GPTNeoX (``params_from_jax``)
+and Mamba (``mamba_params_from_jax``).
 
 The JAX model scans its blocks, so every block leaf carries a leading layer
 axis ``L``; the port holds one module per block. Dense kernels are [in, out]
@@ -6,9 +7,13 @@ in flax and [out, in] in ``nn.Linear``, so they are transposed. ``embed_out``
 keeps the JAX [H, V] layout. The qkv output layout, [q (h*d) | k | v]
 head-major, is the same on both sides and needs no permutation.
 
-The function takes numpy arrays (``np.asarray`` of each JAX leaf) and never
-imports JAX. It maps any tree of that structure, so it converts a gradient
-tree as well as a param tree.
+Mamba's leaves follow the same rules: stacked ``layers/...`` leaves split
+per block, Dense kernels transposed, and ``conv_weight`` [L, d_conv, d_inner]
+kept in the JAX layout the port's block stores.
+
+Both functions take numpy arrays (``np.asarray`` of each JAX leaf) and never
+imports JAX. They map any tree of that structure, so they convert a
+gradient tree as well as a param tree.
 """
 
 import numpy as np
@@ -39,4 +44,24 @@ def params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     out["final_ln.weight"] = _t(tree["final_ln"]["scale"])
     out["final_ln.bias"] = _t(tree["final_ln"]["bias"])
     out["embed_out"] = _t(tree["embed_out"])
+    return out
+
+
+_MAMBA_DENSE = ("in_proj", "x_proj", "dt_proj", "out_proj")
+_MAMBA_LEAVES = ("conv_weight", "conv_bias", "A_log", "D")
+
+
+def mamba_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    layers = tree["layers"]
+    num_layers = np.asarray(layers["norm"]["scale"]).shape[0]
+    out = {"embedding": _t(tree["embedding"])}
+    for i in range(num_layers):
+        out[f"layers.{i}.norm.weight"] = _t(np.asarray(layers["norm"]["scale"])[i])
+        for name in _MAMBA_DENSE:
+            out[f"layers.{i}.{name}.weight"] = _t(np.asarray(layers[name]["kernel"])[i].T)
+            if "bias" in layers[name]:
+                out[f"layers.{i}.{name}.bias"] = _t(np.asarray(layers[name]["bias"])[i])
+        for name in _MAMBA_LEAVES:
+            out[f"layers.{i}.{name}"] = _t(np.asarray(layers[name])[i])
+    out["final_norm.weight"] = _t(tree["final_norm"]["scale"])
     return out

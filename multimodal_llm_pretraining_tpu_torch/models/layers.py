@@ -1,4 +1,5 @@
-"""Shared building blocks (counterpart of ``models/layers.py:30-54, 76-134``).
+"""Shared building blocks (counterpart of ``models/layers.py:30-54, 76-134``,
+and of flax's ``nn.RMSNorm``).
 
 Parameters keep their own dtype (f32, or bf16 under the ``bf16_sr`` layout)
 and are cast to the compute dtype where they are used, the way flax's
@@ -67,6 +68,23 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         y = F.layer_norm(x.float(), self.normalized_shape, self.weight.float(), self.bias.float(), self.eps)
         return y.to(self.compute_dtype)
+
+
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm(epsilon=1e-5, dtype=...)``: the mean square in f32
+    whatever the input dtype (``force_float32_reductions``), then
+    ``x * (rsqrt(ms + eps) * scale)`` in f32, result in ``dtype``."""
+
+    def __init__(self, features: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.weight = nn.Parameter(torch.ones(features))
+        self.eps = eps
+        self.compute_dtype = dtype
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x.float()
+        mul = torch.rsqrt(x.square().mean(-1, keepdim=True) + self.eps) * self.weight.float()
+        return (x * mul).to(self.compute_dtype)
 
 
 class SelfAttention(nn.Module):

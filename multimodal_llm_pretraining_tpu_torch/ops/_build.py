@@ -1,11 +1,12 @@
 """Build and bind the package's CUDA kernels.
 
-The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a`` into a
-shared library with a plain C interface, loaded with ``ctypes``. The build
-happens at first use, into ``_build/`` inside the package (ignored by git),
-and is keyed by a hash of the sources and flags: a changed source rebuilds,
-an unchanged one loads the library already there. Nothing here runs at
-import time, so the CPU-only tests can import every module.
+The sources under ``csrc/`` are compiled by ``nvcc`` for ``sm_90a``, one
+process per source, all started together, and linked into one shared library
+with a plain C interface, loaded with ``ctypes``. The build happens at first
+use, into ``_build/`` inside the package (ignored by git), and is keyed by a
+hash of the sources and flags: a changed source rebuilds, an unchanged one
+loads the library already there. Nothing here runs at import time, so the
+CPU-only tests can import every module.
 """
 
 import ctypes
@@ -23,10 +24,10 @@ from ..utils import get_logger
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_attention.cu",)
+SOURCES = ("flash_attention.cu", "selective_scan.cu")
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
-    "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+    "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
 )
 
 _lock = threading.Lock()
@@ -60,29 +61,36 @@ def library_path() -> Path:
 
 def build(verbose: bool = False) -> Path:
     """Compile the kernels if the library for the current sources is missing;
-    return its path. The compile writes to a temporary file and renames it
-    into place, so a concurrent or interrupted build never leaves a partial
-    library behind."""
+    return its path. The build writes into a temporary directory and renames
+    the library into place, so a concurrent or interrupted build never leaves
+    a partial library behind."""
     global last_build_seconds
     out = library_path()
     if out.exists():
         return out
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     nvcc = find_nvcc()
-    fd, tmp = tempfile.mkstemp(suffix=".so", dir=BUILD_DIR)
-    os.close(fd)
-    cmd = [nvcc, *NVCC_FLAGS, *(["-Xptxas", "-v"] if verbose else []), "-o", tmp, *[str(CSRC_DIR / s) for s in SOURCES]]
-    t0 = time.perf_counter()
-    try:
-        proc = subprocess.run(cmd, capture_output=True, text=True)
-        if proc.returncode != 0:
-            raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+    ptxas = ["-Xptxas", "-v"] if verbose else []
+    with tempfile.TemporaryDirectory(dir=BUILD_DIR) as tmp:
+        objs = [os.path.join(tmp, f"{Path(s).stem}.o") for s in SOURCES]
+        t0 = time.perf_counter()
+        procs = [
+            subprocess.Popen([nvcc, *NVCC_FLAGS, *ptxas, "-c", "-o", obj, str(CSRC_DIR / src)],
+                             stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+            for src, obj in zip(SOURCES, objs)
+        ]
+        errs = [p.communicate()[1] for p in procs]  # waits for each compile
         if verbose:
-            print(proc.stderr[-8000:], flush=True)
-        os.replace(tmp, out)
-    finally:
-        if os.path.exists(tmp):
-            os.unlink(tmp)
+            for src, err in zip(SOURCES, errs):
+                print(f"{src}:\n{err[-8000:]}", flush=True)
+        failed = [f"{src} ({p.returncode}):\n{err[-8000:]}" for src, p, err in zip(SOURCES, procs, errs) if p.returncode]
+        if failed:
+            raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
+        lib = os.path.join(tmp, "lib.so")
+        proc = subprocess.run([nvcc, "-shared", "-o", lib, *objs], capture_output=True, text=True)
+        if proc.returncode != 0:
+            raise RuntimeError(f"nvcc link failed ({proc.returncode}):\n{proc.stderr[-8000:]}")
+        os.replace(lib, out)
     last_build_seconds = time.perf_counter() - t0
     get_logger().info(f"built {out.name} with nvcc in {last_build_seconds:.1f} s")
     return out
@@ -99,6 +107,10 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.mlpt_flash_fwd.restype = i32
             lib.mlpt_flash_bwd.argtypes = [ptr] * 9 + [i32] * 6 + [f32, ptr]
             lib.mlpt_flash_bwd.restype = i32
+            lib.mlpt_scan_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+            lib.mlpt_scan_fwd.restype = i32
+            lib.mlpt_scan_bwd.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
+            lib.mlpt_scan_bwd.restype = i32
             lib.mlpt_error_string.argtypes = [i32]
             lib.mlpt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,0 +1,251 @@
+"""Selective-scan forward and backward: CUDA kernels for Hopper plus their
+plain PyTorch versions, and the custom-VJP autograd Function around them.
+
+Counterpart of ``multimodal_llm_pretraining_tpu/ops/selective_scan_pallas.py``
+(named after its ``selective_scan_fused``, ``:325-352``). The forward kernel
+replaces ``_scan_kernel`` (``:47``) and the backward kernel
+``_scan_bwd_kernel`` (``:161``). Both live in ``csrc/selective_scan.cu`` and
+are built on first use (``ops/_build.py``).
+
+Shapes: u, delta [B, L, I]; A [I, N]; B, C [B, L, N]; dy [B, L, I]. The
+forward returns y before the D skip, f32 [B, L, I], and the state entering
+each 256-step chunk, f32 [B, ceil(L / 256), N, I] (the TPU kernel's
+``with_checkpoints`` output at its default ``block_l``). The backward returns
+(du, ddelta, dA, dB, dC) of y before the D skip, all f32. The D skip, its
+``du += D * g`` term and ``dD`` stay in ``SelectiveScanFused``, in f32, as in
+the JAX custom VJP.
+
+Which version runs is decided by where the tensors lie, and nothing else:
+CPU tensors take the plain versions, CUDA tensors launch the kernels or
+raise. There is no fallback from a kernel to its plain version.
+"""
+
+import torch
+
+from . import _build
+
+SCAN_CHUNK = 256  # checkpoint interval, the TPU kernel's DEFAULT_BLOCK_L
+KERNEL_D_STATE = 16  # the kernels give one lane to each state: Mamba's d_state
+CHANNELS_PER_BLOCK = 32  # the backward kernel's channel tile: dB/dC partials per tile
+_DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
+
+# Kernel launches in this process, counted by the wrappers right where they
+# launch; plain-version calls do not count.
+FWD_LAUNCHES = 0
+BWD_LAUNCHES = 0
+
+
+def reset_launch_counts() -> None:
+    global FWD_LAUNCHES, BWD_LAUNCHES
+    FWD_LAUNCHES = 0
+    BWD_LAUNCHES = 0
+
+
+# ---------------------------------------------------------------- plain versions
+
+
+def scan_states(a: torch.Tensor, b: torch.Tensor, h0: torch.Tensor) -> torch.Tensor:
+    """h_t = a_t * h_{t-1} + b_t over dim 1, from h_{-1} = h0: a log-depth
+    doubling scan (Hillis-Steele) over a [B, T, ...] chunk. Differentiable."""
+    steps = a.shape[1]
+    offset = 1
+    while offset < steps:
+        b = torch.cat([b[:, :offset], a[:, offset:] * b[:, :-offset] + b[:, offset:]], dim=1)
+        a = torch.cat([a[:, :offset], a[:, offset:] * a[:, :-offset]], dim=1)
+        offset *= 2
+    return a * h0[:, None] + b
+
+
+def _discretize(u, delta, A, B):
+    """(da, db) f32 [B, T, I, N]: exp(delta * A) and delta * u * B."""
+    d = delta.float()
+    da = torch.exp(d[..., None] * A.float())
+    db = (d * u.float())[..., None] * B.float()[:, :, None, :]
+    return da, db
+
+
+def chunked_scan(u, delta, A, B, C, chunk_size: int = SCAN_CHUNK):
+    """y before the D skip, f32 [B, L, I], and the state entering each chunk,
+    a list of f32 [B, I, N]. The discretized tensors exist one chunk at a
+    time. Differentiable."""
+    bsz, L, I = u.shape
+    h = u.new_zeros((bsz, I, A.shape[1]), dtype=torch.float32)
+    ys, entries = [], []
+    for start in range(0, L, chunk_size):
+        sl = slice(start, start + chunk_size)
+        entries.append(h)
+        da, db = _discretize(u[:, sl], delta[:, sl], A, B[:, sl])
+        hs = scan_states(da, db, h)
+        ys.append(torch.einsum("blin,bln->bli", hs, C[:, sl].float()))
+        h = hs[:, -1]
+    return torch.cat(ys, dim=1), entries
+
+
+def selective_scan_fwd_reference(u, delta, A, B, C):
+    """Plain version of the forward kernel: (y f32 [B, L, I] before the D
+    skip, checkpoint f32 [B, ceil(L / 256), N, I])."""
+    y, entries = chunked_scan(u, delta, A, B, C, SCAN_CHUNK)
+    return y, torch.stack(entries, dim=1).transpose(-1, -2).contiguous()
+
+
+def selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt):
+    """Plain version of the backward kernel: (du, ddelta, dA, dB, dC) of y
+    before the D skip, f32. Chunk by chunk in reverse: the states are
+    recomputed from the checkpoint, and the reverse recurrence
+    gh_t = C_t dy_t + da_{t+1} gh_{t+1} runs as a doubling scan over the
+    reversed chunk, carried between chunks by G = da_t gh_t of the chunk's
+    first step. The cotangents are the formulas of the TPU kernel
+    (``selective_scan_pallas.py:230-243``)."""
+    bsz, L, I = u.shape
+    A32 = A.float()
+    du = torch.empty(bsz, L, I, dtype=torch.float32, device=u.device)
+    ddelta = torch.empty_like(du)
+    dB = torch.empty(bsz, L, A.shape[1], dtype=torch.float32, device=u.device)
+    dC = torch.empty_like(dB)
+    dA = torch.zeros_like(A32)
+    G = torch.zeros(bsz, I, A.shape[1], dtype=torch.float32, device=u.device)
+    for k in reversed(range(ckpt.shape[1])):
+        sl = slice(k * SCAN_CHUNK, (k + 1) * SCAN_CHUNK)
+        d, uu, Bc, Cc, g = (t[:, sl].float() for t in (delta, u, B, C, dy))
+        da, db = _discretize(uu, d, A32, Bc)
+        h0 = ckpt[:, k].transpose(-1, -2).float()
+        h = scan_states(da, db, h0)
+        h_prev = torch.cat([h0[:, None], h[:, :-1]], dim=1)
+        da_next = torch.cat([da[:, 1:], torch.ones_like(da[:, :1])], dim=1)
+        x = Cc[:, :, None, :] * g[..., None]
+        gh = scan_states(da_next.flip(1), x.flip(1), G).flip(1)
+        common = gh * h_prev * da
+        dA += (common * d[..., None]).sum((0, 1))
+        gh_b = (gh * Bc[:, :, None, :]).sum(-1)
+        ddelta[:, sl] = (common * A32).sum(-1) + gh_b * uu
+        du[:, sl] = gh_b * d
+        dB[:, sl] = (gh * (d * uu)[..., None]).sum(2)
+        dC[:, sl] = (h * g[..., None]).sum(2)
+        G = da[:, 0] * gh[:, 0]
+    return du, ddelta, dA, dB, dC
+
+
+# ---------------------------------------------------------------- kernel wrappers
+
+
+def _kernel_inputs(u, delta, A, B, C):
+    """Check what the kernels take and return the tensors ready for them:
+    contiguous, and A as f32."""
+    if u.device.type != "cuda":
+        raise ValueError(f"selective-scan kernels take CUDA tensors, got {u.device}")
+    if u.dtype not in _DTYPE_CODE:
+        raise ValueError(f"selective-scan kernels take bfloat16 or float32, got {u.dtype}")
+    for t in (delta, A, B, C):
+        if t.device != u.device:
+            raise ValueError("selective-scan kernel inputs must lie on one device")
+    for t in (delta, B, C):
+        if t.dtype != u.dtype:
+            raise ValueError(f"selective-scan kernels take u, delta, B and C of one dtype, got {u.dtype} and {t.dtype}")
+    if u.ndim != 3 or delta.shape != u.shape:
+        raise ValueError(f"selective-scan kernels take u and delta [B, L, I], got {tuple(u.shape)} and {tuple(delta.shape)}")
+    bsz, L, I = u.shape
+    N = A.shape[-1]
+    if A.shape != (I, N) or B.shape != (bsz, L, N) or C.shape != (bsz, L, N):
+        raise ValueError(f"selective-scan shapes disagree: A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}")
+    if N != KERNEL_D_STATE:
+        raise ValueError(f"selective-scan kernels take d_state {KERNEL_D_STATE}, got {N}")
+    if bsz == 0 or L == 0 or I == 0:
+        raise ValueError(f"selective-scan kernels take non-empty inputs, got {tuple(u.shape)}")
+    return u.contiguous(), delta.contiguous(), A.float().contiguous(), B.contiguous(), C.contiguous()
+
+
+def _n_chunks(L: int) -> int:
+    return -(-L // SCAN_CHUNK)
+
+
+def selective_scan_fwd_cuda(u, delta, A, B, C):
+    """Launch the forward kernel; returns (y f32 [B, L, I] before the D skip,
+    checkpoint f32 [B, ceil(L / 256), N, I])."""
+    global FWD_LAUNCHES
+    u, delta, A, B, C = _kernel_inputs(u, delta, A, B, C)
+    bsz, L, I = u.shape
+    N = A.shape[1]
+    lib = _build.load()
+    y = torch.empty(bsz, L, I, dtype=torch.float32, device=u.device)
+    ckpt = torch.empty(bsz, _n_chunks(L), N, I, dtype=torch.float32, device=u.device)
+    with torch.cuda.device(u.device):
+        err = lib.mlpt_scan_fwd(
+            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), ckpt.data_ptr(),
+            bsz, L, I, N, _DTYPE_CODE[u.dtype], torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    _build.check(lib, err, "selective-scan forward kernel")
+    FWD_LAUNCHES += 1
+    return y, ckpt
+
+
+def selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt):
+    """Launch the backward kernel; returns (du, ddelta, dA, dB, dC) f32 of y
+    before the D skip. dA comes from the kernel as one partial per batch
+    element and dB, dC as one partial per 32-channel tile; they are summed
+    here, so two runs give identical results."""
+    global BWD_LAUNCHES
+    u, delta, A, B, C = _kernel_inputs(u, delta, A, B, C)
+    bsz, L, I = u.shape
+    N = A.shape[1]
+    if dy.shape != u.shape or dy.device != u.device:
+        raise ValueError(f"dy must be [B, L, I] on {u.device}, got {tuple(dy.shape)} on {dy.device}")
+    if ckpt.shape != (bsz, _n_chunks(L), N, I) or ckpt.device != u.device:
+        raise ValueError(f"checkpoint must be [B, ceil(L / {SCAN_CHUNK}), N, I] on {u.device}, got {tuple(ckpt.shape)}")
+    dy = dy.float().contiguous()
+    ckpt = ckpt.float().contiguous()
+    n_tiles = -(-I // CHANNELS_PER_BLOCK)
+    lib = _build.load()
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du = torch.empty(bsz, L, I, **f32)
+    ddelta = torch.empty(bsz, L, I, **f32)
+    dA_part = torch.empty(bsz, N, I, **f32)
+    dB_part = torch.empty(n_tiles, bsz, L, N, **f32)
+    dC_part = torch.empty(n_tiles, bsz, L, N, **f32)
+    with torch.cuda.device(u.device):
+        err = lib.mlpt_scan_bwd(
+            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(), ckpt.data_ptr(),
+            du.data_ptr(), ddelta.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
+            bsz, L, I, N, _DTYPE_CODE[u.dtype], torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    _build.check(lib, err, "selective-scan backward kernel")
+    BWD_LAUNCHES += 1
+    return du, ddelta, dA_part.sum(0).t(), dB_part.sum(0), dC_part.sum(0)
+
+
+def _fwd(u, delta, A, B, C):
+    if u.device.type == "cuda":
+        return selective_scan_fwd_cuda(u, delta, A, B, C)
+    if u.device.type == "cpu":
+        return selective_scan_fwd_reference(u, delta, A, B, C)
+    raise ValueError(f"selective scan has no kernel for device {u.device}")
+
+
+def _bwd(u, delta, A, B, C, dy, ckpt):
+    if u.device.type == "cuda":
+        return selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)
+    if u.device.type == "cpu":
+        return selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)
+    raise ValueError(f"selective scan has no kernel for device {u.device}")
+
+
+class SelectiveScanFused(torch.autograd.Function):
+    """y = scan(u, delta, A, B, C) + D * u in u's dtype, the custom VJP of
+    ``selective_scan_fused`` (``selective_scan_pallas.py:330-349``). Saves the
+    inputs in their own dtype plus the f32 chunk checkpoint, never f32 copies
+    of the [B, L, I] inputs."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D):
+        y, ckpt = _fwd(u, delta, A, B, C)
+        ctx.save_for_backward(u, delta, A, B, C, D, ckpt)
+        return (y + D.float() * u.float()).to(u.dtype)
+
+    @staticmethod
+    def backward(ctx, g):
+        u, delta, A, B, C, D, ckpt = ctx.saved_tensors
+        g32 = g.float()
+        du, ddelta, dA, dB, dC = _bwd(u, delta, A, B, C, g32, ckpt)
+        # y = scan(...) + D * u: the skip adds D * g to du and carries dD
+        du = du + D.float() * g32
+        dD = (g32 * u.float()).sum((0, 1))
+        return du.to(u.dtype), ddelta.to(delta.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype), dD.to(D.dtype)

@@ -8,13 +8,17 @@ for one package reads the same in the other. Which fields act here:
   ``torch.backends.cudnn.allow_tf32``; "highest" turns both off.
 - ``master_weights="sr"``, ``opt_state_dtype``, ``grad_accum_dtype``: the
   state layouts of ``training/step.py``.
+- ``activation_checkpointing``: handed to the model's ``build_model``.
+  Mamba remats each whole block (what the JAX default "flash" policy does to
+  a block with no attention); pythia refuses it, since its "flash" and
+  "dots" policies are not ported yet.
 - No-ops, kept so plans stay interchangeable: ``compile`` (PyTorch runs
   eagerly; there is no compilation cache to toggle), ``unroll_layers`` (the
   blocks are a Python loop, never a scan) and ``checkpoint_policy`` (read
-  only once remat is ported).
-- Refused by the session with the ROADMAP item: ``activation_checkpointing``,
-  ``master_weights`` True/"device", ``sharding``, ``offloading`` and meshes of
-  more than one device.
+  only once pythia's remat policies are ported).
+- Refused by the session with the ROADMAP item: ``master_weights``
+  True/"device", ``sharding``, ``offloading`` and meshes of more than one
+  device.
 """
 
 from dataclasses import dataclass, field

@@ -18,9 +18,10 @@ Two state layouts work, chosen by the plan as in JAX:
   accumulators, bf16 moments (``opt_state_dtype="bf16"``), updates applied
   with stochastic rounding and no f32 master.
 
-Not ported yet, and refused with the ROADMAP item: activation checkpointing,
-``master_weights`` True/"device", sharding, offloading, and accumulators of
-another dtype than the params.
+Activation checkpointing goes to the model's ``build_model``: mamba remats
+each whole block, pythia refuses it with the ROADMAP item. Not ported yet,
+and refused with the ROADMAP item: ``master_weights`` True/"device",
+sharding, offloading, and accumulators of another dtype than the params.
 """
 
 from dataclasses import dataclass

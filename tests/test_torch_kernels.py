@@ -1,4 +1,5 @@
-"""The port's CUDA flash-attention kernels against their plain versions.
+"""The port's CUDA kernels (flash attention, selective scan) against their
+plain versions.
 
 This file imports no JAX, so it runs on a GPU machine without it:
 
@@ -14,15 +15,24 @@ output rounding). dq is summed with f32 atomics in an order that changes
 from run to run, so two runs may differ by one bf16 ulp of the larger value
 per element (plus f32 noise where terms cancel); dk and dv have no atomics
 and repeat bit for bit.
+
+Selective scan (f32 or bf16 u/delta/B/C, both sides computing in f32 and
+differing only in summation order and in the kernels' fast exp): y within
+1e-4 of its norm, the checkpoint and the five gradients within 1e-3 (dA and
+dB sum thousands of terms). The backward kernel sums its partials outside
+the kernel with no atomics, so two runs repeat bit for bit.
 """
 
 import pytest
 import torch
 
 from multimodal_llm_pretraining_tpu_torch.ops import flash_attention as fa
+from multimodal_llm_pretraining_tpu_torch.ops import selective_scan_fused as ssf
 
 NORM_REL = 1e-2
 LSE_ABS = 1e-3
+SCAN_Y_NORM_REL = 1e-4
+SCAN_GRAD_NORM_REL = 1e-3
 
 
 def _needs_cuda():
@@ -135,3 +145,102 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     q = _rand(2, 16, 64, dtype=torch.float16)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         fa.flash_fwd_cuda(q, q, q, True, 0.1)
+
+
+# ---------------------------------------------------------------- selective scan
+
+
+def _scan_inputs(b, L, I, N=16, seed=0, dtype=torch.float32, device="cuda"):
+    g = torch.Generator(device=device).manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=g, device=device)
+
+    u = rand(b, L, I).to(dtype)
+    delta = (torch.rand(b, L, I, generator=g, device=device) * 0.5 + 0.01).to(dtype)
+    A = -(torch.rand(I, N, generator=g, device=device) + 0.5)
+    B, C = rand(b, L, N).to(dtype), rand(b, L, N).to(dtype)
+    dy = rand(b, L, I)
+    return u, delta, A, B, C, dy
+
+
+def test_scan_wrappers_refuse_cpu_tensors():
+    u, delta, A, B, C, dy = _scan_inputs(1, 8, 4, device="cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
+    with pytest.raises(ValueError, match="CUDA"):
+        ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, torch.zeros(1, 1, 16, 4))
+
+
+def test_scan_function_takes_plain_versions_on_cpu_without_launching():
+    before = (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES)
+    u, delta, A, B, C, _ = _scan_inputs(1, 9, 4, device="cpu")
+    u.requires_grad_()
+    ssf.SelectiveScanFused.apply(u, delta, A, B, C, torch.ones(4)).sum().backward()
+    assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES) == before
+    assert u.grad is not None
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("shape", [(2, 300, 96), (1, 64, 32), (2, 1000, 40), (1, 7, 5)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernels_match_plain_versions(shape, dtype):
+    """Ragged L (not a multiple of 256 or of the kernels' tiles) and ragged I
+    (not a multiple of the 32-channel tile)."""
+    _needs_cuda()
+    u, delta, A, B, C, dy = _scan_inputs(*shape, seed=sum(shape), dtype=dtype)
+    y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
+    y_ref, ckpt_ref = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
+    _close(y, y_ref, SCAN_Y_NORM_REL)
+    if ckpt.shape[1] > 1:
+        _close(ckpt[:, 1:], ckpt_ref[:, 1:], SCAN_GRAD_NORM_REL)
+    assert torch.equal(ckpt[:, 0], torch.zeros_like(ckpt[:, 0]))
+    grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref)
+    for got, want in zip(grads, ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt_ref)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        _close(got, want, SCAN_GRAD_NORM_REL)
+
+
+@pytest.mark.cuda
+def test_scan_backward_repeats_bit_for_bit():
+    _needs_cuda()
+    u, delta, A, B, C, dy = _scan_inputs(2, 600, 100, seed=3, dtype=torch.bfloat16)
+    _, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
+    first = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)
+    second = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_scan_function_launches_kernels_and_adds_the_skip():
+    """One forward and one backward launch through the autograd Function, on
+    strided views of one projection as the Mamba block makes them; the six
+    gradients, dD included, equal the plain versions'."""
+    _needs_cuda()
+    u, delta, A, B, C, dy = _scan_inputs(2, 300, 64, seed=5)
+    D = torch.randn(64, device="cuda")
+    x_dbc = torch.cat([B, C], dim=-1)
+    leaves = [t.clone().requires_grad_() for t in (u, delta, A, x_dbc, D)]
+    lu, ld, lA, lx, lD = leaves
+    ssf.reset_launch_counts()
+    y = ssf.SelectiveScanFused.apply(lu, ld, lA, lx[..., :16], lx[..., 16:], lD)
+    y.backward(dy)
+    assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES) == (1, 1)
+    y_ref, ckpt = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
+    _close(y, y_ref + D * u, SCAN_Y_NORM_REL)
+    du, dd, dA, dB, dC = ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)
+    for got, want in zip((lu.grad, ld.grad, lA.grad, lx.grad, lD.grad),
+                         (du + D * dy, dd, dA, torch.cat([dB, dC], -1), (dy * u).sum((0, 1)))):
+        _close(got, want, SCAN_GRAD_NORM_REL)
+
+
+@pytest.mark.cuda
+def test_scan_wrappers_refuse_what_the_kernels_do_not_take():
+    _needs_cuda()
+    u, delta, A, B, C, _ = _scan_inputs(1, 8, 4, N=8)
+    with pytest.raises(ValueError, match="d_state 16"):
+        ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
+    u, delta, A, B, C, _ = _scan_inputs(1, 8, 4)
+    with pytest.raises(ValueError, match="one dtype"):
+        ssf.selective_scan_fwd_cuda(u, delta.to(torch.bfloat16), A, B, C)
