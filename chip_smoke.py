@@ -31,9 +31,31 @@ Phases, one line (or a few) each; any failure exits non-zero:
    layers, d_inner 5120, seq 4096) with block remat, the same entry points,
    micro-batch 2 x accumulation 2, 1 warmup + 3 timed steps; every scan call
    must show on the kernels (forward twice per block: once more under remat).
+9. varlen kernels: both flash-attention kernels in their varlen (padded
+   batch) mode against the plain versions with the same lens, at the llava
+   decoder's shape ([16, 32, 1087, 64] bf16 causal, ragged lens), at the
+   tower's head_dim and length ([4, 16, 577, 64], non-causal) and at a small
+   ragged shape with an empty row; dk and dv must be exactly 0 at and past
+   each length, and a second backward must repeat them bit for bit. Then
+   median CUDA-event times of the varlen and plain-mode kernels and the
+   plain versions at the decoder's shape (full lens), and of the plain-mode
+   forward at the main path's tower shape.
+10. llava slice: a two-layer narrow LLaVA in bf16 (head_dim 64 in the tower
+    and the decoder), frozen as llava-pretrain freezes it, on a right-padded
+    batch: loss and every projector grad with the kernels against the plain
+    f32 attention.
+11. main path: the llava-pretrain training step at full width and depth (23
+    CLIP blocks, 16 Llama-3.2-1B blocks, 1087 merged positions), the same
+    entry points, in the JAX package's layout for it (bf16 compute, f32
+    projector and moments, bf16 frozen leaves), micro-batch 16 x
+    accumulation 2, 1 warmup + 3 timed steps. Every decoder attention call
+    must show on the varlen kernels (forward and backward), every tower call
+    on the plain-mode forward, and no tower call on a backward; the frozen
+    parameters stay bit for bit and the projector moves.
 
 The last three lines are the kernels JSON line, the card line and
-``{"ok": true, "device": ...}``.
+``{"ok": true, "device": ...}``. A kernel's ``launches`` there is the sum
+over the main paths that run it.
 """
 
 import json
@@ -63,6 +85,20 @@ SCAN_SHAPE = (2, 4096, 5120)  # mamba-2.8b: mbs 2, seq 4096, d_inner 5120 (d_sta
 SCAN_RAGGED = (2, 300, 96)  # L not a multiple of 256, I not a multiple of the 32-channel tile
 SLICE_SHAPE = (4, 8, 2049, 256)  # pythia-1b: mbs 4, 8 heads, seq 2049, head_dim 256
 RAGGED_SHAPE = (2, 3, 77, 64)
+# llava-pretrain: the decoder's attention (mbs 16, 32 heads, 512 - 1 + 576
+# merged positions, head_dim 64) and the CLIP tower's (16 heads, 576 patches
+# + CLS, head_dim 64), checked at mbs 4 and timed at the main path's mbs 16
+VARLEN_SHAPE = (16, 32, 1087, 64)
+TOWER_CHECK_SHAPE = (4, 16, 577, 64)
+TOWER_SHAPE = (16, 16, 577, 64)
+VARLEN_RAGGED = (4, 2, 77, 64)
+LLAVA_TOKENS_PER_SAMPLE = 512 - 1 + 576
+# llava's first loss: random text under a tied head whose rows are N(0, 0.02^2)
+# and a final RMSNorm that gives every hidden row a square norm of 2048, so
+# each logit is about N(0, 2048 * 0.02^2 = 0.82) and the loss about
+# ln 128257 + 0.82 / 2 = 11.76 + 0.41 = 12.17; the band is 0.5 either side
+LLAVA_LOSS_BAND = (11.67, 12.67)
+TEXT_LOSS_BAND = (10.8, 11.8)  # pythia and mamba: ln vocab = 10.83
 
 # Kernel vs plain version, bf16 inputs. Both round the same operands to bf16
 # (q*scale, p, ds) and accumulate in f32; they differ in summation order, in
@@ -234,18 +270,32 @@ def phase_slice() -> None:
         raise AssertionError(f"slice grads differ: norm_rel {worst:.3e} > {TOL_SLICE_GRAD_NORM_REL}")
 
 
-def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters) -> dict:
-    """The training step through the user's entry points, in the bf16_sr
-    layout (bf16 compute, ``master_weights="sr"``, bf16 moments and
-    accumulators) with the model's own optimizer and schedule: 1 warmup + 3
-    timed steps. ``counters`` is the kernel module whose launch counts are
-    zeroed just before the steps."""
+def _depth(module) -> str:
+    if hasattr(module, "layers"):
+        return f"{len(module.layers)} layers"
+    return f"{len(module.vision_tower.layers)} tower + {len(module.language_model.layers)} decoder layers"
+
+
+def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *, loss_band: tuple[float, float],
+                   layout: str = "bf16_sr", names=("FWD_LAUNCHES", "BWD_LAUNCHES"),
+                   tokens_per_sample: int | None = None) -> dict:
+    """The training step through the user's entry points with the model's
+    own optimizer and schedule: 1 warmup + 3 timed steps. ``layout`` is
+    "bf16_sr" (bf16 compute, ``master_weights="sr"``, bf16 moments and
+    accumulators) or "bf16" (bf16 compute, f32 params, accumulators and
+    moments; a model with a trainable mask stores its frozen leaves in
+    bf16). ``counters`` is the kernel module whose launch counts ``names``
+    are zeroed just before the steps and read just after. The first loss
+    must lie in ``loss_band``. For a model with a trainable mask, every
+    frozen parameter must come out bit for bit and every trainable one must
+    have moved."""
     from multimodal_llm_pretraining_tpu_torch.models import get_model_class
     from multimodal_llm_pretraining_tpu_torch.parallel.mesh import MeshConfig
     from multimodal_llm_pretraining_tpu_torch.train import TrainingPlan
     from multimodal_llm_pretraining_tpu_torch.utils import block_on
 
     mc = get_model_class(model_type)
+    sr = layout == "bf16_sr"
     plan = TrainingPlan(
         num_training_steps=8,
         micro_batch_size=mbs,
@@ -259,9 +309,9 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters) -
         optimizer_kwargs=mc.optimizer_kwargs,
         scheduler_type=mc.scheduler_type,
         scheduler_kwargs=mc.scheduler_kwargs,
-        grad_accum_dtype="bf16",
-        opt_state_dtype="bf16",
-        master_weights="sr",
+        grad_accum_dtype="bf16" if sr else None,
+        opt_state_dtype="bf16" if sr else None,
+        master_weights="sr" if sr else False,
         unroll_layers=True,
         max_grad_norm=mc.max_grad_norm,
         mesh=MeshConfig(num_hosts=1, chips_per_host=1),
@@ -273,7 +323,11 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters) -
     step = sess.train_step_fn()
     block_on("cuda")
     say(f"[main] {model_type} session built and initialised in {time.perf_counter() - t0:.1f} s "
-        f"({sum(p.numel() for p in state.params.values())} parameters, {len(sess.module.layers)} layers)")
+        f"({sum(p.numel() for p in state.params.values())} parameters, "
+        f"{sum(state.params[n].numel() for n in sess.trainable)} trainable, {_depth(sess.module)})")
+    masked = sess.bundle.trainable_mask is not None
+    # on the host, so that the peak memory below is the steps' own
+    before = {n: p.detach().cpu() for n, p in state.params.items()} if masked else {}
 
     torch.cuda.reset_peak_memory_stats()
     counters.reset_launch_counts()
@@ -288,28 +342,43 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters) -
         times.append(time.perf_counter() - t0)
         losses.append(loss)
         say(f"[main] {model_type} step {i}{' (warmup)' if i == 0 else ''}: loss {loss:.5f}, {times[-1]:.3f} s")
-    launches = (counters.FWD_LAUNCHES, counters.BWD_LAUNCHES)
+    launches = {n: getattr(counters, n) for n in names}
     peak = torch.cuda.max_memory_allocated()
 
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{model_type}: non-finite loss: {losses}")
-    if not 10.8 <= losses[0] <= 11.8:
-        raise AssertionError(f"{model_type}: first loss {losses[0]} outside [10.8, 11.8] (ln vocab = 10.83)")
+    if not loss_band[0] <= losses[0] <= loss_band[1]:
+        raise AssertionError(f"{model_type}: first loss {losses[0]} outside {list(loss_band)}")
     for p in state.params.values():
         if not torch.isfinite(p).all():
             raise AssertionError(f"{model_type}: non-finite parameter after the steps")
+    if masked:
+        trainable = set(sess.trainable)
+        for n, p in state.params.items():
+            if n in trainable and torch.equal(p.cpu(), before[n]):
+                raise AssertionError(f"{model_type}: trainable {n} did not move")
+            if n not in trainable and not torch.equal(p.cpu(), before[n]):
+                raise AssertionError(f"{model_type}: frozen {n} changed")
+        layout_ok = all(p.dtype == (torch.float32 if n in trainable else torch.bfloat16) for n, p in state.params.items())
+        if not sr and not (layout_ok and all(m.dtype == torch.float32 for m in state.opt_state.mu + state.opt_state.nu)):
+            raise AssertionError(f"{model_type}: not the f32-trainable / bf16-frozen layout with f32 moments")
+        say(f"[main] {model_type}: {len(before) - len(trainable)} frozen parameters bit-identical, "
+            f"{len(trainable)} trainable moved (f32, f32 moments; frozen bf16)")
     step_s = statistics.median(times[1:])
-    tokens = mbs * acc * mc.sequence_length
-    say(f"[main] {model_type} median step {step_s:.4f} s over {len(times) - 1} steps, {tokens / step_s:.1f} tokens/s, "
-        f"peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches fwd {launches[0]} bwd {launches[1]}")
-    return {"layers": len(sess.module.layers), "micro_batches": acc * len(losses), "launches": launches}
+    samples = mbs * acc
+    tokens = samples * (tokens_per_sample or mc.sequence_length)
+    say(f"[main] {model_type} median step {step_s:.4f} s over {len(times) - 1} steps, {samples / step_s:.2f} samples/s, "
+        f"{tokens / step_s:.1f} tokens/s, peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches "
+        + ", ".join(f"{n} {c}" for n, c in launches.items()))
+    return {"module": sess.module, "micro_batches": acc * len(losses), "launches": launches}
 
 
 def phase_main_path() -> dict:
     """pythia-1b: bench.py's recipe, without remat (pythia's remat policies
     are not ported yet) at acc 2; every attention call on the kernels."""
-    run = drive_training("pythia-1b", mbs=4, acc=2, remat=False, counters=fa)
-    expected = run["layers"] * run["micro_batches"]
+    run = drive_training("pythia-1b", mbs=4, acc=2, remat=False, counters=fa, loss_band=TEXT_LOSS_BAND)
+    run["launches"] = tuple(run["launches"].values())
+    expected = len(run["module"].layers) * run["micro_batches"]
     if run["launches"] != (expected, expected):
         raise AssertionError(f"flash launches {run['launches']}, expected {expected} each")
     return {"flash_fwd": run["launches"][0], "flash_bwd_fused": run["launches"][1]}
@@ -424,11 +493,168 @@ def phase_mamba_main_path() -> dict:
     """mamba-2.8b at full width and depth with block remat: every scan call
     on the kernels, the forward twice per block and micro-batch (the remat
     recompute runs it again) and the backward once."""
-    run = drive_training("mamba", mbs=2, acc=2, remat=True, counters=ssf)
-    calls = run["layers"] * run["micro_batches"]
+    run = drive_training("mamba", mbs=2, acc=2, remat=True, counters=ssf, loss_band=TEXT_LOSS_BAND)
+    run["launches"] = tuple(run["launches"].values())
+    calls = len(run["module"].layers) * run["micro_batches"]
     if run["launches"] != (2 * calls, calls):
         raise AssertionError(f"scan launches {run['launches']}, expected ({2 * calls}, {calls})")
     return {"scan_fwd": run["launches"][0], "scan_bwd": run["launches"][1]}
+
+
+# ---------------------------------------------------------------- varlen flash attention (llava)
+
+
+def _ragged_lens(b: int, s: int, seed: int) -> list[int]:
+    """One full row, one shorter than a tile, one ending on a tile edge (64,
+    a multiple of both kernels' key tiles), the rest random in [1, s]."""
+    edge = (s - 1) // 64 * 64
+    rest = np.random.default_rng(seed).integers(1, s + 1, max(b - 3, 0)).tolist()
+    return [s, 37, edge, *rest][:b]
+
+
+def check_varlen_at(shape, causal: bool, lens: list[int], seed: int) -> dict:
+    """Both kernels in varlen mode vs the plain versions with the same lens
+    (one per batch row, broadcast over heads as ``flash_attention`` does);
+    dk and dv exactly 0 at and past each length; a second backward repeats
+    dk and dv bit for bit. Returns the errors."""
+    b, h, s, _ = shape
+    q, k, v, do = _inputs(shape, seed)
+    scale = shape[-1] ** -0.5
+    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
+    out_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    grads = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
+    grads_ref = fa.flash_bwd_reference(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
+    torch.cuda.synchronize()
+    res = {"out": _errs(out, out_ref), "lse": _errs(lse, lse_ref)}
+    for name, got, ref in zip(("dq", "dk", "dv"), grads, grads_ref):
+        res[name] = _errs(got, ref)
+    for name, t in (("out", out), ("lse", lse), *zip(("dq", "dk", "dv"), grads)):
+        if not torch.isfinite(t).all():
+            raise AssertionError(f"varlen {name} has non-finite values at {shape}")
+    past = torch.arange(s, device="cuda")[None, :] >= kv_lens[:, None]  # [BH, S]: keys at or past the length
+    past_max = max(grads[1][past].abs().max().item(), grads[2][past].abs().max().item()) if past.any() else 0.0
+    say(f"[varlen] {list(shape)} causal={causal} lens {lens}: " + ", ".join(
+        f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in res.items()) + f"; dk/dv past the lens max_abs {past_max:.1e}")
+    for name in ("out", "dq", "dk", "dv"):
+        if not res[name][1] <= TOL_NORM_REL:
+            raise AssertionError(f"varlen {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {shape}")
+    if not res["lse"][0] <= TOL_LSE_ABS:
+        raise AssertionError(f"varlen lse max-abs error {res['lse'][0]:.3e} > {TOL_LSE_ABS} at {shape}")
+    if past_max != 0.0:
+        raise AssertionError(f"varlen dk/dv are not exactly 0 past the lens at {shape}")
+    _, dk2, dv2 = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
+    same = torch.equal(dk2, grads[1]) and torch.equal(dv2, grads[2])
+    say(f"[varlen] {list(shape)} second backward run: dk/dv identical {same}")
+    if not same:
+        raise AssertionError(f"varlen dk/dv differ between two runs at {shape}")
+    return res
+
+
+def phase_varlen_kernels() -> list[dict]:
+    # full f32 products in the plain versions (the main paths' plans turned TF32 on)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    errs = check_varlen_at(VARLEN_SHAPE, True, _ragged_lens(VARLEN_SHAPE[0], VARLEN_SHAPE[2], 0), seed=20)
+    check_varlen_at(TOWER_CHECK_SHAPE, False, _ragged_lens(TOWER_CHECK_SHAPE[0], TOWER_CHECK_SHAPE[2], 1), seed=21)
+    for causal in (True, False):
+        check_varlen_at(VARLEN_RAGGED, causal, [77, 37, 64, 0], seed=22 + causal)
+
+    b, h, s, _ = VARLEN_SHAPE
+    q, k, v, do = _inputs(VARLEN_SHAPE, 23)
+    scale = VARLEN_SHAPE[-1] ** -0.5
+    full = torch.full((b * h,), s, dtype=torch.int32, device="cuda")  # every row full: the benchmark batch's mask
+    out, lse = fa.flash_fwd_reference(q, k, v, True, scale, full)
+    t = {
+        "fwd": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale, full)),
+        "fwd_plain_mode": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale)),
+        "fwd_plain": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, True, scale, full)),
+        "bwd": cuda_ms(lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, True, scale, full)),
+        "bwd_plain_mode": cuda_ms(lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, True, scale)),
+        "bwd_plain": cuda_ms(lambda: fa.flash_bwd_reference(q, k, v, out, lse, do, True, scale, full)),
+    }
+    say(f"[varlen] median ms at {list(VARLEN_SHAPE)} bf16 causal, full lens: "
+        + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
+    del q, k, v, do, out, lse
+    q, k, v, _ = _inputs(TOWER_SHAPE, 24)
+    tower_scale = TOWER_SHAPE[-1] ** -0.5
+    tower = {
+        "fwd": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, False, tower_scale)),
+        "fwd_plain": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, False, tower_scale)),
+    }
+    say(f"[varlen] median ms at the tower's {list(TOWER_SHAPE)} bf16 non-causal, plain mode: "
+        + ", ".join(f"{n} {ms:.3f}" for n, ms in tower.items()))
+    return [
+        {"name": "flash_fwd_varlen", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:91",
+         "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"]},
+        {"name": "flash_bwd_fused_varlen", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:208",
+         "launches": None, "max_abs_err": max(errs[n][0] for n in ("dq", "dk", "dv")), "ms": t["bwd"],
+         "plain_ms": t["bwd_plain"]},
+    ]
+
+
+LLAVA_COUNTERS = ("FWD_LAUNCHES", "BWD_LAUNCHES", "VARLEN_FWD_LAUNCHES", "VARLEN_BWD_LAUNCHES")
+
+
+def phase_llava_slice() -> None:
+    """Two-layer narrow LLaVA in bf16 at the kernels' head_dim 64 (tower of
+    hidden 128 with 2 heads, decoder of hidden 256 with 4 q / 2 kv heads),
+    336-pixel images (576 patches) and 64 text tokens, the second row
+    right-padded after 40; tower and decoder frozen as llava-pretrain
+    freezes them. Loss and every projector grad with the kernels against
+    the plain f32 attention ("naive") on the same weights and batch."""
+    from multimodal_llm_pretraining_tpu_torch.models.llava import LlavaModule
+
+    tower = dict(hidden=128, num_layers=3, num_heads=2, intermediate=512)  # feature layer -2: 2 blocks
+    lm = dict(hidden=256, num_layers=2, num_heads=4, num_kv_heads=2, ffn=512)
+    rng = np.random.default_rng(0)
+    ids = rng.integers(0, 1024, (2, 64))
+    ids[:, 0] = 1024
+    mask = np.ones_like(ids)
+    mask[1, 40:] = 0
+    batch = {"input_ids": ids, "pixel_values": rng.random((2, 336, 336, 3), dtype=np.float32),
+             "labels": np.where(mask > 0, ids, -100), "attention_mask": mask}
+    batch = {n: torch.from_numpy(x).to("cuda") for n, x in batch.items()}
+    results = {}
+    for impl in ("flash", "naive"):
+        model = LlavaModule(attn_impl=impl, dtype=torch.bfloat16, tower_kwargs=tower, lm_kwargs=lm,
+                            vocab_with_image=1025, image_token=1024).to("cuda")
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+        for n, p in model.named_parameters():
+            p.requires_grad_(n.startswith("projector"))
+        fa.reset_launch_counts()
+        loss = model(batch["input_ids"], batch["pixel_values"], labels=batch["labels"],
+                     attention_mask=batch["attention_mask"])
+        loss.backward()
+        launches = tuple(getattr(fa, n) for n in LLAVA_COUNTERS)
+        if launches != ((2, 0, 2, 2) if impl == "flash" else (0, 0, 0, 0)):
+            raise AssertionError(f"llava slice {impl}: launches {dict(zip(LLAVA_COUNTERS, launches))}")
+        results[impl] = (loss.item(), {n: p.grad.float() for n, p in model.named_parameters() if p.requires_grad})
+    (loss_k, g_k), (loss_n, g_n) = results["flash"], results["naive"]
+    worst_name = max(g_n, key=lambda n: _errs(g_k[n], g_n[n])[1])
+    worst = _errs(g_k[worst_name], g_n[worst_name])[1]
+    say(f"[llava slice] 2-layer bf16 loss kernels {loss_k:.5f} vs plain {loss_n:.5f}; {len(g_n)} projector grads, "
+        f"worst norm_rel {worst:.3e} ({worst_name}); launches fwd 2 bwd 0 varlen fwd 2 varlen bwd 2")
+    if not abs(loss_k - loss_n) <= TOL_SLICE_LOSS:
+        raise AssertionError(f"llava slice loss differs by {abs(loss_k - loss_n):.3e} > {TOL_SLICE_LOSS}")
+    if not worst <= TOL_SLICE_GRAD_NORM_REL:
+        raise AssertionError(f"llava slice grads differ: norm_rel {worst:.3e} > {TOL_SLICE_GRAD_NORM_REL}")
+
+
+def phase_llava_main_path() -> dict:
+    """llava-pretrain at full width and depth, micro-batch 16 x accumulation
+    2 (the recipe's batch of 256 cut for one card), in the JAX package's
+    layout for it. Per micro-batch: 16 varlen forwards and 16 varlen
+    backwards (the decoder; its weights are frozen but the gradient flows
+    through it to the projector), 23 plain-mode forwards (the tower) and no
+    plain-mode backward (the frozen tower is not differentiated)."""
+    run = drive_training("llava-pretrain", mbs=16, acc=2, remat=False, counters=fa, loss_band=LLAVA_LOSS_BAND,
+                         layout="bf16", names=LLAVA_COUNTERS, tokens_per_sample=LLAVA_TOKENS_PER_SAMPLE)
+    mod, mb = run["module"], run["micro_batches"]
+    tower, decoder = len(mod.vision_tower.layers) * mb, len(mod.language_model.layers) * mb
+    expected = dict(zip(LLAVA_COUNTERS, (tower, 0, decoder, decoder)))
+    if run["launches"] != expected:
+        raise AssertionError(f"llava launches {run['launches']}, expected {expected}")
+    return {"flash_fwd": tower, "flash_bwd_fused": 0, "flash_fwd_varlen": decoder, "flash_bwd_fused_varlen": decoder}
 
 
 def main() -> int:
@@ -440,6 +666,10 @@ def main() -> int:
     kernels += phase_scan_kernels()
     phase_scan_slice()
     launches.update(phase_mamba_main_path())
+    kernels += phase_varlen_kernels()
+    phase_llava_slice()
+    for name, n in phase_llava_main_path().items():
+        launches[name] = launches.get(name, 0) + n
     for k in kernels:
         k["launches"] = launches[k["name"]]
     say(json.dumps({"kernels": kernels}))

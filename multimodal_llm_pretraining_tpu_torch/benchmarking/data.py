@@ -1,4 +1,4 @@
-"""Synthetic benchmark datasets (counterpart of ``benchmarking/data.py:13-52``).
+"""Synthetic benchmark datasets (counterpart of ``benchmarking/data.py:13-92``).
 
 Batches are made on demand from a seeded numpy Generator, with the formula the
 JAX package uses when its C++ library is absent
@@ -36,3 +36,28 @@ class DummyTextModelingDataset(DummyDataset):
     def sample_batch(self, batch_size: int, seed: int = 0) -> dict[str, np.ndarray]:
         ids = np.random.default_rng(seed).integers(0, self.vocab_size, (batch_size, self.sequence_length), dtype=np.int32)
         return {"input_ids": ids, "labels": ids.copy()}
+
+
+class DummyMultimodalLanguageModelingDataset(DummyDataset):
+    """LLaVA-style fixture: a leading ``<image>`` token then random text, an
+    all-ones attention mask and float32 NHWC pixels in [0, 1), drawn from
+    ``default_rng(seed)`` in the JAX package's order (text, then pixels)."""
+
+    def __init__(self, vocab_size: int, sequence_length: int, image_size: int, num_samples: int = 20_000,
+                 image_token_id: int = 32000):
+        self.vocab_size = vocab_size
+        self.sequence_length = sequence_length
+        self.image_size = image_size
+        self.num_samples = num_samples
+        self.image_token_id = image_token_id
+
+    def sample_batch(self, batch_size: int, seed: int = 0) -> dict[str, np.ndarray]:
+        rng = np.random.default_rng(seed)
+        text = rng.integers(0, self.vocab_size, (batch_size, self.sequence_length - 1), dtype=np.int32)
+        ids = np.concatenate([np.full((batch_size, 1), self.image_token_id, np.int32), text], axis=1)
+        return {
+            "attention_mask": np.ones_like(ids),
+            "pixel_values": rng.random((batch_size, self.image_size, self.image_size, 3), dtype=np.float32),
+            "input_ids": ids,
+            "labels": ids.copy(),
+        }

@@ -31,6 +31,16 @@
 // rows past the end load as zeros and are never stored, keys past the end
 // and (causal) keys after the query get probability 0. A query row with no
 // visible key produces 0, as the TPU kernel's l_safe guard does.
+//
+// Varlen (padded-batch) mode, the TPU kernels' varlen=True (_flash_varlen,
+// flash_attention.py:622-652): a nullable int32 kv_lens [BH] gives each
+// batch-head its own key count, read on the device (no host sync). Only the
+// loop bounds and the key masks take it: keys at or past kv_len get
+// probability 0, the forward's k loop and the backward's q loop stop at it,
+// and the per-head offsets keep the tensor's kv_seq. Every query row,
+// padded or not, attends the keys below kv_len. dk and dv rows in
+// [kv_len, kv_seq) are stored as exact zeros, also for a k block wholly past
+// the length. kv_lens == nullptr is the plain mode (kv_len = kv_seq).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -45,6 +55,11 @@ namespace {
 constexpr float NEG_INF = -1e30f;
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
+
+// This batch-head's key count: kv_lens[bh] clamped to [0, kv_seq], or kv_seq.
+__device__ __forceinline__ int key_count(const int* kv_lens, int bh, int kv_seq) {
+  return kv_lens == nullptr ? kv_seq : min(max(kv_lens[bh], 0), kv_seq);
+}
 
 // ---------------------------------------------------------------- element I/O
 // Eight consecutive elements to/from f32 registers (16-byte vector accesses).
@@ -147,7 +162,8 @@ struct FwdSmem {
 template <typename T, int D>
 __global__ void __launch_bounds__(FWD_THREADS)
     flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, int q_seq, int kv_seq, int causal, float sm_scale) {
+                     float* __restrict__ lse, const int* __restrict__ kv_lens, int q_seq, int kv_seq, int causal,
+                     float sm_scale) {
   using L = FwdSmem<D>;
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
@@ -167,6 +183,7 @@ __global__ void __launch_bounds__(FWD_THREADS)
   const T* qb = q + (size_t)bh * q_seq * D;
   const T* kb_base = k + (size_t)bh * kv_seq * D;
   const T* vb_base = v + (size_t)bh * kv_seq * D;
+  const int kv_len = key_count(kv_lens, bh, kv_seq);
 
   load_tile<T, D>(sQ, L::LDB, qb, q0, FWD_BQ, q_seq, sm_scale);
   for (int i = threadIdx.x; i < FWD_BQ * L::LDO; i += blockDim.x) sO[i] = 0.f;
@@ -174,15 +191,15 @@ __global__ void __launch_bounds__(FWD_THREADS)
     sM[threadIdx.x] = NEG_INF;
     sL[threadIdx.x] = 0.f;
   }
-  int num_kb = cdiv(kv_seq, FWD_BK);
+  int num_kb = cdiv(kv_len, FWD_BK);
   if (causal) num_kb = min(num_kb, cdiv(q0 + FWD_BQ, FWD_BK));
   const int r0 = warp * 16;  // this warp's query rows within the block
   __syncthreads();
 
   for (int kb = 0; kb < num_kb; ++kb) {
     const int k0 = kb * FWD_BK;
-    load_tile<T, D>(sK, L::LDB, kb_base, k0, FWD_BK, kv_seq, 1.f);
-    load_tile<T, D>(sV, L::LDB, vb_base, k0, FWD_BK, kv_seq, 1.f);
+    load_tile<T, D>(sK, L::LDB, kb_base, k0, FWD_BK, kv_len, 1.f);
+    load_tile<T, D>(sV, L::LDB, vb_base, k0, FWD_BK, kv_len, 1.f);
     __syncthreads();
 
     // s = (q * scale) . k^T for this warp's 16 rows x 64 keys
@@ -212,7 +229,7 @@ __global__ void __launch_bounds__(FWD_THREADS)
 #pragma unroll
       for (int t = 0; t < 2; ++t) {
         const int c = lane + 32 * t, ki = k0 + c;
-        ok[t] = ki < kv_seq && (!causal || qi >= ki);
+        ok[t] = ki < kv_len && (!causal || qi >= ki);
         s[t] = ok[t] ? sS[r * L::LDS + c] : NEG_INF;
       }
       const float m_old = sM[r];
@@ -307,8 +324,8 @@ template <typename T, int D>
 __global__ void __launch_bounds__(BWD_THREADS)
     flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                      const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                     float* __restrict__ dq, T* __restrict__ dk, T* __restrict__ dv, int q_seq, int kv_seq,
-                     int causal, float sm_scale) {
+                     const int* __restrict__ kv_lens, float* __restrict__ dq, T* __restrict__ dk,
+                     T* __restrict__ dv, int q_seq, int kv_seq, int causal, float sm_scale) {
   using L = BwdSmem<D>;
   constexpr int NF = D / 16;  // 16-wide column fragments across the head dim
   extern __shared__ __align__(128) unsigned char smem[];
@@ -330,17 +347,20 @@ __global__ void __launch_bounds__(BWD_THREADS)
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * BWD_BK;
   const size_t qoff = (size_t)bh * q_seq, koff = (size_t)bh * kv_seq;
+  const int kv_len = key_count(kv_lens, bh, kv_seq);
 
   // the TPU kernel folds the scale into k for the scores; q stays unscaled
   // for dk = ds^T . q, and ds carries the scale for dq = ds . k
-  load_tile<T, D>(sK, L::LDB, k + koff * D, k0, BWD_BK, kv_seq, 1.f);
-  load_tile<T, D>(sKs, L::LDB, k + koff * D, k0, BWD_BK, kv_seq, sm_scale);
-  load_tile<T, D>(sV, L::LDB, v + koff * D, k0, BWD_BK, kv_seq, 1.f);
+  load_tile<T, D>(sK, L::LDB, k + koff * D, k0, BWD_BK, kv_len, 1.f);
+  load_tile<T, D>(sKs, L::LDB, k + koff * D, k0, BWD_BK, kv_len, sm_scale);
+  load_tile<T, D>(sV, L::LDB, v + koff * D, k0, BWD_BK, kv_len, 1.f);
   for (int i = threadIdx.x; i < BWD_BK * L::LDF; i += blockDim.x) {
     sdK[i] = 0.f;
     sdV[i] = 0.f;
   }
-  const int num_qb = cdiv(q_seq, BWD_BQ);
+  // a k block wholly past kv_len sees no query: it runs no iteration and
+  // stores its zeroed dk/dv below
+  const int num_qb = k0 < kv_len ? cdiv(q_seq, BWD_BQ) : 0;
   const int qb_start = causal ? k0 / BWD_BQ : 0;
   // the s tile is dead once p is formed: it doubles as per-warp scratch for dq
   float* scratch = sS + warp * 256;
@@ -381,7 +401,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
     for (int i = threadIdx.x; i < BWD_BQ * BWD_BK; i += blockDim.x) {
       const int r = i / BWD_BK, c = i % BWD_BK;
       const int qi = q0 + r, ki = k0 + c;
-      const bool ok = qi < q_seq && ki < kv_seq && (!causal || qi >= ki);
+      const bool ok = qi < q_seq && ki < kv_len && (!causal || qi >= ki);
       const float p = ok ? expf(sS[r * L::LDS + c] - sLse[r]) : 0.f;
       const float ds = p * (sdP[r * L::LDS + c] - sDelta[r]) * sm_scale;
       sP[r * L::LDP + c] = __float2bfloat16(p);
@@ -433,8 +453,9 @@ __global__ void __launch_bounds__(BWD_THREADS)
     }
     __syncthreads();  // q/dO tiles and the scratch are reused next iteration
   }
-  // a k block no query sees (causal, kv_seq > q_seq) runs no iteration: the
-  // zeroed accumulators still need a barrier before other threads read them
+  // a k block no query sees (causal with kv_seq > q_seq, or wholly past
+  // kv_len) runs no iteration: the zeroed accumulators still need a barrier
+  // before other threads read them. Rows in [kv_len, kv_seq) store zeros.
   __syncthreads();
 
   for (int i = threadIdx.x; i < BWD_BK * (D / 8); i += blockDim.x) {
@@ -449,23 +470,23 @@ __global__ void __launch_bounds__(BWD_THREADS)
 // ---------------------------------------------------------------- launchers
 
 template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int q_seq, int kv_seq,
-               int causal, float sm_scale, cudaStream_t stream) {
+int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, const int* kv_lens, int bh,
+               int q_seq, int kv_seq, int causal, float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = FwdSmem<D>::bytes;
   static_assert(smem <= 232448, "forward tile set exceeds the 227 KB a block may use");
   cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(cdiv(q_seq, FWD_BQ), bh);
   flash_fwd_kernel<T, D><<<grid, FWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), lse, q_seq,
-      kv_seq, causal, sm_scale);
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), lse, kv_lens,
+      q_seq, kv_seq, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
 template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
-               float* dq, void* dk, void* dv, int bh, int q_seq, int kv_seq, int causal, float sm_scale,
-               cudaStream_t stream) {
+               const int* kv_lens, float* dq, void* dk, void* dv, int bh, int q_seq, int kv_seq, int causal,
+               float sm_scale, cudaStream_t stream) {
   constexpr size_t smem = BwdSmem<D>::bytes;
   static_assert(smem <= 232448, "backward tile set exceeds the 227 KB a block may use");
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -473,24 +494,25 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   dim3 grid(cdiv(kv_seq, BWD_BK), bh);
   flash_bwd_kernel<T, D><<<grid, BWD_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-      delta, dq, static_cast<T*>(dk), static_cast<T*>(dv), q_seq, kv_seq, causal, sm_scale);
+      delta, kv_lens, dq, static_cast<T*>(dk), static_cast<T*>(dv), q_seq, kv_seq, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
 }  // namespace
 
 // Plain C entry points, bound with ctypes. dtype: 0 = bfloat16, 1 = float32.
-// Each returns the cudaError_t of its launch (0 on success); nothing is
-// allocated and nothing synchronises.
+// kv_lens: int32 [BH] on the device for the varlen mode, or nullptr. Each
+// returns the cudaError_t of its launch (0 on success); nothing is allocated
+// and nothing synchronises.
 extern "C" {
 
 const char* mlpt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
 
-int mlpt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, int bh, int q_seq, int kv_seq,
-                   int head_dim, int dtype, int causal, float sm_scale, void* stream) {
+int mlpt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, const int* kv_lens, int bh,
+                   int q_seq, int kv_seq, int head_dim, int dtype, int causal, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   (void)cudaGetLastError();  // report this launch's error, not an earlier one
-#define MLPT_FWD(T, D) return launch_fwd<T, D>(q, k, v, o, lse, bh, q_seq, kv_seq, causal, sm_scale, s)
+#define MLPT_FWD(T, D) return launch_fwd<T, D>(q, k, v, o, lse, kv_lens, bh, q_seq, kv_seq, causal, sm_scale, s)
   if (dtype == 0) {
     if (head_dim == 64) MLPT_FWD(bf16, 64);
     if (head_dim == 128) MLPT_FWD(bf16, 128);
@@ -505,12 +527,12 @@ int mlpt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* 
 }
 
 int mlpt_flash_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                   const float* delta, float* dq, void* dk, void* dv, int bh, int q_seq, int kv_seq, int head_dim,
-                   int dtype, int causal, float sm_scale, void* stream) {
+                   const float* delta, const int* kv_lens, float* dq, void* dk, void* dv, int bh, int q_seq,
+                   int kv_seq, int head_dim, int dtype, int causal, float sm_scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   (void)cudaGetLastError();
 #define MLPT_BWD(T, D) \
-  return launch_bwd<T, D>(q, k, v, dout, lse, delta, dq, dk, dv, bh, q_seq, kv_seq, causal, sm_scale, s)
+  return launch_bwd<T, D>(q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, bh, q_seq, kv_seq, causal, sm_scale, s)
   if (dtype == 0) {
     if (head_dim == 64) MLPT_BWD(bf16, 64);
     if (head_dim == 128) MLPT_BWD(bf16, 128);

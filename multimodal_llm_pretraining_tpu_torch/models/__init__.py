@@ -2,7 +2,8 @@
 
 Same model-type literals and per-model recipe properties as the JAX package;
 ``build_model`` returns a :class:`ModelBundle` holding a ``torch.nn.Module``
-and its loss function. The Pythia and Mamba families are ported so far.
+and its loss function. The Pythia, Mamba and LLaVA families are ported so
+far.
 """
 
 import enum
@@ -12,7 +13,7 @@ from typing import Any, Callable, Generic, Literal, TypeVar
 
 import torch
 
-from ..benchmarking.data import DummyDataset, DummyTextModelingDataset
+from ..benchmarking.data import DummyDataset, DummyMultimodalLanguageModelingDataset, DummyTextModelingDataset
 
 PythiaT = Literal[
     "pythia-14m",
@@ -28,6 +29,8 @@ PythiaT = Literal[
 ]
 
 MambaT = Literal["mamba"]
+
+LlavaT = Literal["llava-pretrain", "llava-finetune"]
 
 ModelT = str
 
@@ -51,11 +54,15 @@ class ModelBundle:
     ``init_state`` fills them from a generator or a converted state dict).
     ``loss_fn(module, batch)`` returns ``(scalar_loss, metrics_dict)``.
     ``init_fn(module, generator)`` draws fresh parameters in place.
+    ``trainable_mask`` maps each of the module's parameter names to whether
+    it trains (LLaVA's frozen tower and LM); None means every parameter
+    trains.
     """
 
     module: torch.nn.Module
     loss_fn: Callable
     init_fn: Callable
+    trainable_mask: dict[str, bool] | None = None
 
 
 T = TypeVar("T", bound=ModelT)
@@ -160,12 +167,38 @@ class LanguageModelClass(Generic[T], BaseModelClass[T]):
         return DummyTextModelingDataset(vocab_size=self.vocab_size, sequence_length=self.sequence_length)
 
 
+class MultimodalModelClass(Generic[T], BaseModelClass[T]):
+    @property
+    @abstractmethod
+    def vocab_size(self) -> int:
+        raise NotImplementedError
+
+    @property
+    @abstractmethod
+    def sequence_length(self) -> int:
+        raise NotImplementedError
+
+    @property
+    @abstractmethod
+    def image_size(self) -> int:
+        raise NotImplementedError
+
+    def load_dummy_dataset(self, sequence_length: int = 512) -> DummyDataset:
+        # multimodal models are benchmarked at seq 512 whatever their
+        # declared max sequence length, as in the JAX package
+        return DummyMultimodalLanguageModelingDataset(
+            vocab_size=self.vocab_size,
+            sequence_length=sequence_length,
+            image_size=self.image_size,
+            image_token_id=getattr(self, "image_token_index", 32000),
+        )
+
+
 # Families not ported yet, with the ROADMAP item that ports each.
 _NOT_PORTED = {
     "roberta": "ROADMAP Queue 1 item 9 (roberta)",
     "convnext": "ROADMAP Queue 1 item 9 (convnext)",
     "vit": "ROADMAP Queue 1 item 9 (vit)",
-    "llava": "ROADMAP Queue 1 item 9 (llava) and Queue 2 item 2 (varlen flash attention)",
     "vilt": "ROADMAP Queue 1 item 9 (vilt)",
 }
 
@@ -181,6 +214,14 @@ def get_model_class(model_type: ModelT) -> BaseModelClass:
         from .mamba import MambaModelClass
 
         return MambaModelClass(model_type)
+    if model_type == "llava-pretrain":
+        from .llava import LlavaPretrainModelClass
+
+        return LlavaPretrainModelClass(model_type)
+    if model_type == "llava-finetune":
+        from .llava import LlavaFinetuneModelClass
+
+        return LlavaFinetuneModelClass(model_type)
     for prefix, item in _NOT_PORTED.items():
         if model_type.startswith(prefix):
             raise NotImplementedError(f"{model_type} is not ported to PyTorch yet: {item}")
@@ -191,10 +232,12 @@ __all__ = [
     "ModelT",
     "PythiaT",
     "MambaT",
+    "LlavaT",
     "ModelBundle",
     "SchedulerType",
     "OptimizerT",
     "BaseModelClass",
     "LanguageModelClass",
+    "MultimodalModelClass",
     "get_model_class",
 ]

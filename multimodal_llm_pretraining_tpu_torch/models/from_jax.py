@@ -1,5 +1,5 @@
-"""JAX param trees -> the port's state dicts: GPTNeoX (``params_from_jax``)
-and Mamba (``mamba_params_from_jax``).
+"""JAX param trees -> the port's state dicts: GPTNeoX (``params_from_jax``),
+Mamba (``mamba_params_from_jax``) and LLaVA (``llava_params_from_jax``).
 
 The JAX model scans its blocks, so every block leaf carries a leading layer
 axis ``L``; the port holds one module per block. Dense kernels are [in, out]
@@ -11,7 +11,14 @@ Mamba's leaves follow the same rules: stacked ``layers/...`` leaves split
 per block, Dense kernels transposed, and ``conv_weight`` [L, d_conv, d_inner]
 kept in the JAX layout the port's block stores.
 
-Both functions take numpy arrays (``np.asarray`` of each JAX leaf) and never
+LLaVA's tree has two stacks, ``vision_tower/layers/...`` and
+``language_model/layers/...``, each split per block; every other leaf keeps
+its path with ``/`` as ``.``. RMSNorm and LayerNorm ``scale`` become
+``.weight``, Dense kernels are transposed into ``.weight``, and
+``language_model_embed_tokens``, ``class_embedding`` and
+``position_embeddings`` keep their layout.
+
+The functions take numpy arrays (``np.asarray`` of each JAX leaf) and never
 imports JAX. They map any tree of that structure, so they convert a
 gradient tree as well as a param tree.
 """
@@ -64,4 +71,31 @@ def mamba_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
         for name in _MAMBA_LEAVES:
             out[f"layers.{i}.{name}"] = _t(np.asarray(layers[name])[i])
     out["final_norm.weight"] = _t(tree["final_norm"]["scale"])
+    return out
+
+
+def _llava_leaves(tree: dict, prefix: str, out: dict, layer: int | None = None) -> None:
+    for key, val in tree.items():
+        if isinstance(val, dict):
+            if key == "layers" and layer is None:
+                first = val
+                while isinstance(first, dict):
+                    first = next(iter(first.values()))
+                for i in range(np.asarray(first).shape[0]):
+                    _llava_leaves(val, f"{prefix}layers.{i}.", out, i)
+            else:
+                _llava_leaves(val, f"{prefix}{key}.", out, layer)
+            continue
+        a = np.asarray(val) if layer is None else np.asarray(val)[layer]
+        if key == "kernel":
+            out[prefix + "weight"] = _t(a.T)
+        elif key == "scale":
+            out[prefix + "weight"] = _t(a)
+        else:
+            out[prefix + key] = _t(a)
+
+
+def llava_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
+    out: dict[str, torch.Tensor] = {}
+    _llava_leaves(tree, "", out)
     return out

@@ -1,14 +1,16 @@
-"""Shared building blocks (counterpart of ``models/layers.py:30-54, 76-134``,
-and of flax's ``nn.RMSNorm``).
+"""Shared building blocks (counterpart of ``models/layers.py:30-148``, and
+of flax's ``nn.RMSNorm``).
 
 Parameters keep their own dtype (f32, or bf16 under the ``bf16_sr`` layout)
 and are cast to the compute dtype where they are used, the way flax's
 ``dtype=`` works: a Dense with f32 params and bf16 compute multiplies bf16
 operands, and its gradient flows back to the f32 params through the cast.
 
-Not ported yet (ROADMAP Queue 1 item 2): grouped-query attention,
-``llama3_rope_scaling``, ``GatedMlp`` and the ``make_stack`` remat policies.
+Not ported yet (ROADMAP Queue 1 item 2): the ``make_stack`` remat policies.
 """
+
+import math
+from typing import Callable
 
 import torch
 import torch.nn.functional as F
@@ -19,9 +21,12 @@ from ..ops.attention import AttnImpl, dot_product_attention
 # ------------------------------------------------------------------ rotary
 
 
-def rotary_angles(positions: torch.Tensor, rotary_dim: int, base: float = 10000.0):
-    """(cos, sin), each f32 [S, rotary_dim // 2]."""
+def rotary_angles(positions: torch.Tensor, rotary_dim: int, base: float = 10000.0, scaling: Callable | None = None):
+    """(cos, sin), each f32 [S, rotary_dim // 2]. ``scaling`` maps the f32
+    inverse frequencies (``llama3_rope_scaling``)."""
     inv_freq = 1.0 / (base ** (torch.arange(0, rotary_dim, 2, dtype=torch.float32, device=positions.device) / rotary_dim))
+    if scaling is not None:
+        inv_freq = scaling(inv_freq)
     freqs = positions.float()[:, None] * inv_freq[None, :]
     return torch.cos(freqs), torch.sin(freqs)
 
@@ -37,6 +42,26 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     sin = sin[None, None].to(x.dtype)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return torch.cat([out, x_pass], dim=-1) if x_pass.shape[-1] else out
+
+
+def llama3_rope_scaling(factor=32.0, low_freq_factor=1.0, high_freq_factor=4.0, original_max_position=8192):
+    """Llama-3.x rope frequency scaling, in f32 as the JAX version computes it."""
+
+    def scale(inv_freq: torch.Tensor) -> torch.Tensor:
+        wavelen = 2 * math.pi / inv_freq
+        low_wl = original_max_position / low_freq_factor
+        high_wl = original_max_position / high_freq_factor
+        smooth = ((original_max_position / wavelen - low_freq_factor) / (high_freq_factor - low_freq_factor)).clamp(0.0, 1.0)
+        scaled = inv_freq / factor
+        mid = (1 - smooth) * scaled + smooth * inv_freq
+        return torch.where(wavelen > low_wl, scaled, torch.where(wavelen < high_wl, inv_freq, mid))
+
+    return scale
+
+
+def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
+    """flax ``nn.gelu``, whose default is the tanh approximation."""
+    return F.gelu(x, approximate="tanh")
 
 
 # ------------------------------------------------------------------ modules
@@ -88,9 +113,11 @@ class RMSNorm(nn.Module):
 
 
 class SelfAttention(nn.Module):
-    """Fused-QKV multi-head self-attention, optionally causal and rotary. The
-    qkv output is laid out [q (h*d) | k | v], head-major, like the JAX
-    module's."""
+    """Fused-QKV multi-head (optionally grouped-query) self-attention,
+    optionally causal and rotary. The qkv output is laid out [q (h*d) | k
+    (kvh*d) | v], head-major, like the JAX module's. GQA repeats each kv head
+    ``h // kvh`` times in place (``repeat_interleave``, as ``jnp.repeat``
+    does), so q head i reads kv head ``i // (h // kvh)``."""
 
     def __init__(
         self,
@@ -98,40 +125,73 @@ class SelfAttention(nn.Module):
         num_heads: int,
         head_dim: int,
         *,
+        num_kv_heads: int | None = None,
         causal: bool = False,
         rotary_dim: int = 0,
         rotary_base: float = 10000.0,
+        rope_scaling: Callable | None = None,
         attn_impl: AttnImpl = "flash",
         use_bias: bool = True,
+        out_bias: bool | None = None,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.num_kv_heads = num_kv_heads or num_heads
         self.causal, self.rotary_dim, self.rotary_base = causal, rotary_dim, rotary_base
+        self.rope_scaling = rope_scaling
         self.attn_impl = attn_impl
-        self.qkv = Dense(hidden, 3 * num_heads * head_dim, bias=use_bias, dtype=dtype)
-        self.out = Dense(num_heads * head_dim, hidden, bias=use_bias, dtype=dtype)
+        self.qkv = Dense(hidden, (num_heads + 2 * self.num_kv_heads) * head_dim, bias=use_bias, dtype=dtype)
+        self.out = Dense(num_heads * head_dim, hidden, bias=use_bias if out_bias is None else out_bias, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
+        """``mask``: [B, S] keep-mask over the keys (1 = attend)."""
         b, s, _ = x.shape
-        h, d = self.num_heads, self.head_dim
-        q, k, v = (t.reshape(b, s, h, d).transpose(1, 2) for t in self.qkv(x).split(h * d, dim=-1))
+        h, kvh, d = self.num_heads, self.num_kv_heads, self.head_dim
+        q, k, v = self.qkv(x).split([h * d, kvh * d, kvh * d], dim=-1)
+        q = q.reshape(b, s, h, d).transpose(1, 2)
+        k, v = (t.reshape(b, s, kvh, d).transpose(1, 2) for t in (k, v))
         if self.rotary_dim:
-            cos, sin = rotary_angles(torch.arange(s, device=x.device), self.rotary_dim, self.rotary_base)
+            cos, sin = rotary_angles(torch.arange(s, device=x.device), self.rotary_dim, self.rotary_base, self.rope_scaling)
             q = apply_rotary(q, cos, sin)
             k = apply_rotary(k, cos, sin)
-        out = dot_product_attention(q, k, v, causal=self.causal, impl=self.attn_impl)
+        if kvh != h:
+            k = k.repeat_interleave(h // kvh, dim=1)
+            v = v.repeat_interleave(h // kvh, dim=1)
+        out = dot_product_attention(q, k, v, causal=self.causal, mask=mask, impl=self.attn_impl)
         return self.out(out.transpose(1, 2).reshape(b, s, h * d))
 
 
 class Mlp(nn.Module):
-    """up -> GELU -> down. flax's ``nn.gelu`` defaults to the tanh
-    approximation, so this uses ``approximate="tanh"``, not the exact GELU."""
+    """up -> activation -> down. The default is flax's ``nn.gelu``, the tanh
+    approximation, not the exact GELU."""
 
-    def __init__(self, hidden: int, intermediate: int, use_bias: bool = True, dtype: torch.dtype = torch.float32):
+    def __init__(
+        self,
+        hidden: int,
+        intermediate: int,
+        activation: Callable = gelu_tanh,
+        use_bias: bool = True,
+        dtype: torch.dtype = torch.float32,
+    ):
         super().__init__()
+        self.activation = activation
         self.up = Dense(hidden, intermediate, bias=use_bias, dtype=dtype)
         self.down = Dense(intermediate, hidden, bias=use_bias, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(F.gelu(self.up(x), approximate="tanh"))
+        return self.down(self.activation(self.up(x)))
+
+
+class GatedMlp(nn.Module):
+    """SwiGLU (Llama-style): a fused bias-free gate+up projection laid out
+    [gate | up], then silu(gate) * up and the bias-free down projection."""
+
+    def __init__(self, hidden: int, intermediate: int, dtype: torch.dtype = torch.float32):
+        super().__init__()
+        self.gate_up = Dense(hidden, 2 * intermediate, bias=False, dtype=dtype)
+        self.down = Dense(intermediate, hidden, bias=False, dtype=dtype)
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        gate, up = self.gate_up(x).chunk(2, dim=-1)
+        return self.down(F.silu(gate) * up)

@@ -103,9 +103,9 @@ def load(verbose: bool = False) -> ctypes.CDLL:
         if _lib is None:
             lib = ctypes.CDLL(str(build(verbose=verbose)))
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
-            lib.mlpt_flash_fwd.argtypes = [ptr] * 5 + [i32] * 6 + [f32, ptr]
+            lib.mlpt_flash_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, ptr]
             lib.mlpt_flash_fwd.restype = i32
-            lib.mlpt_flash_bwd.argtypes = [ptr] * 9 + [i32] * 6 + [f32, ptr]
+            lib.mlpt_flash_bwd.argtypes = [ptr] * 10 + [i32] * 6 + [f32, ptr]
             lib.mlpt_flash_bwd.restype = i32
             lib.mlpt_scan_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
             lib.mlpt_scan_fwd.restype = i32

@@ -4,7 +4,8 @@ plain PyTorch versions.
 Counterpart of ``multimodal_llm_pretraining_tpu/ops/flash_attention.py``. The
 forward kernel replaces ``_fwd_kernel`` (``:91``) and the backward kernel the
 fused single-pass ``_bwd_fused_kernel`` (``:208``), the JAX package's default
-backward. Both live in ``csrc/flash_attention.cu`` and are built on first use
+backward, each in its plain and its varlen (padded-batch, ``:622-652``) mode.
+Both live in ``csrc/flash_attention.cu`` and are built on first use
 (``ops/_build.py``).
 
 Which version runs is decided by where the tensors lie, and nothing else:
@@ -16,6 +17,11 @@ Numerics mirror the TPU kernels: the scale folds into q for the forward
 scores and into k for the backward scores, products take bf16 operands with
 f32 accumulation, probabilities are recomputed from the saved f32 logsumexp,
 ds = p * (dp - delta) * scale, and a query row with no visible key gives 0.
+
+Varlen mode: an int32 ``kv_lens`` [BH] gives each batch-head its key count;
+keys at or past it are invisible to every query row, padded rows included,
+and dk, dv are exactly 0 there. ``flash_attention(..., kv_len_mask=m)``
+reduces a [B, Sk] keep-mask to lens as the JAX package does (``:694-697``).
 """
 
 import torch
@@ -27,36 +33,44 @@ KERNEL_HEAD_DIMS = (64, 128, 256)
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # Kernel launches in this process, counted by the wrappers right where they
-# launch; plain-version calls do not count.
+# launch, plain and varlen mode apart; plain-version calls do not count.
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+VARLEN_FWD_LAUNCHES = 0
+VARLEN_BWD_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
-    global FWD_LAUNCHES, BWD_LAUNCHES
-    FWD_LAUNCHES = 0
-    BWD_LAUNCHES = 0
+    global FWD_LAUNCHES, BWD_LAUNCHES, VARLEN_FWD_LAUNCHES, VARLEN_BWD_LAUNCHES
+    FWD_LAUNCHES = BWD_LAUNCHES = VARLEN_FWD_LAUNCHES = VARLEN_BWD_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------- plain versions
 
 
-def _visible(q_seq: int, kv_seq: int, causal: bool, device) -> torch.Tensor:
-    """[Sq, Sk] bool: which keys each query may attend to."""
-    if not causal:
-        return torch.ones(q_seq, kv_seq, dtype=torch.bool, device=device)
-    qi = torch.arange(q_seq, device=device)[:, None]
+def _visible(q: torch.Tensor, kv_seq: int, causal: bool, kv_lens: torch.Tensor | None = None) -> torch.Tensor:
+    """Which keys each query of ``q`` [..., Sq, D] may attend to: [Sq, Sk]
+    bool, or [..., Sq, Sk] with ``kv_lens`` (one length per leading index,
+    in their row-major order; key k visible iff k < len)."""
+    q_seq, device = q.shape[-2], q.device
     ki = torch.arange(kv_seq, device=device)[None, :]
-    return qi >= ki
+    if causal:
+        mask = torch.arange(q_seq, device=device)[:, None] >= ki
+    else:
+        mask = torch.ones(q_seq, kv_seq, dtype=torch.bool, device=device)
+    if kv_lens is not None:
+        mask = mask & (ki < kv_lens.to(device).reshape(*q.shape[:-2], 1, 1))
+    return mask
 
 
-def flash_fwd_reference(q, k, v, causal: bool, sm_scale: float):
+def flash_fwd_reference(q, k, v, causal: bool, sm_scale: float, kv_lens=None):
     """Plain version of the forward kernel: (out [.., Sq, D] in q's dtype,
-    lse [.., Sq] f32). Works on any leading dims."""
+    lse [.., Sq] f32). Works on any leading dims; ``kv_lens`` holds one
+    length per leading index ([BH] for [BH, S, D] tensors)."""
     in_dtype = q.dtype
     qs = (q.float() * sm_scale).to(in_dtype)
     s = torch.matmul(qs.float(), k.float().transpose(-1, -2))
-    mask = _visible(q.shape[-2], k.shape[-2], causal, q.device)
+    mask = _visible(q, k.shape[-2], causal, kv_lens)
     s = torch.where(mask, s, NEG_INF)
     m = s.amax(-1, keepdim=True)
     p = torch.exp(s - m) * mask
@@ -68,7 +82,7 @@ def flash_fwd_reference(q, k, v, causal: bool, sm_scale: float):
     return out.to(in_dtype), lse
 
 
-def flash_bwd_reference(q, k, v, out, lse, dout, causal: bool, sm_scale: float):
+def flash_bwd_reference(q, k, v, out, lse, dout, causal: bool, sm_scale: float, kv_lens=None):
     """Plain version of the fused backward kernel: (dq, dk, dv) in the input
     dtypes. p and ds are rounded to the input dtype before their products, as
     the kernels round them to bf16 operands."""
@@ -76,7 +90,7 @@ def flash_bwd_reference(q, k, v, out, lse, dout, causal: bool, sm_scale: float):
     delta = (dout.float() * out.float()).sum(-1, keepdim=True)
     ks = (k.float() * sm_scale).to(in_dtype)
     s = torch.matmul(q.float(), ks.float().transpose(-1, -2))
-    mask = _visible(q.shape[-2], k.shape[-2], causal, q.device)
+    mask = _visible(q, k.shape[-2], causal, kv_lens)
     p = torch.exp(torch.where(mask, s, NEG_INF) - lse.float()[..., None]) * mask
     dp = torch.matmul(dout.float(), v.float().transpose(-1, -2))
     ds = (p * (dp - delta) * sm_scale).to(in_dtype).float()
@@ -116,36 +130,54 @@ def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float):
+def _lens_ptr(kv_lens: torch.Tensor | None, bh: int, device) -> tuple[torch.Tensor | None, int | None]:
+    """(contiguous int32 lens, its device pointer), or (None, None) for the
+    plain mode. The lens stay on the device: no value is read back."""
+    if kv_lens is None:
+        return None, None
+    if kv_lens.device != device or kv_lens.dtype != torch.int32 or kv_lens.shape != (bh,):
+        raise ValueError(f"kv_lens must be int32 [{bh}] on {device}, got {kv_lens.dtype} {tuple(kv_lens.shape)} on {kv_lens.device}")
+    kv_lens = kv_lens.contiguous()
+    return kv_lens, kv_lens.data_ptr()
+
+
+def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, kv_lens=None):
     """Launch the forward kernel on [BH, S, D] CUDA tensors; returns
-    (out in q's dtype, lse f32 [BH, Sq])."""
-    global FWD_LAUNCHES
+    (out in q's dtype, lse f32 [BH, Sq]). ``kv_lens`` (int32 [BH]) selects
+    the varlen mode."""
+    global FWD_LAUNCHES, VARLEN_FWD_LAUNCHES
     q, k, v = (_kernel_ready(t) for t in (q, k, v))
     bh, q_seq, d = q.shape
     _check_kernel_inputs((q, k, v), d)
     kv_seq = k.shape[1]
     if k.shape != v.shape or k.shape[0] != bh or q_seq == 0 or kv_seq == 0:
         raise ValueError(f"flash attention shapes disagree: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
+    kv_lens, lens_ptr = _lens_ptr(kv_lens, bh, q.device)
     lib = _build.load()
     out = torch.empty_like(q)
     lse = torch.empty(bh, q_seq, dtype=torch.float32, device=q.device)
     with torch.cuda.device(q.device):
         err = lib.mlpt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), lens_ptr,
             bh, q_seq, kv_seq, d, _DTYPE_CODE[q.dtype], int(causal), float(sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "flash attention forward kernel")
-    FWD_LAUNCHES += 1
+    if kv_lens is None:
+        FWD_LAUNCHES += 1
+    else:
+        VARLEN_FWD_LAUNCHES += 1
     return out, lse
 
 
-def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, sm_scale: float):
+def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, sm_scale: float, kv_lens=None):
     """Launch the fused backward kernel; returns (dq, dk, dv) in the input
     dtype. dq accumulates in a zeroed f32 buffer by atomic adds in an order
     that changes between runs, so two runs may differ by one ulp of dq's
-    dtype per element; dk and dv repeat exactly."""
-    global BWD_LAUNCHES
+    dtype per element; dk and dv repeat exactly. ``kv_lens`` (int32 [BH])
+    selects the varlen mode; dk and dv rows at or past each length are
+    written as zeros."""
+    global BWD_LAUNCHES, VARLEN_BWD_LAUNCHES
     q, k, v, out, dout = (_kernel_ready(t) for t in (q, k, v, out, dout))
     bh, q_seq, d = q.shape
     _check_kernel_inputs((q, k, v, out, dout), d)
@@ -154,6 +186,7 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, sm_scale: float):
         raise ValueError("flash attention backward shapes disagree")
     if lse.device != q.device:
         raise ValueError(f"lse lies on {lse.device}, the other inputs on {q.device}")
+    kv_lens, lens_ptr = _lens_ptr(kv_lens, bh, q.device)
     lse = _kernel_ready(lse.float())
     delta = _kernel_ready((dout.float() * out.float()).sum(-1))  # [BH, Sq] f32, as the TPU path computes it
     lib = _build.load()
@@ -162,56 +195,71 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, sm_scale: float):
     dv = torch.empty_like(v)
     with torch.cuda.device(q.device):
         err = lib.mlpt_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(),
+            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), lens_ptr,
             dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
             bh, q_seq, kv_seq, d, _DTYPE_CODE[q.dtype], int(causal), float(sm_scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "flash attention backward kernel")
-    BWD_LAUNCHES += 1
+    if kv_lens is None:
+        BWD_LAUNCHES += 1
+    else:
+        VARLEN_BWD_LAUNCHES += 1
     return dq.to(q.dtype), dk, dv
 
 
-def _fwd(q, k, v, causal, sm_scale):
+def _fwd(q, k, v, causal, sm_scale, kv_lens):
     if q.device.type == "cuda":
-        return flash_fwd_cuda(q, k, v, causal, sm_scale)
+        return flash_fwd_cuda(q, k, v, causal, sm_scale, kv_lens)
     if q.device.type == "cpu":
-        return flash_fwd_reference(q, k, v, causal, sm_scale)
+        return flash_fwd_reference(q, k, v, causal, sm_scale, kv_lens)
     raise ValueError(f"flash attention has no kernel for device {q.device}")
 
 
-def _bwd(q, k, v, out, lse, dout, causal, sm_scale):
+def _bwd(q, k, v, out, lse, dout, causal, sm_scale, kv_lens):
     if q.device.type == "cuda":
-        return flash_bwd_cuda(q, k, v, out, lse, dout, causal, sm_scale)
+        return flash_bwd_cuda(q, k, v, out, lse, dout, causal, sm_scale, kv_lens)
     if q.device.type == "cpu":
-        return flash_bwd_reference(q, k, v, out, lse, dout, causal, sm_scale)
+        return flash_bwd_reference(q, k, v, out, lse, dout, causal, sm_scale, kv_lens)
     raise ValueError(f"flash attention has no kernel for device {q.device}")
 
 
 class FlashAttention(torch.autograd.Function):
-    """[BH, S, D] attention; saves (q, k, v, out, lse) like the JAX
-    ``_flash_fwd_rule`` and runs the fused backward."""
+    """[BH, S, D] attention; saves (q, k, v, kv_lens, out, lse) like the JAX
+    ``_flash_varlen_fwd_rule`` (``kv_lens`` None in the plain mode, which
+    saves what ``_flash_fwd_rule`` does) and runs the fused backward."""
 
     @staticmethod
-    def forward(ctx, q, k, v, causal: bool, sm_scale: float):
-        out, lse = _fwd(q, k, v, causal, sm_scale)
-        ctx.save_for_backward(q, k, v, out, lse)
+    def forward(ctx, q, k, v, causal: bool, sm_scale: float, kv_lens=None):
+        out, lse = _fwd(q, k, v, causal, sm_scale, kv_lens)
+        ctx.save_for_backward(q, k, v, kv_lens, out, lse)
         ctx.causal, ctx.sm_scale = causal, sm_scale
         return out
 
     @staticmethod
     def backward(ctx, dout):
-        q, k, v, out, lse = ctx.saved_tensors
-        dq, dk, dv = _bwd(q, k, v, out, lse, dout, ctx.causal, ctx.sm_scale)
-        return dq, dk, dv, None, None
+        q, k, v, kv_lens, out, lse = ctx.saved_tensors
+        dq, dk, dv = _bwd(q, k, v, out, lse, dout, ctx.causal, ctx.sm_scale, kv_lens)
+        return dq, dk, dv, None, None, None
 
 
-def flash_attention(q, k, v, *, causal: bool = False, sm_scale: float | None = None) -> torch.Tensor:
-    """Flash attention over [B, H, S, D] (no padding mask: the varlen mode is
-    ROADMAP Queue 2 item 2)."""
+def flash_attention(q, k, v, *, causal: bool = False, sm_scale: float | None = None, kv_len_mask=None) -> torch.Tensor:
+    """Flash attention over [B, H, S, D].
+
+    ``kv_len_mask`` is a [B, Sk] keep-mask (1 = attend). As in the JAX
+    package it must be prefix-contiguous (right-padded batches): it is
+    reduced to one key count per row, its sum, so a non-prefix mask is read
+    as its prefix of that length. A mask always takes the varlen mode, even
+    when every row is full."""
     if sm_scale is None:
         sm_scale = q.shape[-1] ** -0.5
     b, h, sq, d = q.shape
     sk = k.shape[2]
-    out = FlashAttention.apply(q.reshape(b * h, sq, d), k.reshape(b * h, sk, d), v.reshape(b * h, sk, d), causal, sm_scale)
+    lens = None
+    if kv_len_mask is not None:
+        lens = kv_len_mask.to(torch.int32).sum(-1, dtype=torch.int32)  # [B]
+        lens = lens[:, None].expand(b, h).reshape(b * h)
+    out = FlashAttention.apply(
+        q.reshape(b * h, sq, d), k.reshape(b * h, sk, d), v.reshape(b * h, sk, d), causal, sm_scale, lens
+    )
     return out.reshape(b, h, sq, d)

@@ -37,9 +37,12 @@ class _MatmulF32(torch.autograd.Function):
 
     @staticmethod
     def backward(ctx, g):
+        # a frozen head (llava's tied embedding) skips its [H, V] product
         x, w = ctx.saved_tensors
         g = g.to(x.dtype)
-        return _mm(g, w.t(), x.dtype), _mm(x.t(), g, w.dtype)
+        dx = _mm(g, w.t(), x.dtype) if ctx.needs_input_grad[0] else None
+        dw = _mm(x.t(), g, w.dtype) if ctx.needs_input_grad[1] else None
+        return dx, dw
 
 
 def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -48,8 +51,9 @@ def matmul_f32(x: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     return _MatmulF32.apply(x, w)
 
 
-def _chunk_nll_sum(kernel: torch.Tensor, h_c: torch.Tensor, l_c: torch.Tensor, ignore_index: int) -> torch.Tensor:
-    logits = matmul_f32(h_c, kernel)
+def _chunk_nll_sum(kernel: torch.Tensor, h_c: torch.Tensor, l_c: torch.Tensor, ignore_index: int,
+                   vocab: int) -> torch.Tensor:
+    logits = matmul_f32(h_c, kernel)[:, :vocab]
     valid = l_c != ignore_index
     safe = torch.where(valid, l_c, 0)
     logz = torch.logsumexp(logits, dim=-1)
@@ -67,11 +71,19 @@ def chunked_lm_cross_entropy(
 ) -> torch.Tensor:
     """Mean cross entropy over valid tokens, computed chunk by chunk. The last
     chunk is simply shorter: the JAX version pads it with ignored labels,
-    which adds nothing to the sum."""
+    which adds nothing to the sum.
+
+    A vocab that is not a multiple of 8 (llava's 128257) gets zero columns
+    up to one, sliced off the logits before the softmax: f32 logits rows of
+    an odd length are not 16-byte aligned, and cuBLAS then falls back to a
+    GEMM several times slower."""
+    vocab = kernel.shape[1]
+    if vocab % 8:
+        kernel = torch.nn.functional.pad(kernel, (0, -vocab % 8))
     loss_sum = hidden.new_zeros((), dtype=torch.float32)
     for start in range(0, hidden.shape[0], chunk_size):
         h_c, l_c = hidden[start : start + chunk_size], labels[start : start + chunk_size]
-        loss_sum = loss_sum + checkpoint(_chunk_nll_sum, kernel, h_c, l_c, ignore_index, use_reentrant=False)
+        loss_sum = loss_sum + checkpoint(_chunk_nll_sum, kernel, h_c, l_c, ignore_index, vocab, use_reentrant=False)
     count = (labels != ignore_index).sum().clamp_min(1)
     return loss_sum / count
 

@@ -16,6 +16,11 @@ its increment, so step 1 uses ``schedule(0)`` (0 under warmup);
 Tensors are lists in the module's parameter order. Moments are updated in
 place where the JAX versions return new trees; ``update`` returns the f32
 (or leaf-dtype) update of each leaf for the caller to apply.
+
+Frozen leaves carry no state: the session hands ``init`` and ``update`` its
+trainable parameters only, so moments, the global norm of the clip and the
+updates cover those alone, as the JAX chain wrapped in ``optax.masked``
+(``optimizer.py:202-208``) gives.
 """
 
 import math

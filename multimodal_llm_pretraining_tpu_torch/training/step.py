@@ -18,6 +18,15 @@ Two state layouts work, chosen by the plan as in JAX:
   accumulators, bf16 moments (``opt_state_dtype="bf16"``), updates applied
   with stochastic rounding and no f32 master.
 
+A model with a trainable mask (LLaVA) freezes the rest: frozen parameters
+get ``requires_grad_(False)``, so autograd records nothing for them (JAX's
+``stop_gradient`` and dead-code elimination, ``step.py:400-412``), and only
+trainable ones get gradients and optimizer state (``step.py:200-231,
+414-435``). Frozen parameters are stored in the compute dtype, trainable
+ones in the layout's: with bf16 compute and no SR that is bf16 frozen
+leaves beside f32 trainable ones, the layout JAX trains llava-pretrain in
+(``step.py:158-169``).
+
 Activation checkpointing goes to the model's ``build_model``: mamba remats
 each whole block, pythia refuses it with the ROADMAP item. Not ported yet,
 and refused with the ROADMAP item: ``master_weights`` True/"device",
@@ -79,6 +88,14 @@ class TrainSession:
             device=self.device,
         )
         self.module = self.bundle.module.to(self.param_dtype)
+        mask = self.bundle.trainable_mask
+        # names of the parameters the optimizer updates, in module order
+        self.trainable = [n for n, _ in self.module.named_parameters() if mask is None or mask[n]]
+        if mask is not None:
+            for name, p in self.module.named_parameters():
+                if not mask[name]:
+                    p.requires_grad_(False)
+                    p.data = p.data.to(self.compute_dtype)
         self.dataset = model_class.load_dummy_dataset()
         self.tx = build_optimizer(
             plan.optimizer,
@@ -94,15 +111,20 @@ class TrainSession:
     # ----------------------------------------------------------- data
 
     def _to_device(self, host: dict[str, np.ndarray]) -> dict[str, torch.Tensor]:
-        return {k: torch.from_numpy(v).to(self.device, torch.long) for k, v in host.items()}
+        """Integer leaves (ids, labels, masks) as long, float leaves (pixels)
+        as float32."""
+        return {
+            k: torch.from_numpy(v).to(self.device, torch.long if np.issubdtype(v.dtype, np.integer) else torch.float32)
+            for k, v in host.items()
+        }
 
     def make_micro_batch(self, micro_batch_size: int | None = None, seed: int = 0) -> dict[str, torch.Tensor]:
-        """One micro-batch [mbs, S] on the device."""
+        """One micro-batch [mbs, ...] on the device."""
         mbs = micro_batch_size if micro_batch_size is not None else self.plan.micro_batch_size
         return self._to_device(self.dataset.sample_batch(mbs, seed=seed))
 
     def make_train_batch(self, seed: int = 0) -> dict[str, torch.Tensor]:
-        """[acc, mbs, S] stacked batch for the full step."""
+        """[acc, mbs, ...] stacked batch for the full step."""
         acc, mbs = self.plan.gradient_accumulation_steps, self.plan.micro_batch_size
         host = self.dataset.sample_batch(acc * mbs, seed=seed)
         return self._to_device({k: v.reshape(acc, mbs, *v.shape[1:]) for k, v in host.items()})
@@ -112,7 +134,8 @@ class TrainSession:
     def init_state(self, seed: int = 0, state_dict: dict[str, torch.Tensor] | None = None) -> TrainState:
         """Fresh parameters drawn from a generator seeded with ``seed``, or
         ``state_dict`` (e.g. ``models.from_jax.params_from_jax``) cast to the
-        storage dtype; then zeroed optimizer state and no gradients."""
+        storage dtype; then zeroed optimizer state for the trainable
+        parameters and no gradients."""
         if state_dict is None:
             self.bundle.init_fn(self.module, torch.Generator(device=self.device).manual_seed(seed))
         else:
@@ -124,7 +147,7 @@ class TrainSession:
                     p.copy_(state_dict[name])
         self.zero_grads()
         params = dict(self.module.named_parameters())
-        return TrainState(step=0, params=params, opt_state=self.tx.init(list(params.values())))
+        return TrainState(step=0, params=params, opt_state=self.tx.init([params[n] for n in self.trainable]))
 
     def zero_grads(self) -> None:
         """Drop the accumulators: the next backward writes its gradient into
@@ -148,10 +171,10 @@ class TrainSession:
 
     @torch.no_grad()
     def _optimizer_update(self, state: TrainState, acc_steps: float) -> None:
-        params = list(state.params.values())
+        params = [state.params[n] for n in self.trainable]
         grads = [p.grad for p in params]
         if any(g is None for g in grads):
-            raise RuntimeError("optimizer update without gradients for every parameter")
+            raise RuntimeError("optimizer update without gradients for every trainable parameter")
         for g in grads:
             g.div_(acc_steps)
         updates = self.tx.update(grads, state.opt_state, params)

@@ -4,7 +4,8 @@ The JAX side runs its forward kernel and the fused single-pass backward
 (``PREFER_FUSED_BWD`` pinned on) in interpret mode on the CPU; the port's side
 runs its plain versions ``flash_fwd_reference`` / ``flash_bwd_reference`` and
 the autograd ``FlashAttention`` (which takes the plain versions for CPU
-tensors). Inputs come from one numpy generator and go to both.
+tensors). Inputs come from one numpy generator and go to both. The varlen
+cases give both sides the same right-padded [B, S] keep-mask.
 """
 
 import jax
@@ -28,27 +29,37 @@ def _inputs(b, h, s, d, seed):
     return [rng.normal(size=(b, h, s, d)).astype(np.float32) for _ in range(4)]
 
 
-def _jax_side(q, k, v, do, causal, block, dtype):
-    """(out, lse, dq, dk, dv) from the Pallas kernels in interpret mode."""
+def _jax_side(q, k, v, do, causal, block, dtype, mask=None):
+    """(out, lse, dq, dk, dv) from the Pallas kernels in interpret mode;
+    ``mask`` ([B, S] keep-mask) takes their varlen mode."""
     b, h, s, d = q.shape
     jq, jk, jv, jdo = (jnp.asarray(x, dtype) for x in (q, k, v, do))
+    jmask = None if mask is None else jnp.asarray(mask)
     scale = d**-0.5
-    out, vjp = jax.vjp(lambda q, k, v: jfa.flash_attention(q, k, v, causal=causal, block_q=block, block_k=block), jq, jk, jv)
+
+    def f(q, k, v):
+        return jfa.flash_attention(q, k, v, causal=causal, block_q=block, block_k=block, kv_len_mask=jmask)
+
+    out, vjp = jax.vjp(f, jq, jk, jv)
     dq, dk, dv = vjp(jdo)
-    _, lse = jfa._fwd_impl(jq.reshape(b * h, s, d), jk.reshape(b * h, s, d), jv.reshape(b * h, s, d), causal, scale, block, block)
+    lens = None if mask is None else jnp.asarray(np.repeat(mask.sum(-1), h)[:, None].astype(np.int32))
+    _, lse = jfa._fwd_impl(jq.reshape(b * h, s, d), jk.reshape(b * h, s, d), jv.reshape(b * h, s, d), causal, scale,
+                           block, block, kv_lens=lens)
     return [np.asarray(jnp.asarray(x, jnp.float32)) for x in (out, lse.reshape(b, h, s), dq, dk, dv)]
 
 
-def _torch_side(q, k, v, do, causal, dtype):
+def _torch_side(q, k, v, do, causal, dtype, mask=None):
     """(out, lse, dq, dk, dv) from the plain versions, and (out, dq, dk, dv)
     through the autograd Function."""
-    d = q.shape[-1]
+    h, d = q.shape[1], q.shape[-1]
     tq, tk, tv, tdo = (torch.from_numpy(x).to(dtype) for x in (q, k, v, do))
-    out, lse = tfa.flash_fwd_reference(tq, tk, tv, causal, d**-0.5)
-    grads = tfa.flash_bwd_reference(tq, tk, tv, out, lse, tdo, causal, d**-0.5)
+    tmask = None if mask is None else torch.from_numpy(mask)
+    lens = None if mask is None else torch.from_numpy(np.repeat(mask.sum(-1), h).astype(np.int32))
+    out, lse = tfa.flash_fwd_reference(tq, tk, tv, causal, d**-0.5, lens)
+    grads = tfa.flash_bwd_reference(tq, tk, tv, out, lse, tdo, causal, d**-0.5, lens)
     plain = [out, lse, *grads]
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
-    fout = tfa.flash_attention(*leaves, causal=causal)
+    fout = tfa.flash_attention(*leaves, causal=causal, kv_len_mask=tmask)
     fgrads = torch.autograd.grad(fout, leaves, grad_outputs=tdo)
     fn = [fout, *fgrads]
     return [t.detach().float().numpy() for t in plain], [t.detach().float().numpy() for t in fn]
@@ -97,13 +108,68 @@ def test_plain_versions_match_pallas_kernels_bf16():
 @pytest.mark.parametrize("causal", [False, True])
 def test_attention_dispatcher_flash_matches_naive(causal):
     """``dot_product_attention``: the "flash" impl (plain versions on CPU)
-    against the f32 eager "naive" impl; a padding mask is refused until the
-    varlen kernel is ported."""
+    against the f32 eager "naive" impl, without a mask and with a
+    right-padded [B, S] keep-mask (varlen on the flash side, an additive
+    -inf key bias on the naive side), every row compared."""
     from multimodal_llm_pretraining_tpu_torch.ops.attention import dot_product_attention
 
     q, k, v, _ = (torch.from_numpy(x) for x in _inputs(2, 2, 33, 16, seed=3))
-    flash = dot_product_attention(q, k, v, causal=causal, impl="flash")
-    naive = dot_product_attention(q, k, v, causal=causal, impl="naive")
-    torch.testing.assert_close(flash, naive, atol=ATOL_OUT, rtol=0)
-    with pytest.raises(NotImplementedError, match="varlen"):
-        dot_product_attention(q, k, v, mask=torch.ones(2, 33), impl="flash")
+    mask = (torch.arange(33)[None, :] < torch.tensor([[33], [20]])).long()
+    for m in (None, mask):
+        flash = dot_product_attention(q, k, v, causal=causal, mask=m, impl="flash")
+        naive = dot_product_attention(q, k, v, causal=causal, mask=m, impl="naive")
+        torch.testing.assert_close(flash, naive, atol=ATOL_OUT, rtol=0)
+
+
+# ---------------------------------------------------------------- varlen mode
+
+
+def _padding_mask(lens, seq):
+    return (np.arange(seq)[None, :] < np.asarray(lens)[:, None]).astype(np.int32)
+
+
+@pytest.mark.parametrize("causal", [False, True])
+def test_varlen_plain_versions_match_pallas_kernels_f32(causal):
+    """Lens [300, 135] at S=300, D=64, blocks of 128 (``tests/test_ops.py``'s
+    varlen case: one full row, one padded inside a k block). out, lse and
+    dq, dk, dv compared everywhere, padded query rows included, with the
+    f32 tolerances above; dk and dv are exactly 0 past each length on both
+    sides."""
+    q, k, v, do = _inputs(2, 2, 300, 64, seed=21 + causal)
+    mask = _padding_mask([300, 135], 300)
+    with jax.default_matmul_precision("highest"):
+        ref = _jax_side(q, k, v, do, causal, 128, jnp.float32, mask)
+    plain, fn = _torch_side(q, k, v, do, causal, torch.float32, mask)
+    for name, got, want in zip(("out", "lse", "dq", "dk", "dv"), plain, ref):
+        np.testing.assert_allclose(got, want, atol=ATOL_OUT if name in ("out", "lse") else ATOL_GRAD, err_msg=name)
+    for name, got, want in zip(("out", "dq", "dk", "dv"), fn, [ref[0], *ref[2:]]):
+        np.testing.assert_allclose(got, want, atol=ATOL_OUT if name == "out" else ATOL_GRAD, err_msg=f"Function {name}")
+    for got, want in ((plain[3], ref[3]), (plain[4], ref[4])):
+        assert not got[1, :, 135:].any() and not want[1, :, 135:].any()
+
+
+def test_varlen_mask_always_takes_the_varlen_mode():
+    """A mask whose rows are all full gives the plain mode's numbers, but
+    runs the varlen mode (the plain versions see lens); a non-prefix mask is
+    read as the prefix of its sum, the JAX contract."""
+    q, k, v, _ = (torch.from_numpy(x) for x in _inputs(2, 2, 40, 16, seed=5))
+    full = torch.ones(2, 40, dtype=torch.long)
+    torch.testing.assert_close(tfa.flash_attention(q, k, v, causal=True, kv_len_mask=full),
+                               tfa.flash_attention(q, k, v, causal=True), rtol=0, atol=0)
+    holes = torch.ones(2, 40, dtype=torch.long)
+    holes[:, 3:10] = 0  # sum 33: read as keys [0, 33)
+    prefix = torch.from_numpy(_padding_mask([33, 33], 40))
+    torch.testing.assert_close(tfa.flash_attention(q, k, v, kv_len_mask=holes),
+                               tfa.flash_attention(q, k, v, kv_len_mask=prefix), rtol=0, atol=0)
+
+
+def test_varlen_row_that_sees_no_key_gives_zeros():
+    """A zero length leaves every query row of that batch element without a
+    visible key: out 0 and lse -1e30, as the kernels' l_safe guard gives,
+    and zero gradients for that element."""
+    q, k, v, do = (torch.from_numpy(x).reshape(4, 9, 16) for x in _inputs(2, 2, 9, 16, seed=6))
+    lens = torch.tensor([9, 9, 0, 0], dtype=torch.int32)
+    out, lse = tfa.flash_fwd_reference(q, k, v, False, 0.25, lens)
+    assert not out[2:].any() and bool((lse[2:] == tfa.NEG_INF).all())
+    for g in tfa.flash_bwd_reference(q, k, v, out, lse, do, False, 0.25, lens):
+        assert not g[2:].any()

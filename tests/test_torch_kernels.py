@@ -14,7 +14,8 @@ in the online softmax's rescaling); lse within 1e-3 absolute (f32, no bf16
 output rounding). dq is summed with f32 atomics in an order that changes
 from run to run, so two runs may differ by one bf16 ulp of the larger value
 per element (plus f32 noise where terms cancel); dk and dv have no atomics
-and repeat bit for bit.
+and repeat bit for bit. The varlen mode (int32 lens per batch-head) keeps
+these tolerances, and dk and dv at and past each length are exactly 0.
 
 Selective scan (f32 or bf16 u/delta/B/C, both sides computing in f32 and
 differing only in summation order and in the kernels' fast exp): y within
@@ -145,6 +146,89 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     q = _rand(2, 16, 64, dtype=torch.float16)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         fa.flash_fwd_cuda(q, q, q, True, 0.1)
+    q = _rand(2, 16, 64)
+    for lens in (torch.tensor([16, 3], device="cuda"), torch.tensor([16, 3], dtype=torch.int32),
+                 torch.tensor([16], dtype=torch.int32, device="cuda")):
+        with pytest.raises(ValueError, match="kv_lens"):
+            fa.flash_fwd_cuda(q, q, q, True, 0.1, lens)
+
+
+# ---------------------------------------------------------------- varlen mode
+
+
+def test_varlen_function_takes_plain_versions_on_cpu_without_launching():
+    before = (fa.VARLEN_FWD_LAUNCHES, fa.VARLEN_BWD_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES)
+    q = torch.randn(2, 2, 9, 16, requires_grad=True)
+    mask = (torch.arange(9)[None, :] < torch.tensor([[9], [4]])).long()
+    fa.flash_attention(q, q, q, causal=True, kv_len_mask=mask).sum().backward()
+    assert (fa.VARLEN_FWD_LAUNCHES, fa.VARLEN_BWD_LAUNCHES, fa.FWD_LAUNCHES, fa.BWD_LAUNCHES) == before
+    assert q.grad is not None
+
+
+def _lens(values, heads):
+    return torch.tensor(values, dtype=torch.int32, device="cuda").repeat_interleave(heads)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize(
+    "seq,head_dim,causal,lens",
+    [(77, 64, True, [77, 37, 64, 0]), (77, 64, False, [77, 37, 64, 0]), (300, 128, True, [300, 135, 1, 256]),
+     (577, 64, False, [577, 576, 100, 31]), (130, 256, True, [130, 32, 65, 129])],
+)
+def test_varlen_kernels_match_plain_versions(seq, head_dim, causal, lens):
+    """Lens per batch row (4 rows x 2 heads): full, inside a tile, on a tile
+    edge, empty. Every query row is compared, padded ones included; dk and
+    dv are exactly 0 at and past each length; an empty row gives out 0."""
+    _needs_cuda()
+    kv_lens = _lens(lens, 2)
+    q, k, v, do = (_rand(8, seq, head_dim, seed=10 + i) for i in range(4))
+    scale = head_dim**-0.5
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
+    out_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    _close(out, out_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ABS, rtol=0)
+    empty = kv_lens == 0
+    assert not out[empty].any()
+    grads = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
+    for got, want in zip(grads, fa.flash_bwd_reference(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)):
+        _close(got, want)
+    past = torch.arange(seq, device="cuda")[None, :] >= kv_lens[:, None]
+    assert not grads[1][past].any() and not grads[2][past].any()
+
+
+@pytest.mark.cuda
+def test_varlen_backward_repeats_dk_dv_bit_for_bit():
+    _needs_cuda()
+    kv_lens = _lens([1087, 1024, 37, 500], 4)
+    q, k, v, do = (_rand(16, 1087, 64, seed=20 + i) for i in range(4))
+    out, lse = fa.flash_fwd_cuda(q, k, v, True, 0.125, kv_lens)
+    _, dk1, dv1 = fa.flash_bwd_cuda(q, k, v, out, lse, do, True, 0.125, kv_lens)
+    _, dk2, dv2 = fa.flash_bwd_cuda(q, k, v, out, lse, do, True, 0.125, kv_lens)
+    assert torch.equal(dk1, dk2) and torch.equal(dv1, dv2)
+
+
+@pytest.mark.cuda
+def test_mask_takes_the_varlen_kernels_even_when_full():
+    """A [B, S] keep-mask always takes the varlen mode (one varlen launch
+    each way, no plain-mode launch); with every row full it gives the plain
+    mode's numbers, and a right-padded mask gives the plain versions'."""
+    _needs_cuda()
+    b, h, s, d = 2, 3, 90, 64
+    base = [_rand(b, h, s, d, seed=30 + i).requires_grad_() for i in range(3)]
+    do = _rand(b, h, s, d, seed=33)
+    for mask in (torch.ones(b, s, dtype=torch.long, device="cuda"),
+                 (torch.arange(s, device="cuda")[None, :] < torch.tensor([[90], [41]], device="cuda")).long()):
+        fa.reset_launch_counts()
+        out = fa.flash_attention(*base, causal=True, kv_len_mask=mask)
+        grads = torch.autograd.grad(out, base, grad_outputs=do)
+        assert (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES, fa.VARLEN_FWD_LAUNCHES, fa.VARLEN_BWD_LAUNCHES) == (0, 0, 1, 1)
+        flat = [t.detach().reshape(b * h, s, d) for t in base]
+        lens = mask.sum(-1).to(torch.int32).repeat_interleave(h)
+        out_ref, lse_ref = fa.flash_fwd_reference(*flat, True, d**-0.5, lens)
+        _close(out.reshape(b * h, s, d), out_ref)
+        for got, want in zip(grads, fa.flash_bwd_reference(*flat, out_ref, lse_ref, do.reshape(b * h, s, d), True,
+                                                            d**-0.5, lens)):
+            _close(got.reshape(b * h, s, d), want)
 
 
 # ---------------------------------------------------------------- selective scan
