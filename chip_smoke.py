@@ -34,12 +34,13 @@ Phases, one line (or a few) each; any failure exits non-zero:
 9. varlen kernels: both flash-attention kernels in their varlen (padded
    batch) mode against the plain versions with the same lens, at the llava
    decoder's shape ([16, 32, 1087, 64] bf16 causal, ragged lens), at the
-   tower's head_dim and length ([4, 16, 577, 64], non-causal) and at a small
-   ragged shape with an empty row; dk and dv must be exactly 0 at and past
-   each length, and a second backward must repeat them bit for bit. Then
-   median CUDA-event times of the varlen and plain-mode kernels and the
-   plain versions at the decoder's shape (full lens), and of the plain-mode
-   forward at the main path's tower shape.
+   tower's shape ([16, 16, 577, 64], non-causal) and at a small ragged shape
+   with an empty row; dk and dv must be exactly 0 at and past each length,
+   and a second backward must repeat them as phase 3 requires. Then both
+   kernels in plain mode at the tower's shape, as the main path calls the
+   forward there. Then median CUDA-event times of the varlen and plain-mode
+   kernels and the plain versions at the decoder's shape (full lens), and
+   of the plain-mode forward at the tower's shape.
 10. llava slice: a two-layer narrow LLaVA in bf16 (head_dim 64 in the tower
     and the decoder), frozen as llava-pretrain freezes it, on a right-padded
     batch: loss and every projector grad with the kernels against the plain
@@ -85,11 +86,10 @@ SCAN_SHAPE = (2, 4096, 5120)  # mamba-2.8b: mbs 2, seq 4096, d_inner 5120 (d_sta
 SCAN_RAGGED = (2, 300, 96)  # L not a multiple of 256, I not a multiple of the 32-channel tile
 SLICE_SHAPE = (4, 8, 2049, 256)  # pythia-1b: mbs 4, 8 heads, seq 2049, head_dim 256
 RAGGED_SHAPE = (2, 3, 77, 64)
-# llava-pretrain: the decoder's attention (mbs 16, 32 heads, 512 - 1 + 576
-# merged positions, head_dim 64) and the CLIP tower's (16 heads, 576 patches
-# + CLS, head_dim 64), checked at mbs 4 and timed at the main path's mbs 16
+# llava-pretrain at the main path's mbs 16: the decoder's attention (32
+# heads, 512 - 1 + 576 merged positions, head_dim 64) and the CLIP tower's
+# (16 heads, 576 patches + CLS, head_dim 64)
 VARLEN_SHAPE = (16, 32, 1087, 64)
-TOWER_CHECK_SHAPE = (4, 16, 577, 64)
 TOWER_SHAPE = (16, 16, 577, 64)
 VARLEN_RAGGED = (4, 2, 77, 64)
 LLAVA_TOKENS_PER_SAMPLE = 512 - 1 + 576
@@ -179,36 +179,50 @@ def _inputs(shape, seed: int):
     return q, k, v, do
 
 
-def check_kernels_at(shape, causal: bool, seed: int = 0) -> dict:
-    """Kernel vs plain version on identical inputs; returns the errors."""
+def check_kernels_at(shape, causal: bool, seed: int = 0, lens: list[int] | None = None) -> dict:
+    """Kernel vs plain version on identical inputs; returns the errors.
+    With ``lens`` (one per batch row, broadcast over heads as
+    ``flash_attention`` does) both run in varlen mode, and dk and dv must
+    be exactly 0 at and past each length."""
+    b, h, s, _ = shape
     q, k, v, do = _inputs(shape, seed)
     scale = shape[-1] ** -0.5
-    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale)
-    out_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale)
-    grads = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale)
-    grads_ref = fa.flash_bwd_reference(q, k, v, out_ref, lse_ref, do, causal, scale)
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
+    tag = "[kernels]" if lens is None else "[varlen]"
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
+    out_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    grads = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
+    grads_ref = fa.flash_bwd_reference(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
     torch.cuda.synchronize()
     res = {"out": _errs(out, out_ref), "lse": _errs(lse, lse_ref)}
     for name, got, ref in zip(("dq", "dk", "dv"), grads, grads_ref):
         res[name] = _errs(got, ref)
     for name, t in (("out", out), ("lse", lse), *zip(("dq", "dk", "dv"), grads)):
         if not torch.isfinite(t).all():
-            raise AssertionError(f"{name} has non-finite values at {shape}")
-    say(f"[kernels] {list(shape)} causal={causal}: " + ", ".join(
-        f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in res.items()))
+            raise AssertionError(f"{tag} {name} has non-finite values at {shape}")
+    past_max = 0.0
+    if kv_lens is not None:
+        past = torch.arange(s, device="cuda")[None, :] >= kv_lens[:, None]  # [BH, S]: keys at or past the length
+        if past.any():
+            past_max = max(grads[1][past].abs().max().item(), grads[2][past].abs().max().item())
+    say(f"{tag} {list(shape)} causal={causal}{'' if lens is None else f' lens {lens}'}: " + ", ".join(
+        f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in res.items())
+        + ("" if lens is None else f"; dk/dv past the lens max_abs {past_max:.1e}"))
     for name in ("out", "dq", "dk", "dv"):
         if not res[name][1] <= TOL_NORM_REL:
-            raise AssertionError(f"{name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {shape}")
+            raise AssertionError(f"{tag} {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {shape}")
     if not res["lse"][0] <= TOL_LSE_ABS:
-        raise AssertionError(f"lse max-abs error {res['lse'][0]:.3e} > {TOL_LSE_ABS} at {shape}")
+        raise AssertionError(f"{tag} lse max-abs error {res['lse'][0]:.3e} > {TOL_LSE_ABS} at {shape}")
+    if past_max != 0.0:
+        raise AssertionError(f"{tag} dk/dv are not exactly 0 past the lens at {shape}")
     # dq sums by f32 atomics in an order that changes between runs: a second
     # run may differ by one bf16 ulp of the larger of the two values, plus
     # f32 summation noise (1e-6) where terms cancel to near zero; dk and dv
     # have no atomics and repeat exactly
-    dq2, dk2, dv2 = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale)
+    dq2, dk2, dv2 = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
     dq_diff = (dq2.float() - grads[0].float()).abs()
     dq_ulp = torch.maximum(dq2.float().abs(), grads[0].float().abs()) * 2.0**-7 + 1e-6
-    say(f"[kernels] {list(shape)} second backward run: dq max_abs change {dq_diff.max().item():.3e}, "
+    say(f"{tag} {list(shape)} second backward run: dq max_abs change {dq_diff.max().item():.3e}, "
         f"dk/dv identical {torch.equal(dk2, grads[1]) and torch.equal(dv2, grads[2])}")
     if not (torch.equal(dk2, grads[1]) and torch.equal(dv2, grads[2])):
         raise AssertionError(f"dk/dv differ between two runs at {shape}")
@@ -280,45 +294,21 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
                    layout: str = "bf16_sr", names=("FWD_LAUNCHES", "BWD_LAUNCHES"),
                    tokens_per_sample: int | None = None) -> dict:
     """The training step through the user's entry points with the model's
-    own optimizer and schedule: 1 warmup + 3 timed steps. ``layout`` is
-    "bf16_sr" (bf16 compute, ``master_weights="sr"``, bf16 moments and
-    accumulators) or "bf16" (bf16 compute, f32 params, accumulators and
-    moments; a model with a trainable mask stores its frozen leaves in
-    bf16). ``counters`` is the kernel module whose launch counts ``names``
-    are zeroed just before the steps and read just after. The first loss
-    must lie in ``loss_band``. For a model with a trainable mask, every
-    frozen parameter must come out bit for bit and every trainable one must
-    have moved."""
+    own optimizer and schedule: 1 warmup + 3 timed steps. ``layout`` is one
+    of ``profile_step.make_plan``'s. ``counters`` is the kernel module whose
+    launch counts ``names`` are zeroed just before the steps and read just
+    after. The first loss must lie in ``loss_band``. For a model with a
+    trainable mask, every frozen parameter must come out bit for bit and
+    every trainable one must have moved."""
     from multimodal_llm_pretraining_tpu_torch.models import get_model_class
-    from multimodal_llm_pretraining_tpu_torch.parallel.mesh import MeshConfig
-    from multimodal_llm_pretraining_tpu_torch.train import TrainingPlan
+    from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
     from multimodal_llm_pretraining_tpu_torch.utils import block_on
 
     mc = get_model_class(model_type)
     sr = layout == "bf16_sr"
-    plan = TrainingPlan(
-        num_training_steps=8,
-        micro_batch_size=mbs,
-        gradient_accumulation_steps=acc,
-        activation_checkpointing=remat,
-        bf16=True,
-        compile=True,
-        use_custom_kernels=True,
-        matmul_precision="default",
-        optimizer=mc.optimizer,
-        optimizer_kwargs=mc.optimizer_kwargs,
-        scheduler_type=mc.scheduler_type,
-        scheduler_kwargs=mc.scheduler_kwargs,
-        grad_accum_dtype="bf16" if sr else None,
-        opt_state_dtype="bf16" if sr else None,
-        master_weights="sr" if sr else False,
-        unroll_layers=True,
-        max_grad_norm=mc.max_grad_norm,
-        mesh=MeshConfig(num_hosts=1, chips_per_host=1),
-    )
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    sess = plan.build_session(mc, device="cuda")
+    sess = make_plan(mc, mbs, acc, remat, layout).build_session(mc, device="cuda")
     state = sess.init_state()
     step = sess.train_step_fn()
     block_on("cuda")
@@ -512,52 +502,14 @@ def _ragged_lens(b: int, s: int, seed: int) -> list[int]:
     return [s, 37, edge, *rest][:b]
 
 
-def check_varlen_at(shape, causal: bool, lens: list[int], seed: int) -> dict:
-    """Both kernels in varlen mode vs the plain versions with the same lens
-    (one per batch row, broadcast over heads as ``flash_attention`` does);
-    dk and dv exactly 0 at and past each length; a second backward repeats
-    dk and dv bit for bit. Returns the errors."""
-    b, h, s, _ = shape
-    q, k, v, do = _inputs(shape, seed)
-    scale = shape[-1] ** -0.5
-    kv_lens = torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
-    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
-    out_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
-    grads = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
-    grads_ref = fa.flash_bwd_reference(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
-    torch.cuda.synchronize()
-    res = {"out": _errs(out, out_ref), "lse": _errs(lse, lse_ref)}
-    for name, got, ref in zip(("dq", "dk", "dv"), grads, grads_ref):
-        res[name] = _errs(got, ref)
-    for name, t in (("out", out), ("lse", lse), *zip(("dq", "dk", "dv"), grads)):
-        if not torch.isfinite(t).all():
-            raise AssertionError(f"varlen {name} has non-finite values at {shape}")
-    past = torch.arange(s, device="cuda")[None, :] >= kv_lens[:, None]  # [BH, S]: keys at or past the length
-    past_max = max(grads[1][past].abs().max().item(), grads[2][past].abs().max().item()) if past.any() else 0.0
-    say(f"[varlen] {list(shape)} causal={causal} lens {lens}: " + ", ".join(
-        f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in res.items()) + f"; dk/dv past the lens max_abs {past_max:.1e}")
-    for name in ("out", "dq", "dk", "dv"):
-        if not res[name][1] <= TOL_NORM_REL:
-            raise AssertionError(f"varlen {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {shape}")
-    if not res["lse"][0] <= TOL_LSE_ABS:
-        raise AssertionError(f"varlen lse max-abs error {res['lse'][0]:.3e} > {TOL_LSE_ABS} at {shape}")
-    if past_max != 0.0:
-        raise AssertionError(f"varlen dk/dv are not exactly 0 past the lens at {shape}")
-    _, dk2, dv2 = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
-    same = torch.equal(dk2, grads[1]) and torch.equal(dv2, grads[2])
-    say(f"[varlen] {list(shape)} second backward run: dk/dv identical {same}")
-    if not same:
-        raise AssertionError(f"varlen dk/dv differ between two runs at {shape}")
-    return res
-
-
 def phase_varlen_kernels() -> list[dict]:
     # full f32 products in the plain versions (the main paths' plans turned TF32 on)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    errs = check_varlen_at(VARLEN_SHAPE, True, _ragged_lens(VARLEN_SHAPE[0], VARLEN_SHAPE[2], 0), seed=20)
-    check_varlen_at(TOWER_CHECK_SHAPE, False, _ragged_lens(TOWER_CHECK_SHAPE[0], TOWER_CHECK_SHAPE[2], 1), seed=21)
+    errs = check_kernels_at(VARLEN_SHAPE, True, seed=20, lens=_ragged_lens(VARLEN_SHAPE[0], VARLEN_SHAPE[2], 0))
+    check_kernels_at(TOWER_SHAPE, False, seed=21, lens=_ragged_lens(TOWER_SHAPE[0], TOWER_SHAPE[2], 1))
     for causal in (True, False):
-        check_varlen_at(VARLEN_RAGGED, causal, [77, 37, 64, 0], seed=22 + causal)
+        check_kernels_at(VARLEN_RAGGED, causal, seed=22 + causal, lens=[77, 37, 64, 0])
+    check_kernels_at(TOWER_SHAPE, False, seed=24)  # the tower's own call: plain mode, non-causal
 
     b, h, s, _ = VARLEN_SHAPE
     q, k, v, do = _inputs(VARLEN_SHAPE, 23)

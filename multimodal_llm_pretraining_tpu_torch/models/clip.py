@@ -6,8 +6,6 @@ MLP (openai/clip-vit-large-patch14-336 at the defaults: hidden 1024, 24
 layers, 16 heads, intermediate 4096, patch 14, image 336).
 """
 
-from typing import Callable
-
 import torch
 from torch import nn
 
@@ -19,21 +17,13 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 
 class CLIPBlock(nn.Module):
-    def __init__(
-        self,
-        hidden: int,
-        num_heads: int,
-        intermediate: int,
-        activation: Callable = quick_gelu,
-        ln_eps: float = 1e-5,
-        attn_impl: str = "flash",
-        dtype: torch.dtype = torch.float32,
-    ):
+    def __init__(self, hidden: int, num_heads: int, intermediate: int, attn_impl: str = "flash",
+                 dtype: torch.dtype = torch.float32):
         super().__init__()
-        self.ln_attn = LayerNorm(hidden, eps=ln_eps, dtype=dtype)
+        self.ln_attn = LayerNorm(hidden, dtype=dtype)
         self.attn = SelfAttention(hidden, num_heads, hidden // num_heads, causal=False, attn_impl=attn_impl, dtype=dtype)  # type: ignore[arg-type]
-        self.ln_mlp = LayerNorm(hidden, eps=ln_eps, dtype=dtype)
-        self.mlp = Mlp(hidden, intermediate, activation=activation, dtype=dtype)
+        self.ln_mlp = LayerNorm(hidden, dtype=dtype)
+        self.mlp = Mlp(hidden, intermediate, activation=quick_gelu, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_attn(x))
@@ -41,12 +31,13 @@ class CLIPBlock(nn.Module):
 
 
 class CLIPVisionEncoder(nn.Module):
-    """Patch embed + cls + pos, optional pre-LN, then the blocks; returns
-    [B, 1 + patches, hidden].
+    """Patch embed + cls + pos, pre-LN, then the blocks; returns [B, 1 +
+    patches, hidden].
 
-    ``feature_layer=-2`` is LLaVA's vision_feature_layer: the JAX module
-    builds ``num_layers - 1`` blocks (the last one's output is unused), and
-    so does this one, so the two hold the same parameters."""
+    It holds the blocks of LLaVA's vision feature layer -2: the JAX module
+    with ``feature_layer=-2`` builds ``num_layers - 1`` blocks (the last
+    one's output is unused), and so does this one, so the two hold the same
+    parameters."""
 
     def __init__(
         self,
@@ -56,9 +47,6 @@ class CLIPVisionEncoder(nn.Module):
         intermediate: int = 4096,
         patch: int = 14,
         image_size: int = 336,
-        activation: Callable = quick_gelu,
-        feature_layer: int = -1,  # -1 = full depth; -2 = skip the last block
-        use_pre_layernorm: bool = True,
         attn_impl: str = "flash",
         dtype: torch.dtype = torch.float32,
     ):
@@ -68,10 +56,9 @@ class CLIPVisionEncoder(nn.Module):
         self.patch_embed = Dense(patch * patch * 3, hidden, bias=False, dtype=dtype)
         self.class_embedding = nn.Parameter(torch.empty(1, 1, hidden))
         self.position_embeddings = nn.Parameter(torch.empty(1, grid * grid + 1, hidden))
-        self.pre_ln = LayerNorm(hidden, dtype=dtype) if use_pre_layernorm else None
-        effective = num_layers + 1 + feature_layer if feature_layer < -1 else num_layers
+        self.pre_ln = LayerNorm(hidden, dtype=dtype)
         self.layers = nn.ModuleList(
-            CLIPBlock(hidden, num_heads, intermediate, activation, attn_impl=attn_impl, dtype=dtype) for _ in range(effective)
+            CLIPBlock(hidden, num_heads, intermediate, attn_impl=attn_impl, dtype=dtype) for _ in range(num_layers - 1)
         )
 
     def forward(self, pixel_values: torch.Tensor) -> torch.Tensor:
@@ -83,9 +70,7 @@ class CLIPVisionEncoder(nn.Module):
         patches = pixel_values.reshape(b, gh, p, gw, p, c).permute(0, 1, 3, 2, 4, 5).reshape(b, gh * gw, p * p * c)
         x = self.patch_embed(patches.to(dt))
         cls = self.class_embedding.to(dt).expand(b, 1, -1)
-        x = torch.cat([cls, x], dim=1) + self.position_embeddings.to(dt)
-        if self.pre_ln is not None:
-            x = self.pre_ln(x)
+        x = self.pre_ln(torch.cat([cls, x], dim=1) + self.position_embeddings.to(dt))
         for block in self.layers:
             x = block(x)
         return x

@@ -44,19 +44,18 @@ def apply_rotary(x: torch.Tensor, cos: torch.Tensor, sin: torch.Tensor) -> torch
     return torch.cat([out, x_pass], dim=-1) if x_pass.shape[-1] else out
 
 
-def llama3_rope_scaling(factor=32.0, low_freq_factor=1.0, high_freq_factor=4.0, original_max_position=8192):
-    """Llama-3.x rope frequency scaling, in f32 as the JAX version computes it."""
-
-    def scale(inv_freq: torch.Tensor) -> torch.Tensor:
-        wavelen = 2 * math.pi / inv_freq
-        low_wl = original_max_position / low_freq_factor
-        high_wl = original_max_position / high_freq_factor
-        smooth = ((original_max_position / wavelen - low_freq_factor) / (high_freq_factor - low_freq_factor)).clamp(0.0, 1.0)
-        scaled = inv_freq / factor
-        mid = (1 - smooth) * scaled + smooth * inv_freq
-        return torch.where(wavelen > low_wl, scaled, torch.where(wavelen < high_wl, inv_freq, mid))
-
-    return scale
+def llama3_rope_scaling(inv_freq: torch.Tensor) -> torch.Tensor:
+    """Llama-3.x rope frequency scaling at Llama-3.2's constants (factor 32,
+    low and high frequency factors 1 and 4, original context 8192), in f32
+    as the JAX version computes it."""
+    factor, low_freq_factor, high_freq_factor, original_max_position = 32.0, 1.0, 4.0, 8192
+    wavelen = 2 * math.pi / inv_freq
+    low_wl = original_max_position / low_freq_factor
+    high_wl = original_max_position / high_freq_factor
+    smooth = ((original_max_position / wavelen - low_freq_factor) / (high_freq_factor - low_freq_factor)).clamp(0.0, 1.0)
+    scaled = inv_freq / factor
+    mid = (1 - smooth) * scaled + smooth * inv_freq
+    return torch.where(wavelen > low_wl, scaled, torch.where(wavelen < high_wl, inv_freq, mid))
 
 
 def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
@@ -132,7 +131,6 @@ class SelfAttention(nn.Module):
         rope_scaling: Callable | None = None,
         attn_impl: AttnImpl = "flash",
         use_bias: bool = True,
-        out_bias: bool | None = None,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
@@ -142,7 +140,7 @@ class SelfAttention(nn.Module):
         self.rope_scaling = rope_scaling
         self.attn_impl = attn_impl
         self.qkv = Dense(hidden, (num_heads + 2 * self.num_kv_heads) * head_dim, bias=use_bias, dtype=dtype)
-        self.out = Dense(num_heads * head_dim, hidden, bias=use_bias if out_bias is None else out_bias, dtype=dtype)
+        self.out = Dense(num_heads * head_dim, hidden, bias=use_bias, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         """``mask``: [B, S] keep-mask over the keys (1 = attend)."""

@@ -30,21 +30,17 @@ class LlamaBlock(nn.Module):
         num_heads: int = HEADS,
         num_kv_heads: int = KV_HEADS,
         ffn: int = FFN,
-        rope_theta: float = ROPE_THETA,
-        rope_scaling_factor: float | None = 32.0,  # None = plain rope
-        rms_eps: float = RMS_EPS,
         attn_impl: str = "flash",
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         head_dim = hidden // num_heads
-        scaling = llama3_rope_scaling(factor=rope_scaling_factor) if rope_scaling_factor else None
-        self.ln_attn = RMSNorm(hidden, eps=rms_eps, dtype=dtype)
+        self.ln_attn = RMSNorm(hidden, eps=RMS_EPS, dtype=dtype)
         self.attn = SelfAttention(
             hidden, num_heads, head_dim, num_kv_heads=num_kv_heads, causal=True, rotary_dim=head_dim,
-            rotary_base=rope_theta, rope_scaling=scaling, attn_impl=attn_impl, use_bias=False, dtype=dtype,  # type: ignore[arg-type]
+            rotary_base=ROPE_THETA, rope_scaling=llama3_rope_scaling, attn_impl=attn_impl, use_bias=False, dtype=dtype,  # type: ignore[arg-type]
         )
-        self.ln_mlp = RMSNorm(hidden, eps=rms_eps, dtype=dtype)
+        self.ln_mlp = RMSNorm(hidden, eps=RMS_EPS, dtype=dtype)
         self.mlp = GatedMlp(hidden, ffn, dtype=dtype)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
@@ -62,18 +58,14 @@ class LlamaDecoder(nn.Module):
         num_heads: int = HEADS,
         num_kv_heads: int = KV_HEADS,
         ffn: int = FFN,
-        rope_theta: float = ROPE_THETA,
-        rope_scaling_factor: float | None = 32.0,
-        rms_eps: float = RMS_EPS,
         attn_impl: str = "flash",
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.layers = nn.ModuleList(
-            LlamaBlock(hidden, num_heads, num_kv_heads, ffn, rope_theta, rope_scaling_factor, rms_eps, attn_impl, dtype)
-            for _ in range(num_layers)
+            LlamaBlock(hidden, num_heads, num_kv_heads, ffn, attn_impl, dtype) for _ in range(num_layers)
         )
-        self.final_norm = RMSNorm(hidden, eps=rms_eps, dtype=dtype)
+        self.final_norm = RMSNorm(hidden, eps=RMS_EPS, dtype=dtype)
 
     def forward(self, inputs_embeds: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         x = inputs_embeds

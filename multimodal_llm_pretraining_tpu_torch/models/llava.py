@@ -27,7 +27,7 @@ from torch import nn
 from ..ops.attention import default_attn_impl
 from ..ops.xent import lm_head_loss, matmul_f32
 from . import LlavaT, ModelBundle, MultimodalModelClass, SchedulerType
-from .clip import CLIPVisionEncoder, quick_gelu
+from .clip import CLIPVisionEncoder
 from .layers import Dense, LayerNorm, RMSNorm, gelu_tanh
 from .llama import HIDDEN as LM_HIDDEN
 from .llama import LlamaDecoder
@@ -84,9 +84,7 @@ class LlavaModule(nn.Module):
         tower = {**TOWER_KWARGS, **(tower_kwargs or {})}
         lm_kwargs = dict(lm_kwargs or {})
         lm_hidden = lm_kwargs.get("hidden", LM_HIDDEN)
-        self.vision_tower = CLIPVisionEncoder(
-            **tower, activation=quick_gelu, feature_layer=-2, attn_impl=attn_impl, dtype=dtype
-        )
+        self.vision_tower = CLIPVisionEncoder(**tower, attn_impl=attn_impl, dtype=dtype)
         self.projector_in = Dense(tower["hidden"], lm_hidden, dtype=dtype)
         self.projector_out = Dense(lm_hidden, lm_hidden, dtype=dtype)
         self.language_model_embed_tokens = nn.Parameter(torch.empty(vocab_with_image, lm_hidden))

@@ -164,7 +164,7 @@ def test_llama3_rope_scaling_matches_jax():
     interpolated): the angle tables to 1e-6 at positions up to 1086."""
     pos = np.arange(0, 1087, 7)
     jcos, jsin = jlayers.rotary_angles(jnp.asarray(pos), 64, 5e5, jlayers.llama3_rope_scaling(32.0))
-    cos, sin = tlayers.rotary_angles(torch.from_numpy(pos), 64, 5e5, tlayers.llama3_rope_scaling(32.0))
+    cos, sin = tlayers.rotary_angles(torch.from_numpy(pos), 64, 5e5, tlayers.llama3_rope_scaling)
     np.testing.assert_allclose(cos.numpy(), np.asarray(jcos), atol=1e-6)
     np.testing.assert_allclose(sin.numpy(), np.asarray(jsin), atol=1e-6)
 

@@ -1,0 +1,51 @@
+"""The profiling tool's trace arithmetic, on a hand-made chrome trace (the
+profile itself needs the card)."""
+
+import json
+
+import pytest
+
+from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+from multimodal_llm_pretraining_tpu_torch.profile_step import device_breakdown, kind_of, make_plan
+
+
+@pytest.mark.parametrize("name, kind", [
+    ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 64>(...)", "flash forward"),
+    ("void (anonymous namespace)::flash_bwd_kernel<__nv_bfloat16, 64>(...)", "flash backward"),
+    ("scan_bwd_kernel", "scan backward"),
+    ("nvjet_tst_192x208_64x4_1x2_h_bz_coopB_NNT", "GEMM"),
+    ("cutlass_75_tensorop_s1688gemm_bf16_256x128_32x2_nn_align1", "GEMM"),
+    ("void at::native::reduce_kernel<512, 1, at::native::ReduceOp<float>>(...)", "reductions"),
+    ("void at::native::(anonymous namespace)::CatArrayBatchedCopy<...>", "memcpy/memset, cat"),
+    ("void at::native::vectorized_elementwise_kernel<4, at::native::AUnaryFunctor<...>>", "elementwise and other"),
+])
+def test_kind_of(name, kind):
+    assert kind_of(name) == kind
+
+
+def test_device_breakdown_unions_overlaps(tmp_path):
+    """Busy time is the union of the device intervals (overlaps counted
+    once, gaps not at all); CPU events are ignored; times in seconds."""
+    events = [
+        {"cat": "kernel", "name": "flash_fwd_kernel", "ts": 0.0, "dur": 10.0},
+        {"cat": "kernel", "name": "nvjet_x", "ts": 5.0, "dur": 10.0},  # overlaps the first by 5
+        {"cat": "gpu_memcpy", "name": "Memcpy HtoD", "ts": 20.0, "dur": 2.0},
+        {"cat": "cpu_op", "name": "aten::mm", "ts": 0.0, "dur": 100.0},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    b = device_breakdown(str(path))
+    assert b["busy_s"] == pytest.approx(17e-6)
+    assert b["kernels"] == 2
+    assert b["by_kind"] == {"flash forward": [pytest.approx(10e-6), 1], "GEMM": [pytest.approx(10e-6), 1],
+                            "memcpy/memset, cat": [pytest.approx(2e-6), 1]}
+
+
+@pytest.mark.parametrize("layout, master, moments", [("bf16_sr", "sr", "bf16"), ("bf16", False, None)])
+def test_make_plan_layouts(layout, master, moments):
+    mc = get_model_class("llava-pretrain")
+    plan = make_plan(mc, 16, 2, False, layout)
+    assert (plan.master_weights, plan.opt_state_dtype, plan.grad_accum_dtype) == (master, moments, moments)
+    assert plan.bf16 and plan.use_custom_kernels
+    assert (plan.micro_batch_size, plan.gradient_accumulation_steps) == (16, 2)
+    assert (plan.optimizer, plan.optimizer_kwargs, plan.max_grad_norm) == ("adamw", mc.optimizer_kwargs, 0.0)
