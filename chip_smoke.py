@@ -17,9 +17,9 @@ Phases, one line (or a few) each; any failure exits non-zero:
    plain f32 attention on the same weights and tokens.
 5. main path: the pythia-1b training step at full width and depth, through
    ``get_model_class`` -> ``TrainingPlan`` -> ``build_session`` ->
-   ``init_state`` -> ``train_step_fn``, 1 warmup + 3 timed steps. The kernel
-   launch counters are zeroed just before and read just after, and must show
-   every attention call of the run on the kernels.
+   ``init_state`` -> ``train_step_fn``. The kernel launch counters are
+   zeroed just before and read just after, and must show every attention
+   call of the run on the kernels.
 6. scan kernels: both selective-scan kernels against their plain versions at
    the mamba-2.8b shape ([2, 4096, 5120], d_state 16) and at a ragged shape
    ([2, 300, 96]), for f32 and bf16 inputs, plus dD through the autograd
@@ -49,14 +49,41 @@ Phases, one line (or a few) each; any failure exits non-zero:
     CLIP blocks, 16 Llama-3.2-1B blocks, 1087 merged positions), the same
     entry points, in the JAX package's layout for it (bf16 compute, f32
     projector and moments, bf16 frozen leaves), micro-batch 16 x
-    accumulation 2, 1 warmup + 3 timed steps. Every decoder attention call
-    must show on the varlen kernels (forward and backward), every tower call
-    on the plain-mode forward, and no tower call on a backward; the frozen
-    parameters stay bit for bit and the projector moves.
+    accumulation 2. Every decoder attention call must show on the varlen
+    kernels (forward and backward), every tower call on the plain-mode
+    forward, and no tower call on a backward; the frozen parameters stay
+    bit for bit and the projector moves.
+12. split kernels: the split backward's dq and dk/dv kernels against their
+    plain versions at pythia's [4, 8, 2049, 256] bf16 causal, ViT's [128,
+    16, 197, 64] f32 and bf16 non-causal, [2, 3, 77, 64] both causal
+    settings, and in varlen mode at the llava decoder's [16, 32, 1087, 64]
+    causal (ragged lens) and [4, 2, 77, 64] with an empty row; dq, dk and dv
+    must repeat bit for bit on a second run, lie within TOL_NORM_REL of the
+    fused kernel, and in varlen mode dk/dv must be exactly 0 past each
+    length. Then CUDA-event times at each main-path shape: split pair,
+    fused kernel, plain versions, PyTorch's attention (the yardstick) and
+    the bound.
+13. ViT slice: a two-layer narrow ViT in f32 (head_dim 64, 197 tokens), loss
+    and every grad with the kernels under the fused and under the split
+    backward, against the plain f32 attention on the same weights.
+14. main path: the ViT-L/16 training step at full width and depth (24
+    blocks, 197 tokens, 21,841 classes) in the f32 layout with dropout on,
+    micro-batch 128 x accumulation 2.
+
+Main paths 5, 11 and 14 run in one session each 1 warmup step under each
+backward (``fa.PREFER_FUSED_BWD``), then 3 timed steps under each,
+interleaved fused, split, split, fused, fused, split; the median of each is
+printed, and the launch counters must show every attention backward of a
+micro-batch on the backward it ran under. Main path 8 (mamba, no attention)
+runs 1 warmup + 3 timed steps.
 
 The last three lines are the kernels JSON line, the card line and
 ``{"ok": true, "device": ...}``. A kernel's ``launches`` there is the sum
-over the main paths that run it.
+over the main paths that run it; ``bound_ms`` is the larger of the bytes the
+function must move over the memory rate and its operations over their
+unit's peak rate, computed from that entry's inputs; ``library_ms`` is the
+time of the PyTorch call that computes the same function (``sdpa_ms``, the
+yardstick, which the port never calls), or null where there is none.
 """
 
 import json
@@ -99,6 +126,26 @@ LLAVA_TOKENS_PER_SAMPLE = 512 - 1 + 576
 # ln 128257 + 0.82 / 2 = 11.76 + 0.41 = 12.17; the band is 0.5 either side
 LLAVA_LOSS_BAND = (11.67, 12.67)
 TEXT_LOSS_BAND = (10.8, 11.8)  # pythia and mamba: ln vocab = 10.83
+# ViT-L/16 at the main path's mbs 128: 16 heads, 196 patches + CLS, head_dim 64
+VIT_SHAPE = (128, 16, 197, 64)
+VIT_TOKENS = 197
+# ViT's first loss: the final LayerNorm gives the class token's row unit
+# variance (square norm 1024), and the classifier's lecun-normal kernel has
+# variance 1/1024 with a zero bias, so the 21,841 logits are about N(0, 1):
+# E[logsumexp] = ln 21841 + 1/2 = 9.99 + 0.50 = 10.49, and the mean of the
+# 256 labels' logits has a standard deviation of 1/16; 0.3 either side
+VIT_LOSS_BAND = (10.19, 10.79)
+
+# H100 SXM peaks (the on-chip-measurement guide's table: NVIDIA's data sheet,
+# dense, at 700 W): bf16 tensor-core products, f32 outside the tensor cores,
+# HBM. The exp rate: 16 special-function results per SM per clock (CUDA C++
+# Programming Guide, arithmetic instruction throughput, compute capability
+# 9.0) x 132 SMs x 1.98 GHz. The flash kernels' products run in bf16 also on
+# f32 inputs, so their operations are held to the bf16 rate.
+PEAK_BF16_FLOPS = 989e12
+PEAK_F32_FLOPS = 67e12
+PEAK_BYTES = 3.35e12
+PEAK_EXPS = 16 * 132 * 1.98e9
 
 # Kernel vs plain version, bf16 inputs. Both round the same operands to bf16
 # (q*scale, p, ds) and accumulate in f32; they differ in summation order, in
@@ -172,11 +219,85 @@ def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
     return statistics.median(times)
 
 
-def _inputs(shape, seed: int):
+def _inputs(shape, seed: int, dtype: torch.dtype = torch.bfloat16):
     g = torch.Generator(device="cuda").manual_seed(seed)
     b, h, s, d = shape
-    q, k, v, do = (torch.randn(b * h, s, d, generator=g, device="cuda").to(torch.bfloat16) for _ in range(4))
+    q, k, v, do = (torch.randn(b * h, s, d, generator=g, device="cuda").to(dtype) for _ in range(4))
     return q, k, v, do
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
+
+
+def bound(nbytes: int, flops: float = 0.0, flop_rate: float = PEAK_BF16_FLOPS, exps: float = 0.0) -> dict:
+    """The least time the card could take for a function, in ms, and what
+    bounds it: the bytes it must move (each input read once, each output
+    written once) over the memory rate, or its operations (products at
+    ``flop_rate``, exps at the special-function rate)."""
+    t_bytes = nbytes / PEAK_BYTES
+    t_ops = max(flops / flop_rate, exps / PEAK_EXPS)
+    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
+
+
+def bound_terms(nbytes: int, flops: float = 0.0, flop_rate: float = PEAK_BF16_FLOPS, exps: float = 0.0) -> str:
+    """``bound``'s three terms in ms, for the log."""
+    return (f"bytes {nbytes} ({nbytes / PEAK_BYTES * 1e3:.4f} ms), products {flops:.4g} "
+            f"({flops / flop_rate * 1e3:.4f} ms), exps {exps:.4g} ({exps / PEAK_EXPS * 1e3:.4f} ms)")
+
+
+def visible_pairs(bh: int, q_seq: int, kv_seq: int, causal: bool, kv_lens=None) -> int:
+    """(query, key) pairs the attention must compute: every query row sees
+    the keys below its batch-head's length, and with ``causal`` only those
+    at or before it."""
+    lens = np.full(bh, kv_seq) if kv_lens is None else np.clip(kv_lens.cpu().numpy(), 0, kv_seq)
+    if not causal:
+        return int(lens.sum()) * q_seq
+    return int(np.minimum(np.arange(1, q_seq + 1)[None, :], lens[:, None]).sum())
+
+
+def attention_bounds(q, k, v, do, causal: bool, kv_lens=None) -> dict:
+    """``bound`` of each attention function on these [BH, S, D] inputs, with
+    2·D FLOP per visible pair per product and one exp per pair: the forward
+    (q, k, v -> out, f32 lse; 2 products), the backward (q, k, v, out, dO,
+    lse -> dq, dk, dv; 5 products), which the fused kernel and the split
+    pair both compute, dq alone (q, k, v, dO, lse, delta -> dq; s, dp and
+    ds·k: 3) and dk, dv alone (the same inputs -> dk, dv; s, dp, pᵀ·dO and
+    dsᵀ·q: 4)."""
+    pairs = visible_pairs(q.shape[0], q.shape[1], k.shape[1], causal, kv_lens)
+    f = 2 * q.shape[-1] * pairs
+    stats = q.shape[0] * q.shape[1] * 4  # one f32 lse (or delta) per query row
+    qkv = _nbytes(q, k, v, kv_lens)
+    return {
+        "fwd": bound(qkv + _nbytes(q) + stats, 2 * f, exps=pairs),
+        "bwd": bound(qkv + _nbytes(q, do) + stats + _nbytes(q, k, v), 5 * f, exps=pairs),
+        "dq": bound(qkv + _nbytes(do) + 2 * stats + _nbytes(q), 3 * f, exps=pairs),
+        "dkv": bound(qkv + _nbytes(do) + 2 * stats + _nbytes(k, v), 4 * f, exps=pairs),
+    }
+
+
+def sdpa_ms(q, k, v, do, causal: bool, flash_only: bool) -> dict:
+    """The yardstick, and the one place where this script names PyTorch's
+    fused attention (the port never calls it): median ms of
+    ``scaled_dot_product_attention`` on the [BH, S, D] inputs viewed as [1,
+    BH, S, D] at the default scale 1/sqrt(D), forward, and backward as
+    forward + backward less the forward. ``flash_only`` holds it to the
+    flash backend (bf16); else PyTorch picks, and the backend is named."""
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    q4, k4, v4, do4 = (t.unsqueeze(0) for t in (q, k, v, do))
+    if flash_only:
+        backend = SDPBackend.FLASH_ATTENTION
+    else:
+        choice = int(torch._fused_sdp_choice(q4, k4, v4, None, 0.0, causal))
+        backend = next(b for b in SDPBackend.__members__.values() if int(b) == choice)
+    leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
+    with sdpa_kernel([backend]):
+        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
+        both = cuda_ms(lambda: torch.autograd.grad(
+            F.scaled_dot_product_attention(*leaves, is_causal=causal), leaves, do4))
+    return {"fwd": fwd, "bwd": both - fwd, "backend": backend.name}
 
 
 def check_kernels_at(shape, causal: bool, seed: int = 0, lens: list[int] | None = None) -> dict:
@@ -252,13 +373,24 @@ def phase_kernels() -> list[dict]:
         "fwd_bwd_plain": cuda_ms(lambda: fwd_bwd(fa.flash_fwd_reference, fa.flash_bwd_reference)),
     }
     say(f"[kernels] median ms at {list(SLICE_SHAPE)} bf16 causal: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
+    lib = sdpa_ms(q, k, v, do, True, flash_only=True)
+    bounds = attention_bounds(q, k, v, do, True)
+    say_yardstick(SLICE_SHAPE, "bf16 causal", lib, bounds)
     max_grad_err = max(errs[n][0] for n in ("dq", "dk", "dv"))
     return [
         {"name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:91",
-         "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"]},
+         "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
+         **bounds["fwd"], "library_ms": lib["fwd"]},
         {"name": "flash_bwd_fused", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:208",
-         "launches": None, "max_abs_err": max_grad_err, "ms": t["bwd"], "plain_ms": t["bwd_plain"]},
+         "launches": None, "max_abs_err": max_grad_err, "ms": t["bwd"], "plain_ms": t["bwd_plain"],
+         **bounds["bwd"], "library_ms": lib["bwd"]},
     ]
+
+
+def say_yardstick(shape, what: str, lib: dict, bounds: dict) -> None:
+    say(f"[yardstick] {list(shape)} {what}: PyTorch attention ({lib['backend']}) fwd {lib['fwd']:.3f} ms, "
+        f"bwd {lib['bwd']:.3f} ms; bounds " + ", ".join(
+            f"{n} {b['bound_ms']:.4f} ms ({b['bound_by']})" for n, b in bounds.items()))
 
 
 def phase_slice() -> None:
@@ -290,16 +422,25 @@ def _depth(module) -> str:
     return f"{len(module.vision_tower.layers)} tower + {len(module.language_model.layers)} decoder layers"
 
 
+# PREFER_FUSED_BWD per step: one warmup under each backward, then 3 timed
+# steps under each, in turns
+AB_SCHEDULE = (True, False, True, False, False, True, True, False)
+AB_WARMUP = 2
+
+
 def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *, loss_band: tuple[float, float],
                    layout: str = "bf16_sr", names=("FWD_LAUNCHES", "BWD_LAUNCHES"),
-                   tokens_per_sample: int | None = None) -> dict:
+                   tokens_per_sample: int | None = None, split_ab: bool = False) -> dict:
     """The training step through the user's entry points with the model's
-    own optimizer and schedule: 1 warmup + 3 timed steps. ``layout`` is one
-    of ``profile_step.make_plan``'s. ``counters`` is the kernel module whose
-    launch counts ``names`` are zeroed just before the steps and read just
-    after. The first loss must lie in ``loss_band``. For a model with a
-    trainable mask, every frozen parameter must come out bit for bit and
-    every trainable one must have moved."""
+    own optimizer and schedule: 1 warmup + 3 timed steps, or with
+    ``split_ab`` the fused/split schedule ``AB_SCHEDULE`` in one session.
+    ``layout`` is one of ``profile_step.make_plan``'s. ``counters`` is the
+    kernel module whose launch counts ``names`` are zeroed just before the
+    steps and read just after. The first loss must lie in ``loss_band``.
+    For a model with a trainable mask, every frozen parameter must come out
+    bit for bit and every trainable one must have moved; in the f32 layout
+    every parameter and moment must be f32. Returns the module, the number
+    of micro-batches under each backward and the launch counts."""
     from multimodal_llm_pretraining_tpu_torch.models import get_model_class
     from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
     from multimodal_llm_pretraining_tpu_torch.utils import block_on
@@ -319,19 +460,26 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     # on the host, so that the peak memory below is the steps' own
     before = {n: p.detach().cpu() for n, p in state.params.items()} if masked else {}
 
+    schedule, warmup = (AB_SCHEDULE, AB_WARMUP) if split_ab else ((True,) * 4, 1)
     torch.cuda.reset_peak_memory_stats()
     counters.reset_launch_counts()
     losses, times = [], []
-    for i in range(4):
-        batch = sess.make_train_batch(seed=i)
-        block_on("cuda")
-        t0 = time.perf_counter()
-        state, metrics = step(state, batch)
-        loss = float(metrics["loss"])  # reads the loss back: waits for the step
-        block_on("cuda")
-        times.append(time.perf_counter() - t0)
-        losses.append(loss)
-        say(f"[main] {model_type} step {i}{' (warmup)' if i == 0 else ''}: loss {loss:.5f}, {times[-1]:.3f} s")
+    try:
+        for i, fused in enumerate(schedule):
+            fa.PREFER_FUSED_BWD = fused
+            batch = sess.make_train_batch(seed=i)
+            block_on("cuda")
+            t0 = time.perf_counter()
+            state, metrics = step(state, batch)
+            loss = float(metrics["loss"])  # reads the loss back: waits for the step
+            block_on("cuda")
+            times.append(time.perf_counter() - t0)
+            losses.append(loss)
+            say(f"[main] {model_type} step {i}{' (warmup)' if i < warmup else ''}"
+                f"{(' ' + ('fused' if fused else 'split') + ' backward') if split_ab else ''}: "
+                f"loss {loss:.5f}, {times[-1]:.3f} s")
+    finally:
+        fa.PREFER_FUSED_BWD = True
     launches = {n: getattr(counters, n) for n in names}
     peak = torch.cuda.max_memory_allocated()
 
@@ -354,24 +502,67 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
             raise AssertionError(f"{model_type}: not the f32-trainable / bf16-frozen layout with f32 moments")
         say(f"[main] {model_type}: {len(before) - len(trainable)} frozen parameters bit-identical, "
             f"{len(trainable)} trainable moved (f32, f32 moments; frozen bf16)")
-    step_s = statistics.median(times[1:])
+    if layout == "f32" and not all(t.dtype == torch.float32 for t in (
+            *state.params.values(), *state.opt_state.mu, *state.opt_state.nu)):
+        raise AssertionError(f"{model_type}: not the f32 layout (f32 parameters and moments)")
     samples = mbs * acc
     tokens = samples * (tokens_per_sample or mc.sequence_length)
-    say(f"[main] {model_type} median step {step_s:.4f} s over {len(times) - 1} steps, {samples / step_s:.2f} samples/s, "
-        f"{tokens / step_s:.1f} tokens/s, peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches "
+    medians = {}
+    for fused in sorted(set(schedule), reverse=True):
+        timed = [t for t, f in zip(times[warmup:], schedule[warmup:]) if f == fused]
+        medians[fused] = step_s = statistics.median(timed)
+        say(f"[main] {model_type}{(' ' + ('fused' if fused else 'split') + ' backward') if split_ab else ''} "
+            f"median step {step_s:.4f} s over {len(timed)} steps, {samples / step_s:.2f} samples/s, "
+            f"{tokens / step_s:.1f} tokens/s")
+    if split_ab:
+        say(f"[main] {model_type} fused vs split backward, median step: {medians[True]:.4f} vs {medians[False]:.4f} s "
+            f"(split / fused {medians[False] / medians[True]:.4f})")
+    say(f"[main] {model_type} peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches "
         + ", ".join(f"{n} {c}" for n, c in launches.items()))
-    return {"module": sess.module, "micro_batches": acc * len(losses), "launches": launches}
+    return {"module": sess.module, "launches": launches, "dropout": sess.bundle.dropout,
+            "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)}}
+
+
+def flash_launches_expected(names, plain_layers: int, varlen_layers: int, micro_batches: dict,
+                            plain_bwd: bool = True) -> dict:
+    """Flash launch counts of a run whose micro-batches ran ``micro_batches``
+    [fused] under the fused and [split] under the split backward: one
+    forward per attention layer and micro-batch, and one fused backward, or
+    one dq and one dk/dv, per differentiated layer (the plain-mode layers
+    only where ``plain_bwd``)."""
+    total, fused, split = micro_batches[True] + micro_batches[False], micro_batches[True], micro_batches[False]
+    bwd_layers = plain_layers if plain_bwd else 0
+    counts = {"FWD_LAUNCHES": plain_layers * total, "BWD_LAUNCHES": bwd_layers * fused,
+              "DQ_LAUNCHES": bwd_layers * split, "DKV_LAUNCHES": bwd_layers * split,
+              "VARLEN_FWD_LAUNCHES": varlen_layers * total, "VARLEN_BWD_LAUNCHES": varlen_layers * fused,
+              "VARLEN_DQ_LAUNCHES": varlen_layers * split, "VARLEN_DKV_LAUNCHES": varlen_layers * split}
+    return {n: counts[n] for n in names}
+
+
+def flash_launch_entries(launches: dict) -> dict:
+    """The run's counters under the kernels JSON line's names."""
+    return {"flash_fwd": launches["FWD_LAUNCHES"], "flash_bwd_fused": launches["BWD_LAUNCHES"],
+            "flash_bwd_dq": launches["DQ_LAUNCHES"], "flash_bwd_dkv": launches["DKV_LAUNCHES"],
+            "flash_fwd_varlen": launches["VARLEN_FWD_LAUNCHES"],
+            "flash_bwd_fused_varlen": launches["VARLEN_BWD_LAUNCHES"],
+            "flash_bwd_dq_varlen": launches["VARLEN_DQ_LAUNCHES"],
+            "flash_bwd_dkv_varlen": launches["VARLEN_DKV_LAUNCHES"]}
+
+
+FLASH_COUNTERS = ("FWD_LAUNCHES", "BWD_LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES", "VARLEN_FWD_LAUNCHES",
+                  "VARLEN_BWD_LAUNCHES", "VARLEN_DQ_LAUNCHES", "VARLEN_DKV_LAUNCHES")
 
 
 def phase_main_path() -> dict:
     """pythia-1b: bench.py's recipe, without remat (pythia's remat policies
-    are not ported yet) at acc 2; every attention call on the kernels."""
-    run = drive_training("pythia-1b", mbs=4, acc=2, remat=False, counters=fa, loss_band=TEXT_LOSS_BAND)
-    run["launches"] = tuple(run["launches"].values())
-    expected = len(run["module"].layers) * run["micro_batches"]
-    if run["launches"] != (expected, expected):
-        raise AssertionError(f"flash launches {run['launches']}, expected {expected} each")
-    return {"flash_fwd": run["launches"][0], "flash_bwd_fused": run["launches"][1]}
+    are not ported yet) at acc 2, under the fused and the split backward;
+    every attention call on the plain-mode kernels."""
+    run = drive_training("pythia-1b", mbs=4, acc=2, remat=False, counters=fa, loss_band=TEXT_LOSS_BAND,
+                         names=FLASH_COUNTERS, split_ab=True)
+    expected = flash_launches_expected(FLASH_COUNTERS, len(run["module"].layers), 0, run["micro_batches"])
+    if run["launches"] != expected:
+        raise AssertionError(f"pythia flash launches {run['launches']}, expected {expected}")
+    return flash_launch_entries(run["launches"])
 
 
 # ---------------------------------------------------------------- selective scan
@@ -439,12 +630,29 @@ def phase_scan_kernels() -> list[dict]:
         "bwd_plain": cuda_ms(lambda: ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)),
     }
     say(f"[scan] median ms at {list(SCAN_SHAPE)} N16 bf16: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
+    # what each function must do per (batch, step, channel, state): the
+    # forward one exp (exp(delta*A)) and 6 f32 operations (delta*A, the
+    # decay, delta*u*B and its add, C*h and its sum); the backward the same
+    # exp and 16 (the recomputed state, the reverse-time dh recurrence, the
+    # du, ddelta, dA, dB, dC terms). Bytes: the inputs and outputs as given.
+    y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
+    grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)
+    elems = u.numel() * A.shape[-1]
+    ins = _nbytes(u, delta, A, B, C)
+    work = {
+        "fwd": (ins + _nbytes(y, ckpt), 6 * elems, PEAK_F32_FLOPS, elems),
+        "bwd": (ins + _nbytes(dy, ckpt, *grads), 16 * elems, PEAK_F32_FLOPS, elems),
+    }
+    bounds = {n: bound(*w) for n, w in work.items()}
+    for n, b in bounds.items():
+        say(f"[scan] {n} bound at {list(SCAN_SHAPE)}: {b['bound_ms']:.4f} ms ({b['bound_by']}); {bound_terms(*work[n])}")
     return [
         {"name": "scan_fwd", "route": "cuda", "source": SCAN_SOURCE, "replaces": f"{JAX_SCAN}:47",
-         "launches": None, "max_abs_err": errs["y"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"]},
+         "launches": None, "max_abs_err": errs["y"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
+         **bounds["fwd"], "library_ms": None},
         {"name": "scan_bwd", "route": "cuda", "source": SCAN_SOURCE, "replaces": f"{JAX_SCAN}:161",
          "launches": None, "max_abs_err": max(errs[n][0] for n in ("du", "ddelta", "dA", "dB", "dC")),
-         "ms": t["bwd"], "plain_ms": t["bwd_plain"]},
+         "ms": t["bwd"], "plain_ms": t["bwd_plain"], **bounds["bwd"], "library_ms": None},
     ]
 
 
@@ -485,7 +693,7 @@ def phase_mamba_main_path() -> dict:
     recompute runs it again) and the backward once."""
     run = drive_training("mamba", mbs=2, acc=2, remat=True, counters=ssf, loss_band=TEXT_LOSS_BAND)
     run["launches"] = tuple(run["launches"].values())
-    calls = len(run["module"].layers) * run["micro_batches"]
+    calls = len(run["module"].layers) * sum(run["micro_batches"].values())
     if run["launches"] != (2 * calls, calls):
         raise AssertionError(f"scan launches {run['launches']}, expected ({2 * calls}, {calls})")
     return {"scan_fwd": run["launches"][0], "scan_bwd": run["launches"][1]}
@@ -526,8 +734,13 @@ def phase_varlen_kernels() -> list[dict]:
     }
     say(f"[varlen] median ms at {list(VARLEN_SHAPE)} bf16 causal, full lens: "
         + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
+    # full lens: the same function as plain causal attention, which is what
+    # PyTorch's flash backend (no per-row lengths) computes
+    lib = sdpa_ms(q, k, v, do, True, flash_only=True)
+    bounds = attention_bounds(q, k, v, do, True, full)
+    say_yardstick(VARLEN_SHAPE, "bf16 causal, full lens", lib, bounds)
     del q, k, v, do, out, lse
-    q, k, v, _ = _inputs(TOWER_SHAPE, 24)
+    q, k, v, do = _inputs(TOWER_SHAPE, 24)
     tower_scale = TOWER_SHAPE[-1] ** -0.5
     tower = {
         "fwd": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, False, tower_scale)),
@@ -535,12 +748,15 @@ def phase_varlen_kernels() -> list[dict]:
     }
     say(f"[varlen] median ms at the tower's {list(TOWER_SHAPE)} bf16 non-causal, plain mode: "
         + ", ".join(f"{n} {ms:.3f}" for n, ms in tower.items()))
+    say_yardstick(TOWER_SHAPE, "bf16 non-causal", sdpa_ms(q, k, v, do, False, flash_only=True),
+                  {"fwd": attention_bounds(q, k, v, do, False)["fwd"]})
     return [
         {"name": "flash_fwd_varlen", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:91",
-         "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"]},
+         "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
+         **bounds["fwd"], "library_ms": lib["fwd"]},
         {"name": "flash_bwd_fused_varlen", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:208",
          "launches": None, "max_abs_err": max(errs[n][0] for n in ("dq", "dk", "dv")), "ms": t["bwd"],
-         "plain_ms": t["bwd_plain"]},
+         "plain_ms": t["bwd_plain"], **bounds["bwd"], "library_ms": lib["bwd"]},
     ]
 
 
@@ -598,15 +814,203 @@ def phase_llava_main_path() -> dict:
     layout for it. Per micro-batch: 16 varlen forwards and 16 varlen
     backwards (the decoder; its weights are frozen but the gradient flows
     through it to the projector), 23 plain-mode forwards (the tower) and no
-    plain-mode backward (the frozen tower is not differentiated)."""
+    plain-mode backward (the frozen tower is not differentiated). Under the
+    split backward the decoder's backwards are one varlen dq and one varlen
+    dk/dv kernel each."""
     run = drive_training("llava-pretrain", mbs=16, acc=2, remat=False, counters=fa, loss_band=LLAVA_LOSS_BAND,
-                         layout="bf16", names=LLAVA_COUNTERS, tokens_per_sample=LLAVA_TOKENS_PER_SAMPLE)
-    mod, mb = run["module"], run["micro_batches"]
-    tower, decoder = len(mod.vision_tower.layers) * mb, len(mod.language_model.layers) * mb
-    expected = dict(zip(LLAVA_COUNTERS, (tower, 0, decoder, decoder)))
+                         layout="bf16", names=FLASH_COUNTERS, tokens_per_sample=LLAVA_TOKENS_PER_SAMPLE,
+                         split_ab=True)
+    mod = run["module"]
+    expected = flash_launches_expected(FLASH_COUNTERS, len(mod.vision_tower.layers), len(mod.language_model.layers),
+                                       run["micro_batches"], plain_bwd=False)
     if run["launches"] != expected:
         raise AssertionError(f"llava launches {run['launches']}, expected {expected}")
-    return {"flash_fwd": tower, "flash_bwd_fused": 0, "flash_fwd_varlen": decoder, "flash_bwd_fused_varlen": decoder}
+    return flash_launch_entries(run["launches"])
+
+
+# ---------------------------------------------------------------- split backward (ViT)
+
+
+def _split(q, k, v, do, lse, delta, causal, scale, kv_lens):
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, kv_lens)
+    return (dq, *fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale, kv_lens))
+
+
+def _split_plain(q, k, v, do, lse, delta, causal, scale, kv_lens):
+    dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale, kv_lens)
+    return (dq, *fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale, kv_lens))
+
+
+def check_split_at(shape, causal: bool, dtype=torch.bfloat16, seed: int = 0, lens: list[int] | None = None) -> dict:
+    """The split kernels (dq, then dk/dv) against their plain versions on
+    identical inputs, each within TOL_NORM_REL of its norm; a second run
+    bit for bit (they sum nothing across blocks); the pair within
+    TOL_NORM_REL of the fused kernel; with ``lens``, dk and dv exactly 0 at
+    and past each length and dq 0 on a row of length 0. Returns the
+    errors against the plain versions."""
+    b, h, s, d = shape
+    q, k, v, do = _inputs(shape, seed, dtype)
+    scale = d**-0.5
+    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
+    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    delta = fa.bwd_delta(out, do)
+    grads = _split(q, k, v, do, lse, delta, causal, scale, kv_lens)
+    again = _split(q, k, v, do, lse, delta, causal, scale, kv_lens)
+    fused = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
+    plain = _split_plain(q, k, v, do, lse, delta, causal, scale, kv_lens)
+    torch.cuda.synchronize()
+    names = ("dq", "dk", "dv")
+    res = {n: _errs(g, p) for n, g, p in zip(names, grads, plain)}
+    vs_fused = {n: _errs(g, f)[1] for n, g, f in zip(names, grads, fused)}
+    same = all(torch.equal(a, b) for a, b in zip(grads, again))
+    past_max = dq_empty = 0.0
+    if kv_lens is not None:
+        past = torch.arange(s, device="cuda")[None, :] >= kv_lens[:, None]
+        if past.any():
+            past_max = max(grads[1][past].abs().max().item(), grads[2][past].abs().max().item())
+        if (kv_lens == 0).any():
+            dq_empty = grads[0][kv_lens == 0].abs().max().item()
+    say(f"[split] {list(shape)} {str(dtype).split('.')[-1]} causal={causal}{'' if lens is None else f' lens {lens}'}: "
+        + ", ".join(f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in res.items())
+        + "; vs fused norm_rel " + ", ".join(f"{n} {r:.3e}" for n, r in vs_fused.items())
+        + f"; second run identical {same}"
+        + ("" if lens is None else f"; dk/dv past the lens max_abs {past_max:.1e}, dq on empty rows {dq_empty:.1e}"))
+    for name, t in zip(names, grads):
+        if not torch.isfinite(t).all() or t.dtype != dtype:
+            raise AssertionError(f"[split] {name} is not finite {dtype} at {shape}")
+        if not res[name][1] <= TOL_NORM_REL:
+            raise AssertionError(f"[split] {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {shape}")
+        if not vs_fused[name] <= TOL_NORM_REL:
+            raise AssertionError(f"[split] {name} differs from the fused kernel's by {vs_fused[name]:.3e} at {shape}")
+    if not same:
+        raise AssertionError(f"[split] dq, dk, dv differ between two runs at {shape}")
+    if past_max != 0.0 or dq_empty != 0.0:
+        raise AssertionError(f"[split] dk/dv past the lens or dq on an empty row not exactly 0 at {shape}")
+    return res
+
+
+def time_backwards(shape, causal: bool, dtype, seed: int, full_lens: bool = False) -> dict:
+    """CUDA-event medians at a main path's shape: the dq and dk/dv kernels
+    alone, the split backward as ``FlashAttention.backward`` runs it
+    (delta, dq, dk/dv), the fused kernel, the plain versions, PyTorch's
+    attention and the bounds. ``full_lens``: the varlen mode with every
+    length full, the same function as plain attention."""
+    b, h, s, d = shape
+    q, k, v, do = _inputs(shape, seed, dtype)
+    scale = d**-0.5
+    kv_lens = torch.full((b * h,), s, dtype=torch.int32, device="cuda") if full_lens else None
+    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    delta = fa.bwd_delta(out, do)
+    args = (q, k, v, do, lse, delta, causal, scale, kv_lens)
+    t = {
+        "dq": cuda_ms(lambda: fa.flash_bwd_dq_cuda(*args)),
+        "dkv": cuda_ms(lambda: fa.flash_bwd_dkv_cuda(*args)),
+        "split": cuda_ms(lambda: _split(q, k, v, do, lse, fa.bwd_delta(out, do), causal, scale, kv_lens)),
+        "fused": cuda_ms(lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)),
+        "fwd": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)),
+        "fwd_plain": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)),
+        "dq_plain": cuda_ms(lambda: fa.flash_bwd_dq_reference(*args)),
+        "dkv_plain": cuda_ms(lambda: fa.flash_bwd_dkv_reference(*args)),
+        "fused_plain": cuda_ms(lambda: fa.flash_bwd_reference(q, k, v, out, lse, do, causal, scale, kv_lens)),
+    }
+    what = f"{str(dtype).split('.')[-1]} {'causal' if causal else 'non-causal'}{', full lens' if full_lens else ''}"
+    say(f"[split] median ms at {list(shape)} {what}: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
+    lib = sdpa_ms(q, k, v, do, causal, flash_only=dtype == torch.bfloat16)
+    bounds = attention_bounds(q, k, v, do, causal, kv_lens)
+    say_yardstick(shape, what, lib, bounds)
+    return {"ms": t, "library": lib, "bounds": bounds}
+
+
+def phase_split_kernels() -> list[dict]:
+    # full f32 products in the plain versions (the main paths' plans turned TF32 on)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    errs = check_split_at(SLICE_SHAPE, True, seed=30)
+    check_split_at(VIT_SHAPE, False, torch.float32, seed=31)
+    check_split_at(VIT_SHAPE, False, seed=32)
+    for causal in (True, False):
+        check_split_at(RAGGED_SHAPE, causal, seed=33 + causal)
+        check_split_at(VARLEN_RAGGED, causal, seed=35 + causal, lens=[77, 37, 64, 0])
+    errs_varlen = check_split_at(VARLEN_SHAPE, True, seed=37, lens=_ragged_lens(VARLEN_SHAPE[0], VARLEN_SHAPE[2], 2))
+
+    pythia = time_backwards(SLICE_SHAPE, True, torch.bfloat16, 38)
+    time_backwards(VIT_SHAPE, False, torch.float32, 39)
+    llava = time_backwards(VARLEN_SHAPE, True, torch.bfloat16, 40, full_lens=True)
+
+    def entries(suffix: str, e: dict, timed: dict) -> list[dict]:
+        return [
+            {"name": f"flash_bwd_{part}{suffix}", "route": "cuda", "source": KERNEL_SOURCE,
+             "replaces": f"{JAX_FLASH}:{line}", "launches": None, "max_abs_err": err, "ms": timed["ms"][part],
+             "plain_ms": timed["ms"][f"{part}_plain"], **timed["bounds"][part], "library_ms": None}
+            for part, line, err in (("dq", 161, e["dq"][0]), ("dkv", 293, max(e["dk"][0], e["dv"][0])))
+        ]
+
+    return entries("", errs, pythia) + entries("_varlen", errs_varlen, llava)
+
+
+def phase_vit_slice() -> None:
+    """Two-layer narrow ViT in f32 (hidden 128, 2 heads of 64, ffn 256) at
+    224 px (197 tokens), 100 classes, 4 images, dropout off: loss and every
+    grad with the kernels, under the fused and under the split backward,
+    against the plain f32 attention ("naive") on the same weights and
+    batch, TF32 off. The kernels round q, k, v, p and ds to bf16 where the
+    plain attention keeps f32, hence the bf16-level tolerances."""
+    from multimodal_llm_pretraining_tpu_torch.models.layers import cross_entropy_loss
+    from multimodal_llm_pretraining_tpu_torch.models.vit import ViTClassifier
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    pixels = torch.from_numpy(rng.random((4, 224, 224, 3), dtype=np.float32)).to("cuda")
+    labels = torch.from_numpy(rng.integers(0, 100, 4)).to("cuda")
+    results = {}
+    try:
+        for impl, fused in (("flash", True), ("flash", False), ("naive", True)):
+            fa.PREFER_FUSED_BWD = fused
+            model = ViTClassifier(100, 224, hidden=128, num_layers=2, num_heads=2, ffn=256, attn_impl=impl).to("cuda")
+            model.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+            fa.reset_launch_counts()
+            loss = cross_entropy_loss(model(pixels), labels)
+            loss.backward()
+            launches = tuple(getattr(fa, n) for n in FLASH_COUNTERS)
+            want = (0,) * 8 if impl == "naive" else (2, 2, 0, 0, 0, 0, 0, 0) if fused else (2, 0, 2, 2, 0, 0, 0, 0)
+            if launches != want:
+                raise AssertionError(f"vit slice {impl} fused={fused}: launches {dict(zip(FLASH_COUNTERS, launches))}")
+            results[impl, fused] = (loss.item(), {n: p.grad.float() for n, p in model.named_parameters()})
+    finally:
+        fa.PREFER_FUSED_BWD = True
+    loss_n, g_n = results["naive", True]
+    for fused in (True, False):
+        loss_k, g_k = results["flash", fused]
+        worst_name = max(g_n, key=lambda n: _errs(g_k[n], g_n[n])[1])
+        worst = _errs(g_k[worst_name], g_n[worst_name])[1]
+        say(f"[vit slice] 2-layer f32 {'fused' if fused else 'split'} backward: loss kernels {loss_k:.6f} vs plain "
+            f"{loss_n:.6f}; {len(g_n)} grads, worst norm_rel {worst:.3e} ({worst_name})")
+        if not abs(loss_k - loss_n) <= TOL_SLICE_LOSS:
+            raise AssertionError(f"vit slice loss differs by {abs(loss_k - loss_n):.3e} > {TOL_SLICE_LOSS}")
+        if not worst <= TOL_SLICE_GRAD_NORM_REL:
+            raise AssertionError(f"vit slice grads differ: norm_rel {worst:.3e} > {TOL_SLICE_GRAD_NORM_REL}")
+    (_, g_f), (_, g_s) = results["flash", True], results["flash", False]
+    worst = max(_errs(g_s[n], g_f[n])[1] for n in g_f)
+    say(f"[vit slice] split vs fused backward: worst grad norm_rel {worst:.3e}")
+    if not worst <= TOL_NORM_REL:
+        raise AssertionError(f"vit slice: split and fused grads differ by {worst:.3e} > {TOL_NORM_REL}")
+
+
+def phase_vit_main_path() -> dict:
+    """ViT-L/16 at full width and depth in the f32 layout (the recipe's f32
+    compute; TF32 products), dropout on, micro-batch 128 x accumulation 2
+    (the recipe's batch of 4096 cut for one card). Per micro-batch: 24
+    plain-mode f32 forwards, and 24 fused backwards or 24 dq + 24 dk/dv."""
+    run = drive_training("vit", mbs=VIT_SHAPE[0], acc=2, remat=False, counters=fa, loss_band=VIT_LOSS_BAND,
+                         layout="f32", names=FLASH_COUNTERS, tokens_per_sample=VIT_TOKENS, split_ab=True)
+    mod = run["module"]
+    if mod.position_embeddings.shape[1] != VIT_TOKENS or mod.classifier.weight.shape[0] != 21841:
+        raise AssertionError(f"vit: not ViT-L/16 at 224 px with 21,841 classes: {mod.position_embeddings.shape}")
+    if not run["dropout"]:
+        raise AssertionError("vit: the session trained without dropout")
+    expected = flash_launches_expected(FLASH_COUNTERS, len(mod.layers), 0, run["micro_batches"])
+    if run["launches"] != expected:
+        raise AssertionError(f"vit flash launches {run['launches']}, expected {expected}")
+    return flash_launch_entries(run["launches"])
 
 
 def main() -> int:
@@ -614,14 +1018,22 @@ def main() -> int:
     phase_build()
     kernels = phase_kernels()
     phase_slice()
-    launches = phase_main_path()
+    launches: dict[str, int] = {}
+
+    def add(counts: dict) -> None:
+        for name, n in counts.items():
+            launches[name] = launches.get(name, 0) + n
+
+    add(phase_main_path())
     kernels += phase_scan_kernels()
     phase_scan_slice()
-    launches.update(phase_mamba_main_path())
+    add(phase_mamba_main_path())
     kernels += phase_varlen_kernels()
     phase_llava_slice()
-    for name, n in phase_llava_main_path().items():
-        launches[name] = launches.get(name, 0) + n
+    add(phase_llava_main_path())
+    kernels += phase_split_kernels()
+    phase_vit_slice()
+    add(phase_vit_main_path())
     for k in kernels:
         k["launches"] = launches[k["name"]]
     say(json.dumps({"kernels": kernels}))

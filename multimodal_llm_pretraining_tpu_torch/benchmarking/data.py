@@ -38,6 +38,24 @@ class DummyTextModelingDataset(DummyDataset):
         return {"input_ids": ids, "labels": ids.copy()}
 
 
+class DummyImageClassificationDataset(DummyDataset):
+    """Image-classification fixture: float32 NHWC pixels in [0, 1) and int32
+    labels in [0, num_classes), drawn from ``default_rng(seed)`` in the JAX
+    package's order (pixels, then labels)."""
+
+    def __init__(self, image_size: int, num_classes: int, num_samples: int = 20_000):
+        self.image_size = image_size
+        self.num_classes = num_classes
+        self.num_samples = num_samples
+
+    def sample_batch(self, batch_size: int, seed: int = 0) -> dict[str, np.ndarray]:
+        rng = np.random.default_rng(seed)
+        return {
+            "pixel_values": rng.random((batch_size, self.image_size, self.image_size, 3), dtype=np.float32),
+            "labels": rng.integers(0, self.num_classes, (batch_size,), dtype=np.int32),
+        }
+
+
 class DummyMultimodalLanguageModelingDataset(DummyDataset):
     """LLaVA-style fixture: a leading ``<image>`` token then random text, an
     all-ones attention mask and float32 NHWC pixels in [0, 1), drawn from

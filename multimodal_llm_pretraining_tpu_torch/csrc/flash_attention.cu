@@ -1,8 +1,11 @@
-// Flash attention for NVIDIA Hopper (sm_90a): forward and fused backward.
+// Flash attention for NVIDIA Hopper (sm_90a): forward, fused backward and the
+// split backward.
 //
 // Replaces the Pallas TPU kernels of multimodal_llm_pretraining_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel  <- _fwd_kernel        (flash_attention.py:91, launched by _fwd_impl)
-//   flash_bwd_kernel  <- _bwd_fused_kernel  (flash_attention.py:208, launched by _bwd_impl)
+//   flash_fwd_kernel      <- _fwd_kernel        (flash_attention.py:91, launched by _fwd_impl)
+//   flash_bwd_kernel      <- _bwd_fused_kernel  (flash_attention.py:208, launched by _bwd_impl)
+//   flash_bwd_dq_kernel   <- _bwd_dq_kernel     (flash_attention.py:161, launched at :572)
+//   flash_bwd_dkv_kernel  <- _bwd_dkv_kernel    (flash_attention.py:293, launched at :589)
 //
 // Layout: q/k/v/o/do are row-major [BH, S, D] (batch*heads folded), lse and delta
 // are f32 [BH, S]. Products run on the tensor cores through nvcuda::wmma
@@ -26,6 +29,19 @@
 // * Tensor-core rate. wmma issues warp-wide mma.sync; Hopper's full rate needs
 //   wgmma, TMA and warp specialisation. Those are later work: this version is
 //   written to be right first, one block per SM at D=256.
+// * The split backward (the JAX package's MLPT_FLASH_FUSED_BWD=0 path) does
+//   7 tile products where the fused one does 5: s and dp are computed twice,
+//   once per q block for dq and once per k block for dk/dv. In exchange it
+//   adds no partial sums across blocks, so all three gradients repeat bit for
+//   bit. flash_bwd_dq_kernel keeps its [64 x D] f32 dq accumulator in wmma
+//   accumulator fragments, in registers (64 of them a thread at D=256, 8
+//   warps), not in shared memory: that frees the 66 KB a shared f32
+//   accumulator would take at D=256, so 64-row k tiles still fit (~180 KB),
+//   and dq is stored once, in the output dtype, with no atomics.
+//   flash_bwd_dkv_kernel is the fused kernel without its dq part (the same
+//   code, compiled without the k tile and the atomics), 32-row k blocks,
+//   ~197 KB at D=256. The TPU's halved blocks at D > 128
+//   (flash_attention.py:568-570) were a VMEM artifact and are not carried over.
 //
 // Sequence tails (S=2049 is not a multiple of any block) are masked in-kernel:
 // rows past the end load as zeros and are never stored, keys past the end
@@ -294,14 +310,16 @@ __global__ void __launch_bounds__(FWD_THREADS)
 
 constexpr int BWD_BQ = 64, BWD_BK = 32, BWD_THREADS = 256;  // 8 warps
 
-template <int D>
+// DQ: the fused kernel, which also keeps the unscaled k tile for dq = ds . k;
+// without it, the dk/dv kernel of the split backward.
+template <int D, bool DQ>
 struct BwdSmem {
   static constexpr int LDB = D + 8;       // bf16 tiles
   static constexpr int LDF = D + 4;       // f32 dk/dv accumulators
   static constexpr int LDS = BWD_BK + 4;  // f32 s and dp tiles
   static constexpr int LDP = BWD_BK + 8;  // bf16 p and ds tiles
   static constexpr size_t k = 0;
-  static constexpr size_t ks = k + sizeof(bf16) * BWD_BK * LDB;
+  static constexpr size_t ks = k + (DQ ? sizeof(bf16) * BWD_BK * LDB : 0);
   static constexpr size_t v = ks + sizeof(bf16) * BWD_BK * LDB;
   static constexpr size_t q = v + sizeof(bf16) * BWD_BK * LDB;
   static constexpr size_t dout = q + sizeof(bf16) * BWD_BQ * LDB;
@@ -319,14 +337,15 @@ struct BwdSmem {
 // One block per (k block, batch-head), looping over q blocks from the causal
 // start. Per q block: s = q . (k*scale)^T, dp = dO . v^T, p = exp(s - lse),
 // ds = p * (dp - delta) * scale; dv += p^T . dO and dk += ds^T . q stay in
-// shared memory; dq += ds . k goes to global memory by f32 atomicAdd.
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-    flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                     const int* __restrict__ kv_lens, float* __restrict__ dq, T* __restrict__ dk,
-                     T* __restrict__ dv, int q_seq, int kv_seq, int causal, float sm_scale) {
-  using L = BwdSmem<D>;
+// shared memory; with DQ, dq += ds . k goes to global memory by f32 atomicAdd.
+template <typename T, int D, bool DQ>
+__device__ __forceinline__ void bwd_kv_block(const T* __restrict__ q, const T* __restrict__ k,
+                                             const T* __restrict__ v, const T* __restrict__ dout,
+                                             const float* __restrict__ lse, const float* __restrict__ delta,
+                                             const int* __restrict__ kv_lens, float* __restrict__ dq,
+                                             T* __restrict__ dk, T* __restrict__ dv, int q_seq, int kv_seq,
+                                             int causal, float sm_scale) {
+  using L = BwdSmem<D, DQ>;
   constexpr int NF = D / 16;  // 16-wide column fragments across the head dim
   extern __shared__ __align__(128) unsigned char smem[];
   bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
@@ -351,7 +370,7 @@ __global__ void __launch_bounds__(BWD_THREADS)
 
   // the TPU kernel folds the scale into k for the scores; q stays unscaled
   // for dk = ds^T . q, and ds carries the scale for dq = ds . k
-  load_tile<T, D>(sK, L::LDB, k + koff * D, k0, BWD_BK, kv_len, 1.f);
+  if constexpr (DQ) load_tile<T, D>(sK, L::LDB, k + koff * D, k0, BWD_BK, kv_len, 1.f);
   load_tile<T, D>(sKs, L::LDB, k + koff * D, k0, BWD_BK, kv_len, sm_scale);
   load_tile<T, D>(sV, L::LDB, v + koff * D, k0, BWD_BK, kv_len, 1.f);
   for (int i = threadIdx.x; i < BWD_BK * L::LDF; i += blockDim.x) {
@@ -431,25 +450,27 @@ __global__ void __launch_bounds__(BWD_THREADS)
     }
 
     // dq += ds . k, [64 x D], added to global memory fragment by fragment
-    for (int f = warp; f < 4 * NF; f += BWD_THREADS / 32) {
-      const int fr = (f / NF) * 16, fc = (f % NF) * 16;
-      FragC dq_acc;
-      wmma::fill_fragment(dq_acc, 0.f);
+    if constexpr (DQ) {
+      for (int f = warp; f < 4 * NF; f += BWD_THREADS / 32) {
+        const int fr = (f / NF) * 16, fc = (f % NF) * 16;
+        FragC dq_acc;
+        wmma::fill_fragment(dq_acc, 0.f);
 #pragma unroll
-      for (int kk = 0; kk < BWD_BK; kk += 16) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, sdS + fr * L::LDP + kk, L::LDP);
-        wmma::load_matrix_sync(b, sK + kk * L::LDB + fc, L::LDB);
-        wmma::mma_sync(dq_acc, a, b, dq_acc);
+        for (int kk = 0; kk < BWD_BK; kk += 16) {
+          FragA a;
+          FragB b;
+          wmma::load_matrix_sync(a, sdS + fr * L::LDP + kk, L::LDP);
+          wmma::load_matrix_sync(b, sK + kk * L::LDB + fc, L::LDB);
+          wmma::mma_sync(dq_acc, a, b, dq_acc);
+        }
+        wmma::store_matrix_sync(scratch, dq_acc, 16, wmma::mem_row_major);
+        __syncwarp();
+        for (int e = lane; e < 256; e += 32) {
+          const int qi = q0 + fr + e / 16;
+          if (qi < q_seq) atomicAdd(dq + (qoff + qi) * D + fc + e % 16, scratch[e]);
+        }
+        __syncwarp();
       }
-      wmma::store_matrix_sync(scratch, dq_acc, 16, wmma::mem_row_major);
-      __syncwarp();
-      for (int e = lane; e < 256; e += 32) {
-        const int qi = q0 + fr + e / 16;
-        if (qi < q_seq) atomicAdd(dq + (qoff + qi) * D + fc + e % 16, scratch[e]);
-      }
-      __syncwarp();
     }
     __syncthreads();  // q/dO tiles and the scratch are reused next iteration
   }
@@ -464,6 +485,163 @@ __global__ void __launch_bounds__(BWD_THREADS)
       store8(dk + (koff + k0 + r) * D + c, sdK + r * L::LDF + c);
       store8(dv + (koff + k0 + r) * D + c, sdV + r * L::LDF + c);
     }
+  }
+}
+
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+    flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                     const int* __restrict__ kv_lens, float* __restrict__ dq, T* __restrict__ dk,
+                     T* __restrict__ dv, int q_seq, int kv_seq, int causal, float sm_scale) {
+  bwd_kv_block<T, D, true>(q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, q_seq, kv_seq, causal, sm_scale);
+}
+
+// ---------------------------------------------------------------- split backward
+
+// dk and dv only, one block per (k block, batch-head): the TPU's
+// _bwd_dkv_kernel, the scale folded into k for the scores.
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                         const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                         const int* __restrict__ kv_lens, T* __restrict__ dk, T* __restrict__ dv, int q_seq,
+                         int kv_seq, int causal, float sm_scale) {
+  bwd_kv_block<T, D, false>(q, k, v, dout, lse, delta, kv_lens, nullptr, dk, dv, q_seq, kv_seq, causal, sm_scale);
+}
+
+constexpr int DQ_BQ = 64, DQ_BK = 64, DQ_THREADS = 256;  // 8 warps
+
+template <int D>
+struct DqSmem {
+  static constexpr int LDB = D + 8;      // bf16 tiles
+  static constexpr int LDS = DQ_BK + 4;  // f32 s and dp tiles
+  static constexpr int LDP = DQ_BK + 8;  // bf16 ds tile
+  static constexpr size_t q = 0;
+  static constexpr size_t dout = q + sizeof(bf16) * DQ_BQ * LDB;
+  static constexpr size_t k = dout + sizeof(bf16) * DQ_BQ * LDB;
+  static constexpr size_t v = k + sizeof(bf16) * DQ_BK * LDB;
+  static constexpr size_t s = v + sizeof(bf16) * DQ_BK * LDB;
+  static constexpr size_t dp = s + sizeof(float) * DQ_BQ * LDS;
+  static constexpr size_t ds = dp + sizeof(float) * DQ_BQ * LDS;
+  static constexpr size_t lse = ds + sizeof(bf16) * DQ_BQ * LDP;
+  static constexpr size_t delta = lse + sizeof(float) * DQ_BQ;
+  static constexpr size_t bytes = delta + sizeof(float) * DQ_BQ;
+};
+
+// dq only, one block per (q block, batch-head): the TPU's _bwd_dq_kernel.
+// The scale folds into q for the scores, ds = p * (dp - delta) * scale is
+// rounded to the operand type, and dq += ds . k takes the *unscaled* k
+// (flash_attention.py:172-195). Each warp owns NF/2 of the [64 x D] dq
+// accumulator's 16x16 fragments for the whole k loop; dq is stored once.
+template <typename T, int D>
+__global__ void __launch_bounds__(DQ_THREADS)
+    flash_bwd_dq_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                        const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                        const int* __restrict__ kv_lens, T* __restrict__ dq, int q_seq, int kv_seq, int causal,
+                        float sm_scale) {
+  using L = DqSmem<D>;
+  constexpr int NF = D / 16;
+  constexpr int WARPS = DQ_THREADS / 32;
+  constexpr int NACC = (DQ_BQ / 16) * NF / WARPS;  // dq fragments per warp
+  constexpr int NSF = (DQ_BQ / 16) * (DQ_BK / 16);  // s (and dp) fragments per k tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
+  bf16* sdO = reinterpret_cast<bf16*>(smem + L::dout);
+  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
+  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
+  float* sS = reinterpret_cast<float*>(smem + L::s);
+  float* sdP = reinterpret_cast<float*>(smem + L::dp);
+  bf16* sdS = reinterpret_cast<bf16*>(smem + L::ds);
+  float* sLse = reinterpret_cast<float*>(smem + L::lse);
+  float* sDelta = reinterpret_cast<float*>(smem + L::delta);
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int bh = blockIdx.y;
+  // causal: the last q blocks see the most keys; launch them first
+  const int q0 = (gridDim.x - 1 - blockIdx.x) * DQ_BQ;
+  const size_t qoff = (size_t)bh * q_seq, koff = (size_t)bh * kv_seq;
+  const int kv_len = key_count(kv_lens, bh, kv_seq);
+
+  load_tile<T, D>(sQ, L::LDB, q + qoff * D, q0, DQ_BQ, q_seq, sm_scale);
+  load_tile<T, D>(sdO, L::LDB, dout + qoff * D, q0, DQ_BQ, q_seq, 1.f);
+  if (threadIdx.x < DQ_BQ) {
+    const bool in = q0 + threadIdx.x < q_seq;
+    sLse[threadIdx.x] = in ? lse[qoff + q0 + threadIdx.x] : 0.f;
+    sDelta[threadIdx.x] = in ? delta[qoff + q0 + threadIdx.x] : 0.f;
+  }
+  FragC acc[NACC];
+#pragma unroll
+  for (int j = 0; j < NACC; ++j) wmma::fill_fragment(acc[j], 0.f);
+  int num_kb = cdiv(kv_len, DQ_BK);
+  if (causal) num_kb = min(num_kb, cdiv(q0 + DQ_BQ, DQ_BK));
+
+  for (int kb = 0; kb < num_kb; ++kb) {
+    const int k0 = kb * DQ_BK;
+    load_tile<T, D>(sK, L::LDB, k + koff * D, k0, DQ_BK, kv_len, 1.f);
+    load_tile<T, D>(sV, L::LDB, v + koff * D, k0, DQ_BK, kv_len, 1.f);
+    __syncthreads();
+
+    // s and dp, [64 x 64] each: two 16x16 fragments of each per warp
+    for (int f = warp; f < NSF; f += WARPS) {
+      const int fr = (f / (DQ_BK / 16)) * 16, fc = (f % (DQ_BK / 16)) * 16;
+      FragC s_acc, dp_acc;
+      wmma::fill_fragment(s_acc, 0.f);
+      wmma::fill_fragment(dp_acc, 0.f);
+      for (int d0 = 0; d0 < D; d0 += 16) {
+        FragA a;
+        FragBT b;
+        wmma::load_matrix_sync(a, sQ + fr * L::LDB + d0, L::LDB);
+        wmma::load_matrix_sync(b, sK + fc * L::LDB + d0, L::LDB);
+        wmma::mma_sync(s_acc, a, b, s_acc);
+        wmma::load_matrix_sync(a, sdO + fr * L::LDB + d0, L::LDB);
+        wmma::load_matrix_sync(b, sV + fc * L::LDB + d0, L::LDB);
+        wmma::mma_sync(dp_acc, a, b, dp_acc);
+      }
+      wmma::store_matrix_sync(sS + fr * L::LDS + fc, s_acc, L::LDS, wmma::mem_row_major);
+      wmma::store_matrix_sync(sdP + fr * L::LDS + fc, dp_acc, L::LDS, wmma::mem_row_major);
+    }
+    __syncthreads();
+
+    // p = exp(s - lse) on visible entries, ds = p * (dp - delta) * scale
+    for (int i = threadIdx.x; i < DQ_BQ * DQ_BK; i += blockDim.x) {
+      const int r = i / DQ_BK, c = i % DQ_BK;
+      const int qi = q0 + r, ki = k0 + c;
+      const bool ok = qi < q_seq && ki < kv_len && (!causal || qi >= ki);
+      const float p = ok ? expf(sS[r * L::LDS + c] - sLse[r]) : 0.f;
+      sdS[r * L::LDP + c] = __float2bfloat16(p * (sdP[r * L::LDS + c] - sDelta[r]) * sm_scale);
+    }
+    __syncthreads();
+
+    // dq += ds . k on this warp's fragments
+#pragma unroll
+    for (int j = 0; j < NACC; ++j) {
+      const int f = warp + j * WARPS;
+      const int fr = (f / NF) * 16, fc = (f % NF) * 16;
+#pragma unroll
+      for (int kk = 0; kk < DQ_BK; kk += 16) {
+        FragA a;
+        FragB b;
+        wmma::load_matrix_sync(a, sdS + fr * L::LDP + kk, L::LDP);
+        wmma::load_matrix_sync(b, sK + kk * L::LDB + fc, L::LDB);
+        wmma::mma_sync(acc[j], a, b, acc[j]);
+      }
+    }
+    __syncthreads();  // the k/v/ds tiles are overwritten next iteration
+  }
+
+  // store dq in the output dtype through a per-warp 16x16 f32 scratch (the s
+  // tile is free now); a row with no visible key stores 0
+  float* scratch = sS + warp * 256;
+#pragma unroll
+  for (int j = 0; j < NACC; ++j) {
+    const int f = warp + j * WARPS;
+    const int fr = (f / NF) * 16, fc = (f % NF) * 16;
+    wmma::store_matrix_sync(scratch, acc[j], 16, wmma::mem_row_major);
+    __syncwarp();
+    const int r = lane / 2, c = (lane % 2) * 8, qi = q0 + fr + r;
+    if (qi < q_seq) store8(dq + (qoff + qi) * D + fc + c, scratch + r * 16 + c);
+    __syncwarp();
   }
 }
 
@@ -487,7 +665,7 @@ template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
                const int* kv_lens, float* dq, void* dk, void* dv, int bh, int q_seq, int kv_seq, int causal,
                float sm_scale, cudaStream_t stream) {
-  constexpr size_t smem = BwdSmem<D>::bytes;
+  constexpr size_t smem = BwdSmem<D, true>::bytes;
   static_assert(smem <= 232448, "backward tile set exceeds the 227 KB a block may use");
   cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
@@ -495,6 +673,38 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
   flash_bwd_kernel<T, D><<<grid, BWD_THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), lse,
       delta, kv_lens, dq, static_cast<T*>(dk), static_cast<T*>(dv), q_seq, kv_seq, causal, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
+                  const int* kv_lens, void* dq, int bh, int q_seq, int kv_seq, int causal, float sm_scale,
+                  cudaStream_t stream) {
+  constexpr size_t smem = DqSmem<D>::bytes;
+  static_assert(smem <= 232448, "dq tile set exceeds the 227 KB a block may use");
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dq_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(cdiv(q_seq, DQ_BQ), bh);
+  flash_bwd_dq_kernel<T, D><<<grid, DQ_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), lse,
+      delta, kv_lens, static_cast<T*>(dq), q_seq, kv_seq, causal, sm_scale);
+  return (int)cudaGetLastError();
+}
+
+template <typename T, int D>
+int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                   const float* delta, const int* kv_lens, void* dk, void* dv, int bh, int q_seq, int kv_seq,
+                   int causal, float sm_scale, cudaStream_t stream) {
+  constexpr size_t smem = BwdSmem<D, false>::bytes;
+  static_assert(smem <= 232448, "dk/dv tile set exceeds the 227 KB a block may use");
+  cudaError_t err =
+      cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(cdiv(kv_seq, BWD_BK), bh);
+  flash_bwd_dkv_kernel<T, D><<<grid, BWD_THREADS, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), lse,
+      delta, kv_lens, static_cast<T*>(dk), static_cast<T*>(dv), q_seq, kv_seq, causal, sm_scale);
   return (int)cudaGetLastError();
 }
 
@@ -543,6 +753,47 @@ int mlpt_flash_bwd(const void* q, const void* k, const void* v, const void* dout
     if (head_dim == 256) MLPT_BWD(float, 256);
   }
 #undef MLPT_BWD
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split backward: dq [BH, Sq, D] in the input dtype, no zeroing needed.
+int mlpt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                      const float* delta, const int* kv_lens, void* dq, int bh, int q_seq, int kv_seq, int head_dim,
+                      int dtype, int causal, float sm_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  (void)cudaGetLastError();
+#define MLPT_DQ(T, D) \
+  return launch_bwd_dq<T, D>(q, k, v, dout, lse, delta, kv_lens, dq, bh, q_seq, kv_seq, causal, sm_scale, s)
+  if (dtype == 0) {
+    if (head_dim == 64) MLPT_DQ(bf16, 64);
+    if (head_dim == 128) MLPT_DQ(bf16, 128);
+    if (head_dim == 256) MLPT_DQ(bf16, 256);
+  } else if (dtype == 1) {
+    if (head_dim == 64) MLPT_DQ(float, 64);
+    if (head_dim == 128) MLPT_DQ(float, 128);
+    if (head_dim == 256) MLPT_DQ(float, 256);
+  }
+#undef MLPT_DQ
+  return (int)cudaErrorInvalidValue;
+}
+
+int mlpt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                       const float* delta, const int* kv_lens, void* dk, void* dv, int bh, int q_seq, int kv_seq,
+                       int head_dim, int dtype, int causal, float sm_scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  (void)cudaGetLastError();
+#define MLPT_DKV(T, D) \
+  return launch_bwd_dkv<T, D>(q, k, v, dout, lse, delta, kv_lens, dk, dv, bh, q_seq, kv_seq, causal, sm_scale, s)
+  if (dtype == 0) {
+    if (head_dim == 64) MLPT_DKV(bf16, 64);
+    if (head_dim == 128) MLPT_DKV(bf16, 128);
+    if (head_dim == 256) MLPT_DKV(bf16, 256);
+  } else if (dtype == 1) {
+    if (head_dim == 64) MLPT_DKV(float, 64);
+    if (head_dim == 128) MLPT_DKV(float, 128);
+    if (head_dim == 256) MLPT_DKV(float, 256);
+  }
+#undef MLPT_DKV
   return (int)cudaErrorInvalidValue;
 }
 

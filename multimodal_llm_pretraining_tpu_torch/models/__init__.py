@@ -2,8 +2,8 @@
 
 Same model-type literals and per-model recipe properties as the JAX package;
 ``build_model`` returns a :class:`ModelBundle` holding a ``torch.nn.Module``
-and its loss function. The Pythia, Mamba and LLaVA families are ported so
-far.
+and its loss function. The Pythia, Mamba, LLaVA and ViT families are ported
+so far.
 """
 
 import enum
@@ -13,7 +13,12 @@ from typing import Any, Callable, Generic, Literal, TypeVar
 
 import torch
 
-from ..benchmarking.data import DummyDataset, DummyMultimodalLanguageModelingDataset, DummyTextModelingDataset
+from ..benchmarking.data import (
+    DummyDataset,
+    DummyImageClassificationDataset,
+    DummyMultimodalLanguageModelingDataset,
+    DummyTextModelingDataset,
+)
 
 PythiaT = Literal[
     "pythia-14m",
@@ -31,6 +36,8 @@ PythiaT = Literal[
 MambaT = Literal["mamba"]
 
 LlavaT = Literal["llava-pretrain", "llava-finetune"]
+
+ViTT = Literal["vit"]
 
 ModelT = str
 
@@ -56,13 +63,16 @@ class ModelBundle:
     ``init_fn(module, generator)`` draws fresh parameters in place.
     ``trainable_mask`` maps each of the module's parameter names to whether
     it trains (LLaVA's frozen tower and LM); None means every parameter
-    trains.
+    trains. A model with ``dropout`` takes ``loss_fn(module, batch,
+    generator=g, train=True)``: the session hands it its dropout generator,
+    and an evaluation passes ``train=False``.
     """
 
     module: torch.nn.Module
     loss_fn: Callable
     init_fn: Callable
     trainable_mask: dict[str, bool] | None = None
+    dropout: bool = False
 
 
 T = TypeVar("T", bound=ModelT)
@@ -167,6 +177,21 @@ class LanguageModelClass(Generic[T], BaseModelClass[T]):
         return DummyTextModelingDataset(vocab_size=self.vocab_size, sequence_length=self.sequence_length)
 
 
+class VisionModelClass(Generic[T], BaseModelClass[T]):
+    @property
+    @abstractmethod
+    def image_size(self) -> int:
+        raise NotImplementedError
+
+    @property
+    @abstractmethod
+    def num_classes(self) -> int:
+        raise NotImplementedError
+
+    def load_dummy_dataset(self) -> DummyDataset:
+        return DummyImageClassificationDataset(image_size=self.image_size, num_classes=self.num_classes)
+
+
 class MultimodalModelClass(Generic[T], BaseModelClass[T]):
     @property
     @abstractmethod
@@ -198,7 +223,6 @@ class MultimodalModelClass(Generic[T], BaseModelClass[T]):
 _NOT_PORTED = {
     "roberta": "ROADMAP Queue 1 item 9 (roberta)",
     "convnext": "ROADMAP Queue 1 item 9 (convnext)",
-    "vit": "ROADMAP Queue 1 item 9 (vit)",
     "vilt": "ROADMAP Queue 1 item 9 (vilt)",
 }
 
@@ -222,6 +246,10 @@ def get_model_class(model_type: ModelT) -> BaseModelClass:
         from .llava import LlavaFinetuneModelClass
 
         return LlavaFinetuneModelClass(model_type)
+    if model_type == "vit":
+        from .vit import ViTModelClass
+
+        return ViTModelClass(model_type)
     for prefix, item in _NOT_PORTED.items():
         if model_type.startswith(prefix):
             raise NotImplementedError(f"{model_type} is not ported to PyTorch yet: {item}")
@@ -233,11 +261,13 @@ __all__ = [
     "PythiaT",
     "MambaT",
     "LlavaT",
+    "ViTT",
     "ModelBundle",
     "SchedulerType",
     "OptimizerT",
     "BaseModelClass",
     "LanguageModelClass",
+    "VisionModelClass",
     "MultimodalModelClass",
     "get_model_class",
 ]

@@ -1,5 +1,6 @@
 """JAX param trees -> the port's state dicts: GPTNeoX (``params_from_jax``),
-Mamba (``mamba_params_from_jax``) and LLaVA (``llava_params_from_jax``).
+Mamba (``mamba_params_from_jax``), LLaVA (``llava_params_from_jax``) and ViT
+(``vit_params_from_jax``).
 
 The JAX model scans its blocks, so every block leaf carries a leading layer
 axis ``L``; the port holds one module per block. Dense kernels are [in, out]
@@ -16,6 +17,8 @@ LLaVA's tree has two stacks, ``vision_tower/layers/...`` and
 its path with ``/`` as ``.``. RMSNorm and LayerNorm ``scale`` become
 ``.weight``, Dense kernels are transposed into ``.weight``, and
 ``language_model_embed_tokens``, ``class_embedding`` and
+``position_embeddings`` keep their layout. ViT's tree follows the same
+rules with one stack, ``layers/...``; ``cls_token`` and
 ``position_embeddings`` keep their layout.
 
 The functions take numpy arrays (``np.asarray`` of each JAX leaf) and never
@@ -74,7 +77,9 @@ def mamba_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
-def _llava_leaves(tree: dict, prefix: str, out: dict, layer: int | None = None) -> None:
+def _split_leaves(tree: dict, prefix: str, out: dict, layer: int | None = None) -> None:
+    """Every stack ``layers/...`` split per block, Dense kernels transposed,
+    norm scales as weights, every other leaf kept, paths joined by ``.``."""
     for key, val in tree.items():
         if isinstance(val, dict):
             if key == "layers" and layer is None:
@@ -82,9 +87,9 @@ def _llava_leaves(tree: dict, prefix: str, out: dict, layer: int | None = None) 
                 while isinstance(first, dict):
                     first = next(iter(first.values()))
                 for i in range(np.asarray(first).shape[0]):
-                    _llava_leaves(val, f"{prefix}layers.{i}.", out, i)
+                    _split_leaves(val, f"{prefix}layers.{i}.", out, i)
             else:
-                _llava_leaves(val, f"{prefix}{key}.", out, layer)
+                _split_leaves(val, f"{prefix}{key}.", out, layer)
             continue
         a = np.asarray(val) if layer is None else np.asarray(val)[layer]
         if key == "kernel":
@@ -97,5 +102,8 @@ def _llava_leaves(tree: dict, prefix: str, out: dict, layer: int | None = None) 
 
 def llava_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     out: dict[str, torch.Tensor] = {}
-    _llava_leaves(tree, "", out)
+    _split_leaves(tree, "", out)
     return out
+
+
+vit_params_from_jax = llava_params_from_jax

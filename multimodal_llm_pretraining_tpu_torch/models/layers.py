@@ -63,6 +63,27 @@ def gelu_tanh(x: torch.Tensor) -> torch.Tensor:
     return F.gelu(x, approximate="tanh")
 
 
+def dropout(x: torch.Tensor, rate: float, generator: torch.Generator | None) -> torch.Tensor:
+    """flax ``nn.Dropout``: each element kept with probability ``1 - rate``
+    and scaled by ``1 / (1 - rate)``, else 0. The keep-mask comes from
+    ``generator`` (``F.dropout`` takes none), which must live on x's device;
+    with no generator, or rate 0, x passes through (``deterministic``)."""
+    if generator is None or rate == 0.0:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device) >= rate
+    return torch.where(keep, x / (1.0 - rate), 0.0).to(x.dtype)
+
+
+def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index: int = -100) -> torch.Tensor:
+    """Mean cross entropy in f32 over the labels that are not
+    ``ignore_index`` (the JAX ``layers.cross_entropy_loss``)."""
+    logits = logits.float().reshape(-1, logits.shape[-1])
+    labels = labels.reshape(-1).long()
+    valid = labels != ignore_index
+    nll = torch.logsumexp(logits, -1) - logits.gather(-1, torch.where(valid, labels, 0)[:, None])[:, 0]
+    return (nll * valid).sum() / valid.sum().clamp_min(1)
+
+
 # ------------------------------------------------------------------ modules
 
 
@@ -161,7 +182,8 @@ class SelfAttention(nn.Module):
 
 
 class Mlp(nn.Module):
-    """up -> activation -> down. The default is flax's ``nn.gelu``, the tanh
+    """up -> activation -> down, then ``dropout`` (drawn from the generator
+    handed to ``forward``). The default is flax's ``nn.gelu``, the tanh
     approximation, not the exact GELU."""
 
     def __init__(
@@ -170,15 +192,17 @@ class Mlp(nn.Module):
         intermediate: int,
         activation: Callable = gelu_tanh,
         use_bias: bool = True,
+        dropout: float = 0.0,
         dtype: torch.dtype = torch.float32,
     ):
         super().__init__()
         self.activation = activation
+        self.dropout = dropout
         self.up = Dense(hidden, intermediate, bias=use_bias, dtype=dtype)
         self.down = Dense(intermediate, hidden, bias=use_bias, dtype=dtype)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        return self.down(self.activation(self.up(x)))
+    def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
+        return dropout(self.down(self.activation(self.up(x))), self.dropout, generator)
 
 
 class GatedMlp(nn.Module):

@@ -1,6 +1,7 @@
 """Time training steps on the card and profile one: where the device time goes.
 
     python -m multimodal_llm_pretraining_tpu_torch.profile_step --model llava-pretrain --mbs 16 --acc 2 --layout bf16
+    python -m multimodal_llm_pretraining_tpu_torch.profile_step --model vit --mbs 128 --acc 2 --layout f32
 
 Builds the session through the user's entry points (``get_model_class`` ->
 ``TrainingPlan`` -> ``build_session``, random weights from the session's
@@ -32,6 +33,8 @@ from .utils import block_on, require_cuda
 # (kind, substrings of the lower-cased kernel name), first match wins
 KINDS = (
     ("flash forward", ("flash_fwd_kernel",)),
+    ("flash backward dq", ("flash_bwd_dq_kernel",)),
+    ("flash backward dkv", ("flash_bwd_dkv_kernel",)),
     ("flash backward", ("flash_bwd_kernel",)),
     ("scan forward", ("scan_fwd_kernel",)),
     ("scan backward", ("scan_bwd_kernel",)),
@@ -42,19 +45,25 @@ KINDS = (
 OTHER = "elementwise and other"
 
 
+LAYOUTS = ("bf16", "bf16_sr", "f32")
+
+
 def make_plan(mc, mbs: int, acc: int, remat: bool, layout: str) -> TrainingPlan:
-    """The model's own optimizer and schedule in one of two layouts:
+    """The model's own optimizer and schedule in one of three layouts:
     "bf16_sr" (bf16 compute, ``master_weights="sr"``, bf16 moments and
-    accumulators) or "bf16" (bf16 compute, f32 params, accumulators and
+    accumulators), "bf16" (bf16 compute, f32 params, accumulators and
     moments; a model with a trainable mask stores its frozen leaves in
-    bf16)."""
+    bf16) or "f32" (f32 compute, params, accumulators and moments; the f32
+    products run in TF32, as ``matmul_precision="default"`` maps them)."""
+    if layout not in LAYOUTS:
+        raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
     sr = layout == "bf16_sr"
     return TrainingPlan(
         num_training_steps=8,
         micro_batch_size=mbs,
         gradient_accumulation_steps=acc,
         activation_checkpointing=remat,
-        bf16=True,
+        bf16=layout != "f32",
         use_custom_kernels=True,
         matmul_precision="default",
         optimizer=mc.optimizer,
@@ -100,7 +109,7 @@ def main() -> int:
     ap.add_argument("--mbs", type=int, required=True)
     ap.add_argument("--acc", type=int, default=1)
     ap.add_argument("--remat", action="store_true")
-    ap.add_argument("--layout", choices=("bf16", "bf16_sr"), default="bf16_sr")
+    ap.add_argument("--layout", choices=LAYOUTS, default="bf16_sr")
     ap.add_argument("--table", help="file for the profiler's key_averages table")
     args = ap.parse_args()
 

@@ -27,6 +27,12 @@ ones in the layout's: with bf16 compute and no SR that is bf16 frozen
 leaves beside f32 trainable ones, the layout JAX trains llava-pretrain in
 (``step.py:158-169``).
 
+A model with dropout (ViT) gets ``train=True`` and the session's dropout
+generator in every training micro-batch, as the JAX step hands its loss an
+``rng`` (``step.py:400-411, 501``); the generator is seeded with
+``DROPOUT_SEED``, like the SR generator with ``SR_SEED``, and draws on from
+micro-batch to micro-batch. Models without dropout get neither.
+
 Activation checkpointing goes to the model's ``build_model``: mamba remats
 each whole block, pythia refuses it with the ROADMAP item. Not ported yet,
 and refused with the ROADMAP item: ``master_weights`` True/"device",
@@ -43,6 +49,8 @@ from .optimizer import AdamState, build_optimizer, stochastic_round_to
 
 # the JAX step derives its SR keys from jax.random.key(17)
 SR_SEED = 17
+# the JAX step's dropout keys come from the key its caller passes (key(0) in the benchmarks)
+DROPOUT_SEED = 0
 
 
 @dataclass
@@ -107,6 +115,8 @@ class TrainSession:
             opt_state_dtype=torch.bfloat16 if plan.opt_state_dtype == "bf16" else None,
         )
         self.sr_generator = torch.Generator(device=self.device).manual_seed(SR_SEED)
+        self.dropout_generator = torch.Generator(device=self.device).manual_seed(DROPOUT_SEED)
+        self._loss_kwargs = {"generator": self.dropout_generator, "train": True} if self.bundle.dropout else {}
 
     # ----------------------------------------------------------- data
 
@@ -157,7 +167,7 @@ class TrainSession:
     # ----------------------------------------------------------- steps
 
     def _accumulate(self, state: TrainState, micro_batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        loss, _metrics = self.bundle.loss_fn(self.module, micro_batch)
+        loss, _metrics = self.bundle.loss_fn(self.module, micro_batch, **self._loss_kwargs)
         # autograd adds into .grad in the params' dtype: one rounding per
         # micro-batch, as the JAX accumulator's (a + g).astype(a.dtype)
         loss.backward()

@@ -1,5 +1,5 @@
-"""The port's CUDA kernels (flash attention, selective scan) against their
-plain versions.
+"""The port's CUDA kernels (flash attention: forward, fused backward and the
+split dq and dk/dv backward; selective scan) against their plain versions.
 
 This file imports no JAX, so it runs on a GPU machine without it:
 
@@ -15,7 +15,12 @@ output rounding). dq is summed with f32 atomics in an order that changes
 from run to run, so two runs may differ by one bf16 ulp of the larger value
 per element (plus f32 noise where terms cancel); dk and dv have no atomics
 and repeat bit for bit. The varlen mode (int32 lens per batch-head) keeps
-these tolerances, and dk and dv at and past each length are exactly 0.
+these tolerances, and dk and dv at and past each length are exactly 0. The
+split backward keeps them too; it has no atomics, so dq, dk and dv all
+repeat bit for bit, and it lies within 1e-2 of the fused kernel's norm.
+f32 inputs are rounded to bf16 where they enter the tensor cores and the
+plain versions are not, so there lse is held to 2e-2 (the rounded q*scale
+and k move each score by about 2^-9 of its size).
 
 Selective scan (f32 or bf16 u/delta/B/C, both sides computing in f32 and
 differing only in summation order and in the kernels' fast exp): y within
@@ -229,6 +234,111 @@ def test_mask_takes_the_varlen_kernels_even_when_full():
         for got, want in zip(grads, fa.flash_bwd_reference(*flat, out_ref, lse_ref, do.reshape(b * h, s, d), True,
                                                             d**-0.5, lens)):
             _close(got.reshape(b * h, s, d), want)
+
+
+# ---------------------------------------------------------------- split backward
+
+
+def test_split_wrappers_refuse_cpu_tensors():
+    q = torch.randn(2, 16, 64)
+    lse = torch.zeros(2, 16)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_bwd_dq_cuda(q, q, q, q, lse, lse, True, 0.125)
+    with pytest.raises(ValueError, match="CUDA"):
+        fa.flash_bwd_dkv_cuda(q, q, q, q, lse, lse, True, 0.125)
+
+
+def test_split_function_takes_plain_versions_on_cpu_without_launching(monkeypatch):
+    monkeypatch.setattr(fa, "PREFER_FUSED_BWD", False)
+    names = ("DQ_LAUNCHES", "DKV_LAUNCHES", "VARLEN_DQ_LAUNCHES", "VARLEN_DKV_LAUNCHES", "BWD_LAUNCHES")
+    before = [getattr(fa, n) for n in names]
+    q = torch.randn(2, 2, 9, 16, requires_grad=True)
+    mask = (torch.arange(9)[None, :] < torch.tensor([[9], [4]])).long()
+    for m in (None, mask):
+        fa.flash_attention(q, q, q, causal=True, kv_len_mask=m).sum().backward()
+    assert [getattr(fa, n) for n in names] == before
+    assert q.grad is not None
+
+
+def _split(q, k, v, out, lse, do, causal, scale, kv_lens=None):
+    delta = fa.bwd_delta(out, do)
+    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, kv_lens)
+    return (dq, *fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale, kv_lens))
+
+
+def _split_reference(q, k, v, out, lse, do, causal, scale, kv_lens=None):
+    delta = fa.bwd_delta(out, do)
+    dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale, kv_lens)
+    return (dq, *fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale, kv_lens))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,kv_seq,head_dim,causal,dtype", [
+    (77, 77, 64, True, torch.bfloat16), (130, 130, 128, False, torch.bfloat16), (257, 257, 256, True, torch.bfloat16),
+    (197, 197, 64, False, torch.float32), (300, 150, 64, False, torch.bfloat16), (64, 64, 256, False, torch.float32),
+])
+def test_split_kernels_match_plain_versions_and_repeat(seq, kv_seq, head_dim, causal, dtype):
+    """dq and dk/dv against their plain versions, a second run bit for bit,
+    and the pair within 1e-2 of the fused kernel's norm."""
+    _needs_cuda()
+    q, do = (_rand(6, seq, head_dim, seed=i, dtype=dtype) for i in (0, 3))
+    k, v = (_rand(6, kv_seq, head_dim, seed=i, dtype=dtype) for i in (1, 2))
+    scale = head_dim**-0.5
+    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    grads = _split(q, k, v, out, lse, do, causal, scale)
+    for got, want in zip(grads, _split_reference(q, k, v, out, lse, do, causal, scale)):
+        assert got.dtype == dtype and got.shape == want.shape
+        _close(got, want)
+    for a, b in zip(grads, _split(q, k, v, out, lse, do, causal, scale)):
+        assert torch.equal(a, b)
+    for a, b in zip(grads, fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)):
+        _close(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("seq,head_dim,causal,lens", [
+    (77, 64, True, [77, 37, 64, 0]), (77, 64, False, [77, 37, 64, 0]), (300, 128, True, [300, 135, 1, 256]),
+    (130, 256, True, [130, 32, 65, 129]),
+])
+def test_split_varlen_kernels_match_plain_versions(seq, head_dim, causal, lens):
+    """Lens per batch row (4 rows x 2 heads), as the fused varlen cases; dk
+    and dv exactly 0 at and past each length, dq 0 on an empty row."""
+    _needs_cuda()
+    kv_lens = _lens(lens, 2)
+    q, k, v, do = (_rand(8, seq, head_dim, seed=40 + i) for i in range(4))
+    scale = head_dim**-0.5
+    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    grads = _split(q, k, v, out, lse, do, causal, scale, kv_lens)
+    for got, want in zip(grads, _split_reference(q, k, v, out, lse, do, causal, scale, kv_lens)):
+        _close(got, want)
+    past = torch.arange(seq, device="cuda")[None, :] >= kv_lens[:, None]
+    assert not grads[1][past].any() and not grads[2][past].any()
+    assert not grads[0][kv_lens == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mask", [False, True])
+def test_function_takes_the_split_kernels_when_fused_is_off(mask, monkeypatch):
+    """With ``PREFER_FUSED_BWD`` off the autograd Function launches one dq
+    and one dk/dv kernel (varlen ones under a mask) and no fused backward."""
+    _needs_cuda()
+    monkeypatch.setattr(fa, "PREFER_FUSED_BWD", False)
+    b, h, s, d = 2, 3, 90, 64
+    base = [_rand(b, h, s, d, seed=50 + i, dtype=torch.float32).requires_grad_() for i in range(3)]
+    do = _rand(b, h, s, d, seed=53, dtype=torch.float32)
+    m = (torch.arange(s, device="cuda")[None, :] < torch.tensor([[90], [41]], device="cuda")).long() if mask else None
+    fa.reset_launch_counts()
+    out = fa.flash_attention(*base, causal=False, kv_len_mask=m)
+    grads = torch.autograd.grad(out, base, grad_outputs=do)
+    split = (fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.VARLEN_DQ_LAUNCHES, fa.VARLEN_DKV_LAUNCHES)
+    assert split == ((0, 0, 1, 1) if mask else (1, 1, 0, 0))
+    assert fa.BWD_LAUNCHES == fa.VARLEN_BWD_LAUNCHES == 0
+    flat = [t.detach().reshape(b * h, s, d) for t in base]
+    lens = None if m is None else m.sum(-1).to(torch.int32).repeat_interleave(h)
+    out_ref, lse_ref = fa.flash_fwd_reference(*flat, False, d**-0.5, lens)
+    for got, want in zip(grads, _split_reference(*flat, out_ref, lse_ref, do.reshape(b * h, s, d), False, d**-0.5,
+                                                 lens)):
+        _close(got.reshape(b * h, s, d), want)
 
 
 # ---------------------------------------------------------------- selective scan

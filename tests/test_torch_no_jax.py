@@ -1,7 +1,10 @@
 """The port and ``chip_smoke.py`` run where JAX is not installed: importing
 them pulls in no JAX, flax, optax or JAX-package module, and the package
-holds no library attention."""
+holds no library attention. ``chip_smoke.py`` names PyTorch's fused
+attention in one function only, ``sdpa_ms``, the yardstick it times beside
+the kernels, which the port never calls."""
 
+import ast
 import pathlib
 import re
 import subprocess
@@ -33,12 +36,36 @@ def test_port_and_chip_smoke_import_no_jax():
     assert count >= 15  # every module of the slice was imported
 
 
+SDPA = r"scaled_dot_product_attention"
+YARDSTICK = "sdpa_ms"
+
+
+def _chip_smoke(outside_yardstick: bool) -> str:
+    """``chip_smoke.py``'s source, with the yardstick function cut out."""
+    text = (ROOT / "chip_smoke.py").read_text()
+    if not outside_yardstick:
+        return text
+    (fn,) = [n for n in ast.parse(text).body if isinstance(n, ast.FunctionDef) and n.name == YARDSTICK]
+    return text.replace(ast.get_source_segment(text, fn), "")
+
+
 @pytest.mark.parametrize(
     "pattern",
     [r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b", r"^\s*(import|from)\s+multimodal_llm_pretraining_tpu\b",
-     r"scaled_dot_product_attention", r"torch\.compile", r"cudnn_attention|_efficient_attention|_flash_attention_forward"],
+     SDPA, r"torch\.compile", r"cudnn_attention|_efficient_attention|_flash_attention_forward"],
 )
 def test_package_source_has_none_of(pattern):
-    sources = [*PACKAGE.rglob("*.py"), *PACKAGE.rglob("*.cu"), ROOT / "chip_smoke.py"]
-    hits = [str(p.relative_to(ROOT)) for p in sources if re.search(pattern, p.read_text(), re.MULTILINE)]
+    """The package's sources and ``chip_smoke.py`` (outside its yardstick
+    for PyTorch's fused attention) name none of these."""
+    sources = {str(p.relative_to(ROOT)): p.read_text() for p in [*PACKAGE.rglob("*.py"), *PACKAGE.rglob("*.cu")]}
+    sources["chip_smoke.py"] = _chip_smoke(outside_yardstick=pattern == SDPA)
+    hits = [name for name, text in sources.items() if re.search(pattern, text, re.MULTILINE)]
     assert not hits, hits
+
+
+def test_chip_smoke_names_library_attention_only_in_its_yardstick():
+    """The yardstick exists and calls PyTorch's fused attention; cutting it
+    out leaves no mention, and nothing in the package calls it."""
+    assert re.search(SDPA, _chip_smoke(outside_yardstick=False))
+    assert not re.search(SDPA, _chip_smoke(outside_yardstick=True))
+    assert not re.search(rf"\b{YARDSTICK}\b", "".join(p.read_text() for p in PACKAGE.rglob("*.py")))

@@ -4,6 +4,7 @@ profile itself needs the card)."""
 import json
 
 import pytest
+import torch
 
 from multimodal_llm_pretraining_tpu_torch.models import get_model_class
 from multimodal_llm_pretraining_tpu_torch.profile_step import device_breakdown, kind_of, make_plan
@@ -12,6 +13,8 @@ from multimodal_llm_pretraining_tpu_torch.profile_step import device_breakdown, 
 @pytest.mark.parametrize("name, kind", [
     ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 64>(...)", "flash forward"),
     ("void (anonymous namespace)::flash_bwd_kernel<__nv_bfloat16, 64>(...)", "flash backward"),
+    ("void (anonymous namespace)::flash_bwd_dq_kernel<float, 64>(...)", "flash backward dq"),
+    ("void (anonymous namespace)::flash_bwd_dkv_kernel<__nv_bfloat16, 256>(...)", "flash backward dkv"),
     ("scan_bwd_kernel", "scan backward"),
     ("nvjet_tst_192x208_64x4_1x2_h_bz_coopB_NNT", "GEMM"),
     ("cutlass_75_tensorop_s1688gemm_bf16_256x128_32x2_nn_align1", "GEMM"),
@@ -49,3 +52,32 @@ def test_make_plan_layouts(layout, master, moments):
     assert plan.bf16 and plan.use_custom_kernels
     assert (plan.micro_batch_size, plan.gradient_accumulation_steps) == (16, 2)
     assert (plan.optimizer, plan.optimizer_kwargs, plan.max_grad_norm) == ("adamw", mc.optimizer_kwargs, 0.0)
+
+
+def test_make_plan_f32_layout_for_vit():
+    """ViT's recipe trains in f32: f32 compute, parameters, accumulators and
+    moments, TF32 products (``matmul_precision="default"``); an unknown
+    layout is refused."""
+    mc = get_model_class("vit")
+    plan = make_plan(mc, 128, 2, False, "f32")
+    assert not plan.bf16 and plan.compute_dtype == torch.float32 and plan.matmul_precision == "default"
+    assert (plan.master_weights, plan.opt_state_dtype, plan.grad_accum_dtype) == (False, None, None)
+    assert (plan.optimizer, plan.optimizer_kwargs, plan.max_grad_norm) == ("adam", mc.optimizer_kwargs, 1.0)
+    with pytest.raises(ValueError, match="layout"):
+        make_plan(mc, 128, 2, False, "fp16")
+
+
+def test_main_accepts_vit_and_the_f32_layout(monkeypatch):
+    """The command line takes ``--model vit --layout f32`` and then needs the
+    card: on a machine without one it stops at ``require_cuda``."""
+    import sys
+
+    from multimodal_llm_pretraining_tpu_torch import profile_step
+
+    def no_card():
+        raise RuntimeError("no CUDA device")
+
+    monkeypatch.setattr(profile_step, "require_cuda", no_card)
+    monkeypatch.setattr(sys, "argv", ["profile_step", "--model", "vit", "--mbs", "128", "--acc", "2", "--layout", "f32"])
+    with pytest.raises(RuntimeError, match="no CUDA"):
+        profile_step.main()

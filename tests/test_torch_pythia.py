@@ -116,7 +116,7 @@ def test_recipe_matches_jax(model_type):
     assert t.scheduler_type.value == j.scheduler_type.value
 
 
-@pytest.mark.parametrize("model_type", ["roberta", "convnext-large-1k", "vit", "vilt-finetune", "vilt-pretrain"])
+@pytest.mark.parametrize("model_type", ["roberta", "convnext-large-1k", "vilt-finetune", "vilt-pretrain"])
 def test_unported_families_raise_with_roadmap_item(model_type):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         get_model_class(model_type)
