@@ -136,8 +136,7 @@ VIT_TOKENS = 197
 # 256 labels' logits has a standard deviation of 1/16; 0.3 either side
 VIT_LOSS_BAND = (10.19, 10.79)
 
-# H100 SXM peaks (the on-chip-measurement guide's table: NVIDIA's data sheet,
-# dense, at 700 W): bf16 tensor-core products, f32 outside the tensor cores,
+# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): bf16 tensor-core products, f32 outside the tensor cores,
 # HBM. The exp rate: 16 special-function results per SM per clock (CUDA C++
 # Programming Guide, arithmetic instruction throughput, compute capability
 # 9.0) x 132 SMs x 1.98 GHz. The flash kernels' products run in bf16 also on
