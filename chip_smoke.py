@@ -53,16 +53,18 @@ Phases, one line (or a few) each; any failure exits non-zero:
     kernels (forward and backward), every tower call on the plain-mode
     forward, and no tower call on a backward; the frozen parameters stay
     bit for bit and the projector moves.
-12. split kernels: the split backward's dq and dk/dv kernels against their
-    plain versions at pythia's [4, 8, 2049, 256] bf16 causal, ViT's [128,
-    16, 197, 64] f32 and bf16 non-causal, [2, 3, 77, 64] both causal
-    settings, and in varlen mode at the llava decoder's [16, 32, 1087, 64]
-    causal (ragged lens) and [4, 2, 77, 64] with an empty row; dq, dk and dv
-    must repeat bit for bit on a second run, lie within TOL_NORM_REL of the
-    fused kernel, and in varlen mode dk/dv must be exactly 0 past each
-    length. Then CUDA-event times at each main-path shape: split pair,
-    fused kernel, plain versions, PyTorch's attention (the yardstick) and
-    the bound.
+12. split kernels: the split backward's dq and dk/dv kernels, beside the
+    forward and the fused kernel, against their plain versions at pythia's
+    [4, 8, 2049, 256] bf16 causal, ViT's [128, 16, 197, 64] f32 and bf16
+    non-causal (the f32 forward and fused backward are the ViT main path's
+    own), [2, 3, 77, 64] both causal settings, and in varlen mode at the
+    llava decoder's [16, 32, 1087, 64] causal (ragged lens) and [4, 2, 77,
+    64] with an empty row; dq, dk and dv must repeat bit for bit on a
+    second run, lie within TOL_NORM_REL of the fused kernel, and in varlen
+    mode dk/dv must be exactly 0 past each length. Then CUDA-event times at
+    each main-path shape: the split kernels and their plain versions, set
+    against the fused kernel (timed in phases 3 and 9, at ViT's shape
+    here), PyTorch's attention (the yardstick) and the backward's bound.
 13. ViT slice: a two-layer narrow ViT in f32 (head_dim 64, 197 tokens), loss
     and every grad with the kernels under the fused and under the split
     backward, against the plain f32 attention on the same weights.
@@ -129,6 +131,7 @@ TEXT_LOSS_BAND = (10.8, 11.8)  # pythia and mamba: ln vocab = 10.83
 # ViT-L/16 at the main path's mbs 128: 16 heads, 196 patches + CLS, head_dim 64
 VIT_SHAPE = (128, 16, 197, 64)
 VIT_TOKENS = 197
+VIT_DROPOUT = 0.1  # the JAX ViTBlock's hidden dropout; the session always hands the loss its generator
 # ViT's first loss: the final LayerNorm gives the class token's row unit
 # variance (square norm 1024), and the classifier's lecun-normal kernel has
 # variance 1/1024 with a zero bias, so the 21,841 logits are about N(0, 1):
@@ -146,13 +149,16 @@ PEAK_F32_FLOPS = 67e12
 PEAK_BYTES = 3.35e12
 PEAK_EXPS = 16 * 132 * 1.98e9
 
-# Kernel vs plain version, bf16 inputs. Both round the same operands to bf16
-# (q*scale, p, ds) and accumulate in f32; they differ in summation order, in
-# the online softmax's running rescale of p, and in dq's atomic (run-to-run
-# varying) summation order. Outputs are bf16, so one rounding of 2^-9 is
-# already in every element: bound the error relative to the output's norm.
+# Kernel vs plain version. On bf16 inputs both round the same operands to
+# bf16 (q*scale, p, ds) and accumulate in f32; they differ in summation
+# order, in the online softmax's running rescale of p, and in dq's atomic
+# (run-to-run varying) summation order. Outputs are bf16, so one rounding of
+# 2^-9 is already in every element: bound the error relative to the output's
+# norm. On f32 inputs the kernels round every product operand to bf16 (2^-9
+# each), as a default-precision f32 dot does on the TPU, where the plain
+# versions keep f32: a few such roundings, again under 1e-2 of the norm.
 TOL_NORM_REL = 1e-2  # ||kernel - plain|| / ||plain|| for out, dq, dk, dv
-TOL_LSE_ABS = 1e-3  # lse is f32 and sees no bf16 output rounding
+TOL_LSE_ABS = 1e-3  # lse is f32 and sees no bf16 output rounding; f32 inputs add ``lse_limit``'s term
 # Two-layer model, kernels vs f32 plain attention (bf16 compute both ways)
 TOL_SLICE_LOSS = 2e-2
 TOL_SLICE_GRAD_NORM_REL = 5e-2
@@ -299,59 +305,119 @@ def sdpa_ms(q, k, v, do, causal: bool, flash_only: bool) -> dict:
     return {"fwd": fwd, "bwd": both - fwd, "backend": backend.name}
 
 
-def check_kernels_at(shape, causal: bool, seed: int = 0, lens: list[int] | None = None) -> dict:
-    """Kernel vs plain version on identical inputs; returns the errors.
-    With ``lens`` (one per batch row, broadcast over heads as
-    ``flash_attention`` does) both run in varlen mode, and dk and dv must
-    be exactly 0 at and past each length."""
+def lse_limit(q, k, scale: float):
+    """The most the forward kernel's lse may differ from the plain
+    version's: TOL_LSE_ABS on bf16 inputs, where both round the same
+    operands. On f32 inputs the kernel rounds q*scale and k to bf16 and the
+    plain version does not. Each rounding moves an operand by at most 2^-9
+    of itself, so a score moves by at most (2^-8 + 2^-18) * sum_d |q_d *
+    scale| * |k_d|, and a row's lse, which moves no further than its
+    largest score does, by at most that row's largest such sum (taken over
+    every key, visible or not: an upper bound under any mask). Returns one
+    limit per query row [BH, Sq], TOL_LSE_ABS included for the f32 exp and
+    summation order."""
+    if q.dtype != torch.float32:
+        return torch.full(q.shape[:2], TOL_LSE_ABS, device=q.device)
+    sums = torch.matmul(q.abs() * scale, k.abs().transpose(-1, -2))  # [BH, Sq, Sk]
+    return TOL_LSE_ABS + (2**-8 + 2**-18) * sums.amax(-1)
+
+
+def _split(q, k, v, out, lse, do, causal, scale, kv_lens, kernels: bool = True):
+    """The split backward as ``FlashAttention.backward`` runs it: delta,
+    then dq, then dk/dv; the kernels, or with ``kernels=False`` their plain
+    versions."""
+    delta = fa.bwd_delta(out, do)
+    dq_fn, dkv_fn = ((fa.flash_bwd_dq_cuda, fa.flash_bwd_dkv_cuda) if kernels
+                     else (fa.flash_bwd_dq_reference, fa.flash_bwd_dkv_reference))
+    dq = dq_fn(q, k, v, do, lse, delta, causal, scale, kv_lens)
+    return (dq, *dkv_fn(q, k, v, do, lse, delta, causal, scale, kv_lens))
+
+
+def check_kernels_at(shape, causal: bool, seed: int = 0, lens: list[int] | None = None,
+                     dtype: torch.dtype = torch.bfloat16, split: bool = False) -> dict:
+    """The forward and the fused backward kernel against their plain
+    versions on identical inputs: out, dq, dk, dv within TOL_NORM_REL of
+    the norm, lse within ``lse_limit``; dk and dv repeat bit for bit on a
+    second run, dq within one bf16 ulp. With ``lens`` (one per batch row,
+    broadcast over heads as ``flash_attention`` does) all run in varlen
+    mode, and dk and dv must be exactly 0 at and past each length. With
+    ``split``, the split pair too: dq, dk, dv within TOL_NORM_REL of its
+    plain versions and of the fused kernel, all three bit for bit on a
+    second run (nothing is summed across blocks), and dq exactly 0 on a
+    row of length 0. Returns the errors against the plain versions."""
     b, h, s, _ = shape
-    q, k, v, do = _inputs(shape, seed)
+    q, k, v, do = _inputs(shape, seed, dtype)
     scale = shape[-1] ** -0.5
     kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
-    tag = "[kernels]" if lens is None else "[varlen]"
+    tag = "[split]" if split else "[kernels]" if lens is None else "[varlen]"
+    what = f"{list(shape)} {str(dtype).split('.')[-1]} causal={causal}{'' if lens is None else f' lens {lens}'}"
     out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
     out_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
-    grads = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
-    grads_ref = fa.flash_bwd_reference(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
+    lse_lim = lse_limit(q, k, scale)
+    grads = {"": fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)}
+    plain = {"": fa.flash_bwd_reference(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)}
+    if split:
+        grads["split_"] = _split(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
+        plain["split_"] = _split(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens, kernels=False)
     torch.cuda.synchronize()
     res = {"out": _errs(out, out_ref), "lse": _errs(lse, lse_ref)}
-    for name, got, ref in zip(("dq", "dk", "dv"), grads, grads_ref):
-        res[name] = _errs(got, ref)
-    for name, t in (("out", out), ("lse", lse), *zip(("dq", "dk", "dv"), grads)):
-        if not torch.isfinite(t).all():
-            raise AssertionError(f"{tag} {name} has non-finite values at {shape}")
-    past_max = 0.0
+    for pre in grads:
+        res.update({pre + n: _errs(g, p) for n, g, p in zip(("dq", "dk", "dv"), grads[pre], plain[pre])})
+    named = {"out": out, "lse": lse, **{pre + n: g for pre in grads for n, g in zip(("dq", "dk", "dv"), grads[pre])}}
+    for name, t in named.items():
+        if not torch.isfinite(t).all() or t.dtype != (torch.float32 if name == "lse" else dtype):
+            raise AssertionError(f"{tag} {name} is not finite {t.dtype} at {what}")
+    lse_margin = ((lse - lse_ref).abs() / lse_lim).max().item()  # at most 1 where every row is within its limit
+    past_max = dq_empty = 0.0
     if kv_lens is not None:
         past = torch.arange(s, device="cuda")[None, :] >= kv_lens[:, None]  # [BH, S]: keys at or past the length
         if past.any():
-            past_max = max(grads[1][past].abs().max().item(), grads[2][past].abs().max().item())
-    say(f"{tag} {list(shape)} causal={causal}{'' if lens is None else f' lens {lens}'}: " + ", ".join(
-        f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in res.items())
-        + ("" if lens is None else f"; dk/dv past the lens max_abs {past_max:.1e}"))
-    for name in ("out", "dq", "dk", "dv"):
+            past_max = max(g[i][past].abs().max().item() for g in grads.values() for i in (1, 2))
+        if split and (kv_lens == 0).any():
+            dq_empty = grads["split_"][0][kv_lens == 0].abs().max().item()
+    say(f"{tag} {what}: " + ", ".join(f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in res.items())
+        + f"; lse error / limit max {lse_margin:.3f} (limit max {lse_lim.max().item():.3e})"
+        + ("" if lens is None else f"; dk/dv past the lens max_abs {past_max:.1e}")
+        + (f", dq on empty rows {dq_empty:.1e}" if split and lens is not None else ""))
+    for name in ("out", *(pre + n for pre in grads for n in ("dq", "dk", "dv"))):
         if not res[name][1] <= TOL_NORM_REL:
-            raise AssertionError(f"{tag} {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {shape}")
-    if not res["lse"][0] <= TOL_LSE_ABS:
-        raise AssertionError(f"{tag} lse max-abs error {res['lse'][0]:.3e} > {TOL_LSE_ABS} at {shape}")
-    if past_max != 0.0:
-        raise AssertionError(f"{tag} dk/dv are not exactly 0 past the lens at {shape}")
+            raise AssertionError(f"{tag} {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {what}")
+    if not lse_margin <= 1.0:
+        raise AssertionError(f"{tag} lse beyond its limit (error / limit {lse_margin:.3f}) at {what}")
+    if past_max != 0.0 or dq_empty != 0.0:
+        raise AssertionError(f"{tag} dk/dv past the lens or dq on an empty row not exactly 0 at {what}")
     # dq sums by f32 atomics in an order that changes between runs: a second
     # run may differ by one bf16 ulp of the larger of the two values, plus
     # f32 summation noise (1e-6) where terms cancel to near zero; dk and dv
     # have no atomics and repeat exactly
     dq2, dk2, dv2 = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
-    dq_diff = (dq2.float() - grads[0].float()).abs()
-    dq_ulp = torch.maximum(dq2.float().abs(), grads[0].float().abs()) * 2.0**-7 + 1e-6
-    say(f"{tag} {list(shape)} second backward run: dq max_abs change {dq_diff.max().item():.3e}, "
-        f"dk/dv identical {torch.equal(dk2, grads[1]) and torch.equal(dv2, grads[2])}")
-    if not (torch.equal(dk2, grads[1]) and torch.equal(dv2, grads[2])):
-        raise AssertionError(f"dk/dv differ between two runs at {shape}")
+    dq, dk, dv = grads[""]
+    dq_diff = (dq2.float() - dq.float()).abs()
+    dq_ulp = torch.maximum(dq2.float().abs(), dq.float().abs()) * 2.0**-7 + 1e-6
+    same_kv = torch.equal(dk2, dk) and torch.equal(dv2, dv)
+    line = f"{tag} {what} second backward run: dq max_abs change {dq_diff.max().item():.3e}, dk/dv identical {same_kv}"
+    if split:
+        again = _split(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
+        same_split = all(torch.equal(a, b) for a, b in zip(grads["split_"], again))
+        vs_fused = {n: _errs(a, f)[1] for n, a, f in zip(("dq", "dk", "dv"), grads["split_"], grads[""])}
+        line += (f"; split pair second run identical {same_split}, vs fused norm_rel "
+                 + ", ".join(f"{n} {r:.3e}" for n, r in vs_fused.items()))
+    say(line)
+    if not same_kv:
+        raise AssertionError(f"dk/dv differ between two runs at {what}")
     if not bool((dq_diff <= dq_ulp).all()):
-        raise AssertionError(f"dq differs by more than one bf16 ulp between two runs at {shape}")
+        raise AssertionError(f"dq differs by more than one bf16 ulp between two runs at {what}")
+    if split:
+        if not same_split:
+            raise AssertionError(f"[split] dq, dk, dv differ between two runs at {what}")
+        for n, r in vs_fused.items():
+            if not r <= TOL_NORM_REL:
+                raise AssertionError(f"[split] {n} differs from the fused kernel's by {r:.3e} at {what}")
     return res
 
 
-def phase_kernels() -> list[dict]:
+def phase_kernels() -> tuple[dict, list[dict]]:
+    """Returns the times at pythia's shape and the kernels line's entries."""
     errs = check_kernels_at(SLICE_SHAPE, causal=True)
     check_kernels_at(RAGGED_SHAPE, causal=True, seed=1)
     check_kernels_at(RAGGED_SHAPE, causal=False, seed=2)
@@ -376,7 +442,7 @@ def phase_kernels() -> list[dict]:
     bounds = attention_bounds(q, k, v, do, True)
     say_yardstick(SLICE_SHAPE, "bf16 causal", lib, bounds)
     max_grad_err = max(errs[n][0] for n in ("dq", "dk", "dv"))
-    return [
+    return {"ms": t, "library": lib}, [
         {"name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:91",
          "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
          **bounds["fwd"], "library_ms": lib["fwd"]},
@@ -518,7 +584,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
             f"(split / fused {medians[False] / medians[True]:.4f})")
     say(f"[main] {model_type} peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches "
         + ", ".join(f"{n} {c}" for n, c in launches.items()))
-    return {"module": sess.module, "launches": launches, "dropout": sess.bundle.dropout,
+    return {"module": sess.module, "launches": launches,
             "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)}}
 
 
@@ -709,7 +775,9 @@ def _ragged_lens(b: int, s: int, seed: int) -> list[int]:
     return [s, 37, edge, *rest][:b]
 
 
-def phase_varlen_kernels() -> list[dict]:
+def phase_varlen_kernels() -> tuple[dict, list[dict]]:
+    """Returns the times at the decoder's shape (full lens) and the kernels
+    line's entries."""
     # full f32 products in the plain versions (the main paths' plans turned TF32 on)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     errs = check_kernels_at(VARLEN_SHAPE, True, seed=20, lens=_ragged_lens(VARLEN_SHAPE[0], VARLEN_SHAPE[2], 0))
@@ -749,7 +817,7 @@ def phase_varlen_kernels() -> list[dict]:
         + ", ".join(f"{n} {ms:.3f}" for n, ms in tower.items()))
     say_yardstick(TOWER_SHAPE, "bf16 non-causal", sdpa_ms(q, k, v, do, False, flash_only=True),
                   {"fwd": attention_bounds(q, k, v, do, False)["fwd"]})
-    return [
+    return {"ms": t, "library": lib}, [
         {"name": "flash_fwd_varlen", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:91",
          "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
          **bounds["fwd"], "library_ms": lib["fwd"]},
@@ -830,117 +898,80 @@ def phase_llava_main_path() -> dict:
 # ---------------------------------------------------------------- split backward (ViT)
 
 
-def _split(q, k, v, do, lse, delta, causal, scale, kv_lens):
-    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, kv_lens)
-    return (dq, *fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale, kv_lens))
-
-
-def _split_plain(q, k, v, do, lse, delta, causal, scale, kv_lens):
-    dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale, kv_lens)
-    return (dq, *fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale, kv_lens))
-
-
-def check_split_at(shape, causal: bool, dtype=torch.bfloat16, seed: int = 0, lens: list[int] | None = None) -> dict:
-    """The split kernels (dq, then dk/dv) against their plain versions on
-    identical inputs, each within TOL_NORM_REL of its norm; a second run
-    bit for bit (they sum nothing across blocks); the pair within
-    TOL_NORM_REL of the fused kernel; with ``lens``, dk and dv exactly 0 at
-    and past each length and dq 0 on a row of length 0. Returns the
-    errors against the plain versions."""
-    b, h, s, d = shape
-    q, k, v, do = _inputs(shape, seed, dtype)
-    scale = d**-0.5
-    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
-    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
-    delta = fa.bwd_delta(out, do)
-    grads = _split(q, k, v, do, lse, delta, causal, scale, kv_lens)
-    again = _split(q, k, v, do, lse, delta, causal, scale, kv_lens)
-    fused = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
-    plain = _split_plain(q, k, v, do, lse, delta, causal, scale, kv_lens)
-    torch.cuda.synchronize()
-    names = ("dq", "dk", "dv")
-    res = {n: _errs(g, p) for n, g, p in zip(names, grads, plain)}
-    vs_fused = {n: _errs(g, f)[1] for n, g, f in zip(names, grads, fused)}
-    same = all(torch.equal(a, b) for a, b in zip(grads, again))
-    past_max = dq_empty = 0.0
-    if kv_lens is not None:
-        past = torch.arange(s, device="cuda")[None, :] >= kv_lens[:, None]
-        if past.any():
-            past_max = max(grads[1][past].abs().max().item(), grads[2][past].abs().max().item())
-        if (kv_lens == 0).any():
-            dq_empty = grads[0][kv_lens == 0].abs().max().item()
-    say(f"[split] {list(shape)} {str(dtype).split('.')[-1]} causal={causal}{'' if lens is None else f' lens {lens}'}: "
-        + ", ".join(f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in res.items())
-        + "; vs fused norm_rel " + ", ".join(f"{n} {r:.3e}" for n, r in vs_fused.items())
-        + f"; second run identical {same}"
-        + ("" if lens is None else f"; dk/dv past the lens max_abs {past_max:.1e}, dq on empty rows {dq_empty:.1e}"))
-    for name, t in zip(names, grads):
-        if not torch.isfinite(t).all() or t.dtype != dtype:
-            raise AssertionError(f"[split] {name} is not finite {dtype} at {shape}")
-        if not res[name][1] <= TOL_NORM_REL:
-            raise AssertionError(f"[split] {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {shape}")
-        if not vs_fused[name] <= TOL_NORM_REL:
-            raise AssertionError(f"[split] {name} differs from the fused kernel's by {vs_fused[name]:.3e} at {shape}")
-    if not same:
-        raise AssertionError(f"[split] dq, dk, dv differ between two runs at {shape}")
-    if past_max != 0.0 or dq_empty != 0.0:
-        raise AssertionError(f"[split] dk/dv past the lens or dq on an empty row not exactly 0 at {shape}")
-    return res
-
-
-def time_backwards(shape, causal: bool, dtype, seed: int, full_lens: bool = False) -> dict:
-    """CUDA-event medians at a main path's shape: the dq and dk/dv kernels
-    alone, the split backward as ``FlashAttention.backward`` runs it
-    (delta, dq, dk/dv), the fused kernel, the plain versions, PyTorch's
-    attention and the bounds. ``full_lens``: the varlen mode with every
-    length full, the same function as plain attention."""
+def time_split(shape, causal: bool, dtype, seed: int, full_lens: bool = False, fused: dict | None = None) -> dict:
+    """CUDA-event medians at a main path's shape: the dq and the dk/dv
+    kernel alone, the split pair as ``FlashAttention.backward`` runs it
+    (delta, dq, dk/dv), and their plain versions. ``fused`` holds what an
+    earlier phase timed at this shape (``ms`` of the forward and the fused
+    kernel and of their plain versions, ``library``: PyTorch's attention);
+    without it those are timed here. The pair is set against the fused
+    kernel and against the backward's bound, which both compute: the pair
+    does 7 tile products to the fused kernel's 5, a cost of its design.
+    ``full_lens``: the varlen mode with every length full, the same
+    function as plain attention."""
     b, h, s, d = shape
     q, k, v, do = _inputs(shape, seed, dtype)
     scale = d**-0.5
     kv_lens = torch.full((b * h,), s, dtype=torch.int32, device="cuda") if full_lens else None
     out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
-    delta = fa.bwd_delta(out, do)
-    args = (q, k, v, do, lse, delta, causal, scale, kv_lens)
-    t = {
-        "dq": cuda_ms(lambda: fa.flash_bwd_dq_cuda(*args)),
-        "dkv": cuda_ms(lambda: fa.flash_bwd_dkv_cuda(*args)),
-        "split": cuda_ms(lambda: _split(q, k, v, do, lse, fa.bwd_delta(out, do), causal, scale, kv_lens)),
-        "fused": cuda_ms(lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)),
-        "fwd": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)),
-        "fwd_plain": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)),
-        "dq_plain": cuda_ms(lambda: fa.flash_bwd_dq_reference(*args)),
-        "dkv_plain": cuda_ms(lambda: fa.flash_bwd_dkv_reference(*args)),
-        "fused_plain": cuda_ms(lambda: fa.flash_bwd_reference(q, k, v, out, lse, do, causal, scale, kv_lens)),
+    args = (q, k, v, do, lse, fa.bwd_delta(out, do), causal, scale, kv_lens)
+    fns = {
+        "dq": lambda: fa.flash_bwd_dq_cuda(*args),
+        "dkv": lambda: fa.flash_bwd_dkv_cuda(*args),
+        "split": lambda: _split(q, k, v, out, lse, do, causal, scale, kv_lens),
+        "dq_plain": lambda: fa.flash_bwd_dq_reference(*args),
+        "dkv_plain": lambda: fa.flash_bwd_dkv_reference(*args),
     }
+    if fused is None:
+        fns.update({
+            "fwd": lambda: fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens),
+            "fwd_plain": lambda: fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens),
+            "bwd": lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens),
+            "bwd_plain": lambda: fa.flash_bwd_reference(q, k, v, out, lse, do, causal, scale, kv_lens),
+        })
+    t = {n: cuda_ms(f) for n, f in fns.items()}
     what = f"{str(dtype).split('.')[-1]} {'causal' if causal else 'non-causal'}{', full lens' if full_lens else ''}"
     say(f"[split] median ms at {list(shape)} {what}: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
-    lib = sdpa_ms(q, k, v, do, causal, flash_only=dtype == torch.bfloat16)
     bounds = attention_bounds(q, k, v, do, causal, kv_lens)
-    say_yardstick(shape, what, lib, bounds)
-    return {"ms": t, "library": lib, "bounds": bounds}
+    if fused is None:
+        fused = {"ms": t, "library": sdpa_ms(q, k, v, do, causal, flash_only=dtype == torch.bfloat16)}
+        say_yardstick(shape, what, fused["library"], bounds)
+    bwd = bounds["bwd"]["bound_ms"]
+    say(f"[yardstick] {list(shape)} {what}: split pair {t['split']:.3f} ms, fused {fused['ms']['bwd']:.3f} ms "
+        f"(split / fused {t['split'] / fused['ms']['bwd']:.3f}); against the backward's bound {bwd:.4f} ms "
+        f"({bounds['bwd']['bound_by']}): split pair {t['split'] / bwd:.1f}x, fused {fused['ms']['bwd'] / bwd:.1f}x. "
+        f"The pair's 7 products to the fused kernel's 5: its own bounds dq {bounds['dq']['bound_ms']:.4f} + dk/dv "
+        f"{bounds['dkv']['bound_ms']:.4f} = {bounds['dq']['bound_ms'] + bounds['dkv']['bound_ms']:.4f} ms")
+    return {"ms": {**fused["ms"], **t}, "library": fused["library"], "bounds": bounds}
 
 
-def phase_split_kernels() -> list[dict]:
+def phase_split_kernels(pythia: dict, decoder: dict) -> list[dict]:
+    """The split pair beside the forward and fused kernels at every listed
+    shape (``check_kernels_at(..., split=True)``), the forward and fused
+    kernel on f32 inputs at ViT's shape among them; then the times at the
+    main paths' shapes, where ``pythia`` and ``decoder`` are what phases 3
+    and 9 timed at theirs."""
     # full f32 products in the plain versions (the main paths' plans turned TF32 on)
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    errs = check_split_at(SLICE_SHAPE, True, seed=30)
-    check_split_at(VIT_SHAPE, False, torch.float32, seed=31)
-    check_split_at(VIT_SHAPE, False, seed=32)
+    errs = check_kernels_at(SLICE_SHAPE, True, seed=30, split=True)
+    check_kernels_at(VIT_SHAPE, False, seed=31, dtype=torch.float32, split=True)
+    check_kernels_at(VIT_SHAPE, False, seed=32, split=True)
     for causal in (True, False):
-        check_split_at(RAGGED_SHAPE, causal, seed=33 + causal)
-        check_split_at(VARLEN_RAGGED, causal, seed=35 + causal, lens=[77, 37, 64, 0])
-    errs_varlen = check_split_at(VARLEN_SHAPE, True, seed=37, lens=_ragged_lens(VARLEN_SHAPE[0], VARLEN_SHAPE[2], 2))
+        check_kernels_at(RAGGED_SHAPE, causal, seed=33 + causal, split=True)
+        check_kernels_at(VARLEN_RAGGED, causal, seed=35 + causal, lens=[77, 37, 64, 0], split=True)
+    errs_varlen = check_kernels_at(VARLEN_SHAPE, True, seed=37, lens=_ragged_lens(VARLEN_SHAPE[0], VARLEN_SHAPE[2], 2),
+                                   split=True)
 
-    pythia = time_backwards(SLICE_SHAPE, True, torch.bfloat16, 38)
-    time_backwards(VIT_SHAPE, False, torch.float32, 39)
-    llava = time_backwards(VARLEN_SHAPE, True, torch.bfloat16, 40, full_lens=True)
+    pythia = time_split(SLICE_SHAPE, True, torch.bfloat16, 38, fused=pythia)
+    time_split(VIT_SHAPE, False, torch.float32, 39)
+    llava = time_split(VARLEN_SHAPE, True, torch.bfloat16, 40, full_lens=True, fused=decoder)
 
     def entries(suffix: str, e: dict, timed: dict) -> list[dict]:
         return [
             {"name": f"flash_bwd_{part}{suffix}", "route": "cuda", "source": KERNEL_SOURCE,
              "replaces": f"{JAX_FLASH}:{line}", "launches": None, "max_abs_err": err, "ms": timed["ms"][part],
              "plain_ms": timed["ms"][f"{part}_plain"], **timed["bounds"][part], "library_ms": None}
-            for part, line, err in (("dq", 161, e["dq"][0]), ("dkv", 293, max(e["dk"][0], e["dv"][0])))
+            for part, line, err in (("dq", 161, e["split_dq"][0]), ("dkv", 293, max(e["split_dk"][0], e["split_dv"][0])))
         ]
 
     return entries("", errs, pythia) + entries("_varlen", errs_varlen, llava)
@@ -1004,8 +1035,8 @@ def phase_vit_main_path() -> dict:
     mod = run["module"]
     if mod.position_embeddings.shape[1] != VIT_TOKENS or mod.classifier.weight.shape[0] != 21841:
         raise AssertionError(f"vit: not ViT-L/16 at 224 px with 21,841 classes: {mod.position_embeddings.shape}")
-    if not run["dropout"]:
-        raise AssertionError("vit: the session trained without dropout")
+    if not all(block.mlp.dropout == VIT_DROPOUT for block in mod.layers):
+        raise AssertionError(f"vit: not the recipe's dropout rate {VIT_DROPOUT} in every block")
     expected = flash_launches_expected(FLASH_COUNTERS, len(mod.layers), 0, run["micro_batches"])
     if run["launches"] != expected:
         raise AssertionError(f"vit flash launches {run['launches']}, expected {expected}")
@@ -1015,7 +1046,7 @@ def phase_vit_main_path() -> dict:
 def main() -> int:
     card = phase_env()
     phase_build()
-    kernels = phase_kernels()
+    pythia_times, kernels = phase_kernels()
     phase_slice()
     launches: dict[str, int] = {}
 
@@ -1027,10 +1058,11 @@ def main() -> int:
     kernels += phase_scan_kernels()
     phase_scan_slice()
     add(phase_mamba_main_path())
-    kernels += phase_varlen_kernels()
+    decoder_times, varlen = phase_varlen_kernels()
+    kernels += varlen
     phase_llava_slice()
     add(phase_llava_main_path())
-    kernels += phase_split_kernels()
+    kernels += phase_split_kernels(pythia_times, decoder_times)
     phase_vit_slice()
     add(phase_vit_main_path())
     for k in kernels:

@@ -59,20 +59,19 @@ class ModelBundle:
 
     ``module`` holds the parameters (uninitialised until the session's
     ``init_state`` fills them from a generator or a converted state dict).
-    ``loss_fn(module, batch)`` returns ``(scalar_loss, metrics_dict)``.
+    ``loss_fn(module, batch, generator=None)`` returns ``(scalar_loss,
+    metrics_dict)``; a model with dropout (ViT) draws its masks from
+    ``generator`` and is deterministic without one, the others ignore it.
     ``init_fn(module, generator)`` draws fresh parameters in place.
     ``trainable_mask`` maps each of the module's parameter names to whether
     it trains (LLaVA's frozen tower and LM); None means every parameter
-    trains. A model with ``dropout`` takes ``loss_fn(module, batch,
-    generator=g, train=True)``: the session hands it its dropout generator,
-    and an evaluation passes ``train=False``.
+    trains.
     """
 
     module: torch.nn.Module
     loss_fn: Callable
     init_fn: Callable
     trainable_mask: dict[str, bool] | None = None
-    dropout: bool = False
 
 
 T = TypeVar("T", bound=ModelT)

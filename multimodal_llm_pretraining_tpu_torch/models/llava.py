@@ -155,7 +155,7 @@ class _LlavaBase(MultimodalModelClass[LlavaT]):
         def init_fn(mod: LlavaModule, generator: torch.Generator) -> None:
             mod.reset_parameters(generator)
 
-        def loss_fn(mod: LlavaModule, batch: dict[str, torch.Tensor]):
+        def loss_fn(mod: LlavaModule, batch: dict[str, torch.Tensor], generator=None):
             loss = mod(batch["input_ids"], batch["pixel_values"], labels=batch["labels"],
                        attention_mask=batch.get("attention_mask"))
             return loss, {"loss": loss}

@@ -169,7 +169,7 @@ class MambaModelClass(LanguageModelClass[MambaT]):
         def init_fn(mod: MambaLM, generator: torch.Generator) -> None:
             mod.reset_parameters(generator)
 
-        def loss_fn(mod: MambaLM, batch: dict[str, torch.Tensor]):
+        def loss_fn(mod: MambaLM, batch: dict[str, torch.Tensor], generator=None):
             loss = mod(batch["input_ids"], labels=batch["labels"])
             return loss, {"loss": loss}
 

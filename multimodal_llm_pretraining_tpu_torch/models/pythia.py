@@ -137,7 +137,7 @@ class PythiaModelClass(LanguageModelClass[PythiaT]):
         def init_fn(mod: GPTNeoXLM, generator: torch.Generator) -> None:
             mod.reset_parameters(generator)
 
-        def loss_fn(mod: GPTNeoXLM, batch: dict[str, torch.Tensor]):
+        def loss_fn(mod: GPTNeoXLM, batch: dict[str, torch.Tensor], generator=None):
             loss = mod(batch["input_ids"], labels=batch["labels"])
             return loss, {"loss": loss}
 

@@ -134,12 +134,12 @@ class ViTModelClass(VisionModelClass[ViTT]):
         def init_fn(mod: ViTClassifier, generator: torch.Generator) -> None:
             mod.reset_parameters(generator)
 
-        def loss_fn(mod: ViTClassifier, batch: dict[str, torch.Tensor], generator=None, train: bool = True):
-            logits = mod(batch["pixel_values"], generator if train else None)
+        def loss_fn(mod: ViTClassifier, batch: dict[str, torch.Tensor], generator=None):
+            logits = mod(batch["pixel_values"], generator)
             loss = cross_entropy_loss(logits, batch["labels"])
             return loss, {"loss": loss}
 
-        return ModelBundle(module=module, loss_fn=loss_fn, init_fn=init_fn, dropout=True)
+        return ModelBundle(module=module, loss_fn=loss_fn, init_fn=init_fn)
 
     @property
     def batch_size(self) -> int:

@@ -27,11 +27,11 @@ ones in the layout's: with bf16 compute and no SR that is bf16 frozen
 leaves beside f32 trainable ones, the layout JAX trains llava-pretrain in
 (``step.py:158-169``).
 
-A model with dropout (ViT) gets ``train=True`` and the session's dropout
-generator in every training micro-batch, as the JAX step hands its loss an
-``rng`` (``step.py:400-411, 501``); the generator is seeded with
-``DROPOUT_SEED``, like the SR generator with ``SR_SEED``, and draws on from
-micro-batch to micro-batch. Models without dropout get neither.
+Every training micro-batch hands the loss the session's dropout generator,
+as the JAX step hands its loss an ``rng`` (``step.py:400-411, 501``); a
+model with dropout (ViT) draws its masks from it, the others ignore it. The
+generator is seeded with ``DROPOUT_SEED``, like the SR generator with
+``SR_SEED``, and draws on from micro-batch to micro-batch.
 
 Activation checkpointing goes to the model's ``build_model``: mamba remats
 each whole block, pythia refuses it with the ROADMAP item. Not ported yet,
@@ -116,7 +116,6 @@ class TrainSession:
         )
         self.sr_generator = torch.Generator(device=self.device).manual_seed(SR_SEED)
         self.dropout_generator = torch.Generator(device=self.device).manual_seed(DROPOUT_SEED)
-        self._loss_kwargs = {"generator": self.dropout_generator, "train": True} if self.bundle.dropout else {}
 
     # ----------------------------------------------------------- data
 
@@ -167,7 +166,7 @@ class TrainSession:
     # ----------------------------------------------------------- steps
 
     def _accumulate(self, state: TrainState, micro_batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        loss, _metrics = self.bundle.loss_fn(self.module, micro_batch, **self._loss_kwargs)
+        loss, _metrics = self.bundle.loss_fn(self.module, micro_batch, self.dropout_generator)
         # autograd adds into .grad in the params' dtype: one rounding per
         # micro-batch, as the JAX accumulator's (a + g).astype(a.dtype)
         loss.backward()

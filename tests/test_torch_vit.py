@@ -135,19 +135,18 @@ def test_dropout_keeps_nine_tenths_scaled_by_one_over_point_nine():
 
 
 def test_loss_fn_draws_dropout_only_when_training(jax_vit):
-    """``train=True`` with a generator applies dropout (another loss than
-    the deterministic one, repeatable from the seed); ``train=False``
-    ignores the generator."""
+    """A generator applies dropout (another loss than the deterministic one,
+    repeatable from the seed); without one the loss is the deterministic
+    model's, the JAX model's own."""
     with _narrow(tvit):
         bundle = get_model_class("vit").build_model()
-    assert bundle.dropout
     module = _torch_model()
     module.load_state_dict(vit_params_from_jax(jax_vit[0]))
     pix, labels = _batch()
     batch = {"pixel_values": torch.from_numpy(pix), "labels": torch.from_numpy(labels).long()}
     with torch.no_grad():
-        plain = bundle.loss_fn(module, batch, torch.Generator().manual_seed(1), train=False)[0]
-        drop = [bundle.loss_fn(module, batch, torch.Generator().manual_seed(1), train=True)[0] for _ in range(2)]
+        plain = bundle.loss_fn(module, batch)[0]
+        drop = [bundle.loss_fn(module, batch, torch.Generator().manual_seed(1))[0] for _ in range(2)]
     np.testing.assert_allclose(float(plain), jax_vit[2], rtol=1e-5)
     assert torch.equal(drop[0], drop[1]) and not torch.equal(drop[0], plain)
 
