@@ -11,8 +11,11 @@ Phases, one line (or a few) each; any failure exits non-zero:
 3. kernels: each flash-attention kernel against its plain PyTorch version on
    the same inputs, at the pythia-1b training shape ([4, 8, 2049, 256] bf16
    causal) and at a small ragged shape, with the tolerances stated below;
-   then median CUDA-event times of kernel and plain version at the training
-   shape.
+   the forward also at its tile edges (q_seq in FWD_EDGE_SEQS, kv_seq other
+   than q_seq, every head dim, causal and not), every forward repeated bit
+   for bit; then CUDA-event times of kernel and plain version at the
+   training shape, and the forward's TFLOP/s, share of its bound and ratio
+   to PyTorch's call.
 4. slice: a two-layer GPTNeoX, loss and grads with the kernels against the
    plain f32 attention on the same weights and tokens.
 5. main path: the pythia-1b training step at full width and depth, through
@@ -38,9 +41,10 @@ Phases, one line (or a few) each; any failure exits non-zero:
    with an empty row; dk and dv must be exactly 0 at and past each length,
    and a second backward must repeat them as phase 3 requires. Then both
    kernels in plain mode at the tower's shape, as the main path calls the
-   forward there. Then median CUDA-event times of the varlen and plain-mode
-   kernels and the plain versions at the decoder's shape (full lens), and
-   of the plain-mode forward at the tower's shape.
+   forward there, and the varlen forward at lens on and around its tile
+   edges. Then CUDA-event times of the varlen and plain-mode kernels and the
+   plain versions at the decoder's shape (full lens), and of the plain-mode
+   forward at the tower's shape, each forward beside PyTorch's call.
 10. llava slice: a two-layer narrow LLaVA in bf16 (head_dim 64 in the tower
     and the decoder), frozen as llava-pretrain freezes it, on a right-padded
     batch: loss and every projector grad with the kernels against the plain
@@ -61,7 +65,8 @@ Phases, one line (or a few) each; any failure exits non-zero:
     llava decoder's [16, 32, 1087, 64] causal (ragged lens) and [4, 2, 77,
     64] with an empty row; dq, dk and dv must repeat bit for bit on a
     second run, lie within TOL_NORM_REL of the fused kernel, and in varlen
-    mode dk/dv must be exactly 0 past each length. Then CUDA-event times at
+    mode dk/dv must be exactly 0 past each length; the forward on f32
+    inputs at its tile edges, plain and varlen. Then CUDA-event times at
     each main-path shape: the split kernels and their plain versions, set
     against the fused kernel (timed in phases 3 and 9, at ViT's shape
     here), PyTorch's attention (the yardstick) and the backward's bound.
@@ -78,6 +83,11 @@ interleaved fused, split, split, fused, fused, split; the median of each is
 printed, and the launch counters must show every attention backward of a
 micro-batch on the backward it ran under. Main path 8 (mamba, no attention)
 runs 1 warmup + 3 timed steps.
+
+Kernel times are the mean of a call in a run of 10 launches back to back
+between two CUDA events, the median of 3 runs (``cuda_ms``); the forward's
+line also gives its time with one event pair per call (``cuda_ms_alone``),
+where the card waits on the host's launch work.
 
 The last three lines are the kernels JSON line, the card line and
 ``{"ok": true, "device": ...}``. A kernel's ``launches`` there is the sum
@@ -105,8 +115,11 @@ import torch  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.ops import _build  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.ops import selective_scan_fused as ssf  # noqa: E402
+from multimodal_llm_pretraining_tpu_torch.time_attention import ms_per_call as cuda_ms  # noqa: E402
+from multimodal_llm_pretraining_tpu_torch.time_attention import card_line, visible_pairs  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.utils import require_cuda  # noqa: E402
 
+FWD_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/flash_fwd.cu"
 KERNEL_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/flash_attention.cu"
 JAX_FLASH = "multimodal_llm_pretraining_tpu/ops/flash_attention.py"
 SCAN_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/selective_scan.cu"
@@ -178,14 +191,6 @@ def say(msg: str) -> None:
     print(msg, flush=True)
 
 
-def card_line() -> str:
-    out = subprocess.run(
-        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
-        capture_output=True, text=True, check=True, timeout=60,
-    )
-    return out.stdout.strip().splitlines()[0]
-
-
 def phase_env() -> str:
     device = require_cuda()
     card = card_line()
@@ -209,8 +214,10 @@ def _errs(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return d.abs().max().item(), (d.norm() / ref.float().norm().clamp_min(1e-30)).item()
 
 
-def cuda_ms(fn, warmup: int = 3, iters: int = 10) -> float:
-    """Median milliseconds of ``fn`` on the card, one CUDA-event pair per call."""
+def cuda_ms_alone(fn, warmup: int = 3, iters: int = 10) -> float:
+    """Median milliseconds of ``fn`` with one CUDA-event pair per call and a
+    synchronise after each: the card waits on the host's launch work, as it
+    does when nothing else is queued."""
     for _ in range(warmup):
         fn()
     times = []
@@ -249,16 +256,6 @@ def bound_terms(nbytes: int, flops: float = 0.0, flop_rate: float = PEAK_BF16_FL
     """``bound``'s three terms in ms, for the log."""
     return (f"bytes {nbytes} ({nbytes / PEAK_BYTES * 1e3:.4f} ms), products {flops:.4g} "
             f"({flops / flop_rate * 1e3:.4f} ms), exps {exps:.4g} ({exps / PEAK_EXPS * 1e3:.4f} ms)")
-
-
-def visible_pairs(bh: int, q_seq: int, kv_seq: int, causal: bool, kv_lens=None) -> int:
-    """(query, key) pairs the attention must compute: every query row sees
-    the keys below its batch-head's length, and with ``causal`` only those
-    at or before it."""
-    lens = np.full(bh, kv_seq) if kv_lens is None else np.clip(kv_lens.cpu().numpy(), 0, kv_seq)
-    if not causal:
-        return int(lens.sum()) * q_seq
-    return int(np.minimum(np.arange(1, q_seq + 1)[None, :], lens[:, None]).sum())
 
 
 def attention_bounds(q, k, v, do, causal: bool, kv_lens=None) -> dict:
@@ -333,14 +330,88 @@ def _split(q, k, v, out, lse, do, causal, scale, kv_lens, kernels: bool = True):
     return (dq, *dkv_fn(q, k, v, do, lse, delta, causal, scale, kv_lens))
 
 
+# The forward at its tile edges: q blocks of 64 or 128 rows, key tiles of 64
+# or 128, and varlen lengths on and around them.
+FWD_EDGE_SEQS = (1, 63, 64, 65, 127, 128, 129, 2049)
+FWD_EDGE_KV = ((65, 200), (200, 65), (129, 1), (1, 129), (2049, 300))  # (q_seq, kv_seq)
+FWD_EDGE_LENS = (0, 1, 64, 127, 128, 300)  # one per batch row of [6 x 2 heads, 300, D]
+
+
+def check_forward(q, k, v, causal: bool, kv_lens=None) -> dict:
+    """The forward kernel against its plain version: out within
+    TOL_NORM_REL of its norm, lse within ``lse_limit``, a second launch bit
+    for bit, out exactly 0 on rows of length 0. Returns the kernel's and the
+    plain version's out and lse, out's norm_rel, the largest lse error /
+    limit and the largest limit."""
+    scale = q.shape[-1] ** -0.5
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
+    out2, lse2 = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
+    out_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    torch.cuda.synchronize()
+    what = f"{list(q.shape)} kv {k.shape[1]} {str(q.dtype).split('.')[-1]} causal={causal} lens {kv_lens}"
+    if out.dtype != q.dtype or lse.dtype != torch.float32 or not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
+        raise AssertionError(f"[forward] out or lse not finite or of the wrong type at {what}")
+    rel = _errs(out, out_ref)[1]
+    limit = lse_limit(q, k, scale)
+    margin = ((lse - lse_ref).abs() / limit).max().item()  # at most 1 where every row is within its limit
+    if not (rel <= TOL_NORM_REL and margin <= 1.0):
+        raise AssertionError(f"[forward] out norm_rel {rel:.3e} or lse error / limit {margin:.3f} beyond its limit at {what}")
+    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
+        raise AssertionError(f"[forward] a second forward differs from the first at {what}")
+    if kv_lens is not None and (kv_lens == 0).any() and out[kv_lens == 0].any():
+        raise AssertionError(f"[forward] a row that sees no key is not 0 at {what}")
+    return {"out": out, "lse": lse, "out_ref": out_ref, "lse_ref": lse_ref, "norm_rel": rel, "lse_margin": margin,
+            "lse_limit_max": limit.max().item()}
+
+
+def check_forward_edges(tag: str, dtype: torch.dtype, mode: str) -> None:
+    """``check_forward`` at every head dim, causal and not, over the edge
+    cases of ``mode``: "seq" (q_seq = kv_seq in FWD_EDGE_SEQS, 3 heads),
+    "kv" (FWD_EDGE_KV) or "lens" (varlen, FWD_EDGE_LENS)."""
+    g = torch.Generator(device="cuda").manual_seed(50)
+
+    def rand(bh, s, d):
+        return torch.randn(bh, s, d, generator=g, device="cuda").to(dtype)
+
+    cases = {"seq": [(s, s) for s in FWD_EDGE_SEQS], "kv": list(FWD_EDGE_KV), "lens": [(300, 300)]}[mode]
+    worst_rel = worst_margin = 0.0
+    n = 0
+    for d in fa.KERNEL_HEAD_DIMS:
+        for causal in (True, False):
+            for q_seq, kv_seq in cases:
+                bh = 2 * len(FWD_EDGE_LENS) if mode == "lens" else 3
+                lens = (torch.tensor(FWD_EDGE_LENS, dtype=torch.int32, device="cuda").repeat_interleave(2)
+                        if mode == "lens" else None)
+                fwd = check_forward(rand(bh, q_seq, d), rand(bh, kv_seq, d), rand(bh, kv_seq, d), causal, lens)
+                worst_rel, worst_margin = max(worst_rel, fwd["norm_rel"]), max(worst_margin, fwd["lse_margin"])
+                n += 1
+    what = {"seq": f"q_seq = kv_seq in {list(FWD_EDGE_SEQS)}", "kv": f"(q_seq, kv_seq) in {list(FWD_EDGE_KV)}",
+            "lens": f"[12, 300, D], lens {list(FWD_EDGE_LENS)} x 2 heads"}[mode]
+    say(f"{tag} forward at the tile edges, {n} cases, {str(dtype).split('.')[-1]}, D {list(fa.KERNEL_HEAD_DIMS)}, "
+        f"causal and not, {what}: worst out norm_rel {worst_rel:.3e}, worst lse error / limit {worst_margin:.3f}, "
+        f"every second forward identical")
+
+
+def fwd_flops(q, k, causal: bool, kv_lens=None) -> float:
+    """The forward's products: 2 x 2·D FLOP per visible (query, key) pair."""
+    return 4 * q.shape[-1] * visible_pairs(q.shape[0], q.shape[1], k.shape[1], causal, kv_lens)
+
+
+def say_forward(shape, what: str, ms: float, ms_alone: float, flops: float, bnd: dict, lib: dict) -> None:
+    """The forward's time beside what it achieves, its bound and PyTorch's call."""
+    say(f"[forward] {list(shape)} {what}: {ms:.4f} ms a call ({ms_alone:.4f} ms timed alone), "
+        f"{flops / ms / 1e9:.1f} TFLOP/s, {bnd['bound_ms'] / ms:.3f} of the bound {bnd['bound_ms']:.4f} ms "
+        f"({bnd['bound_by']}); PyTorch ({lib['backend']}) {lib['fwd']:.4f} ms, ours / PyTorch {ms / lib['fwd']:.3f}")
+
+
 def check_kernels_at(shape, causal: bool, seed: int = 0, lens: list[int] | None = None,
                      dtype: torch.dtype = torch.bfloat16, split: bool = False) -> dict:
-    """The forward and the fused backward kernel against their plain
-    versions on identical inputs: out, dq, dk, dv within TOL_NORM_REL of
-    the norm, lse within ``lse_limit``; dk and dv repeat bit for bit on a
-    second run, dq within one bf16 ulp. With ``lens`` (one per batch row,
-    broadcast over heads as ``flash_attention`` does) all run in varlen
-    mode, and dk and dv must be exactly 0 at and past each length. With
+    """The forward (``check_forward``) and the fused backward kernel against
+    their plain versions on identical inputs: dq, dk, dv within
+    TOL_NORM_REL of the norm; dk and dv repeat bit for bit on a second run,
+    dq within one bf16 ulp. With ``lens`` (one per batch row, broadcast
+    over heads as ``flash_attention`` does) all run in varlen mode, and dk
+    and dv must be exactly 0 at and past each length. With
     ``split``, the split pair too: dq, dk, dv within TOL_NORM_REL of its
     plain versions and of the fused kernel, all three bit for bit on a
     second run (nothing is summed across blocks), and dq exactly 0 on a
@@ -351,9 +422,8 @@ def check_kernels_at(shape, causal: bool, seed: int = 0, lens: list[int] | None 
     kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
     tag = "[split]" if split else "[kernels]" if lens is None else "[varlen]"
     what = f"{list(shape)} {str(dtype).split('.')[-1]} causal={causal}{'' if lens is None else f' lens {lens}'}"
-    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
-    out_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
-    lse_lim = lse_limit(q, k, scale)
+    fwd = check_forward(q, k, v, causal, kv_lens)
+    out, lse, out_ref, lse_ref = fwd["out"], fwd["lse"], fwd["out_ref"], fwd["lse_ref"]
     grads = {"": fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)}
     plain = {"": fa.flash_bwd_reference(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)}
     if split:
@@ -363,11 +433,10 @@ def check_kernels_at(shape, causal: bool, seed: int = 0, lens: list[int] | None 
     res = {"out": _errs(out, out_ref), "lse": _errs(lse, lse_ref)}
     for pre in grads:
         res.update({pre + n: _errs(g, p) for n, g, p in zip(("dq", "dk", "dv"), grads[pre], plain[pre])})
-    named = {"out": out, "lse": lse, **{pre + n: g for pre in grads for n, g in zip(("dq", "dk", "dv"), grads[pre])}}
+    named = {pre + n: g for pre in grads for n, g in zip(("dq", "dk", "dv"), grads[pre])}
     for name, t in named.items():
-        if not torch.isfinite(t).all() or t.dtype != (torch.float32 if name == "lse" else dtype):
+        if not torch.isfinite(t).all() or t.dtype != dtype:
             raise AssertionError(f"{tag} {name} is not finite {t.dtype} at {what}")
-    lse_margin = ((lse - lse_ref).abs() / lse_lim).max().item()  # at most 1 where every row is within its limit
     past_max = dq_empty = 0.0
     if kv_lens is not None:
         past = torch.arange(s, device="cuda")[None, :] >= kv_lens[:, None]  # [BH, S]: keys at or past the length
@@ -376,14 +445,12 @@ def check_kernels_at(shape, causal: bool, seed: int = 0, lens: list[int] | None 
         if split and (kv_lens == 0).any():
             dq_empty = grads["split_"][0][kv_lens == 0].abs().max().item()
     say(f"{tag} {what}: " + ", ".join(f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in res.items())
-        + f"; lse error / limit max {lse_margin:.3f} (limit max {lse_lim.max().item():.3e})"
+        + f"; lse error / limit max {fwd['lse_margin']:.3f} (limit max {fwd['lse_limit_max']:.3e})"
         + ("" if lens is None else f"; dk/dv past the lens max_abs {past_max:.1e}")
         + (f", dq on empty rows {dq_empty:.1e}" if split and lens is not None else ""))
-    for name in ("out", *(pre + n for pre in grads for n in ("dq", "dk", "dv"))):
+    for name in named:
         if not res[name][1] <= TOL_NORM_REL:
             raise AssertionError(f"{tag} {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {what}")
-    if not lse_margin <= 1.0:
-        raise AssertionError(f"{tag} lse beyond its limit (error / limit {lse_margin:.3f}) at {what}")
     if past_max != 0.0 or dq_empty != 0.0:
         raise AssertionError(f"{tag} dk/dv past the lens or dq on an empty row not exactly 0 at {what}")
     # dq sums by f32 atomics in an order that changes between runs: a second
@@ -421,6 +488,8 @@ def phase_kernels() -> tuple[dict, list[dict]]:
     errs = check_kernels_at(SLICE_SHAPE, causal=True)
     check_kernels_at(RAGGED_SHAPE, causal=True, seed=1)
     check_kernels_at(RAGGED_SHAPE, causal=False, seed=2)
+    check_forward_edges("[kernels]", torch.bfloat16, "seq")
+    check_forward_edges("[kernels]", torch.bfloat16, "kv")
 
     q, k, v, do = _inputs(SLICE_SHAPE, 3)
     scale = SLICE_SHAPE[-1] ** -0.5
@@ -437,13 +506,15 @@ def phase_kernels() -> tuple[dict, list[dict]]:
         "fwd_bwd": cuda_ms(lambda: fwd_bwd(fa.flash_fwd_cuda, fa.flash_bwd_cuda)),
         "fwd_bwd_plain": cuda_ms(lambda: fwd_bwd(fa.flash_fwd_reference, fa.flash_bwd_reference)),
     }
-    say(f"[kernels] median ms at {list(SLICE_SHAPE)} bf16 causal: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
+    say(f"[kernels] ms a call at {list(SLICE_SHAPE)} bf16 causal: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
     lib = sdpa_ms(q, k, v, do, True, flash_only=True)
     bounds = attention_bounds(q, k, v, do, True)
     say_yardstick(SLICE_SHAPE, "bf16 causal", lib, bounds)
+    say_forward(SLICE_SHAPE, "bf16 causal", t["fwd"], cuda_ms_alone(lambda: fa.flash_fwd_cuda(q, k, v, True, scale)),
+                fwd_flops(q, k, True), bounds["fwd"], lib)
     max_grad_err = max(errs[n][0] for n in ("dq", "dk", "dv"))
     return {"ms": t, "library": lib}, [
-        {"name": "flash_fwd", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:91",
+        {"name": "flash_fwd", "route": "cuda", "source": FWD_SOURCE, "replaces": f"{JAX_FLASH}:91",
          "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
          **bounds["fwd"], "library_ms": lib["fwd"]},
         {"name": "flash_bwd_fused", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:208",
@@ -694,7 +765,7 @@ def phase_scan_kernels() -> list[dict]:
         "bwd": cuda_ms(lambda: ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)),
         "bwd_plain": cuda_ms(lambda: ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)),
     }
-    say(f"[scan] median ms at {list(SCAN_SHAPE)} N16 bf16: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
+    say(f"[scan] ms a call at {list(SCAN_SHAPE)} N16 bf16: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
     # what each function must do per (batch, step, channel, state): the
     # forward one exp (exp(delta*A)) and 6 f32 operations (delta*A, the
     # decay, delta*u*B and its add, C*h and its sum); the backward the same
@@ -785,6 +856,7 @@ def phase_varlen_kernels() -> tuple[dict, list[dict]]:
     for causal in (True, False):
         check_kernels_at(VARLEN_RAGGED, causal, seed=22 + causal, lens=[77, 37, 64, 0])
     check_kernels_at(TOWER_SHAPE, False, seed=24)  # the tower's own call: plain mode, non-causal
+    check_forward_edges("[varlen]", torch.bfloat16, "lens")
 
     b, h, s, _ = VARLEN_SHAPE
     q, k, v, do = _inputs(VARLEN_SHAPE, 23)
@@ -799,13 +871,16 @@ def phase_varlen_kernels() -> tuple[dict, list[dict]]:
         "bwd_plain_mode": cuda_ms(lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, True, scale)),
         "bwd_plain": cuda_ms(lambda: fa.flash_bwd_reference(q, k, v, out, lse, do, True, scale, full)),
     }
-    say(f"[varlen] median ms at {list(VARLEN_SHAPE)} bf16 causal, full lens: "
+    say(f"[varlen] ms a call at {list(VARLEN_SHAPE)} bf16 causal, full lens: "
         + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
     # full lens: the same function as plain causal attention, which is what
     # PyTorch's flash backend (no per-row lengths) computes
     lib = sdpa_ms(q, k, v, do, True, flash_only=True)
     bounds = attention_bounds(q, k, v, do, True, full)
     say_yardstick(VARLEN_SHAPE, "bf16 causal, full lens", lib, bounds)
+    say_forward(VARLEN_SHAPE, "bf16 causal, varlen mode, full lens", t["fwd"],
+                cuda_ms_alone(lambda: fa.flash_fwd_cuda(q, k, v, True, scale, full)), fwd_flops(q, k, True, full),
+                bounds["fwd"], lib)
     del q, k, v, do, out, lse
     q, k, v, do = _inputs(TOWER_SHAPE, 24)
     tower_scale = TOWER_SHAPE[-1] ** -0.5
@@ -813,12 +888,16 @@ def phase_varlen_kernels() -> tuple[dict, list[dict]]:
         "fwd": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, False, tower_scale)),
         "fwd_plain": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, False, tower_scale)),
     }
-    say(f"[varlen] median ms at the tower's {list(TOWER_SHAPE)} bf16 non-causal, plain mode: "
+    say(f"[varlen] ms a call at the tower's {list(TOWER_SHAPE)} bf16 non-causal, plain mode: "
         + ", ".join(f"{n} {ms:.3f}" for n, ms in tower.items()))
-    say_yardstick(TOWER_SHAPE, "bf16 non-causal", sdpa_ms(q, k, v, do, False, flash_only=True),
-                  {"fwd": attention_bounds(q, k, v, do, False)["fwd"]})
+    tower_lib = sdpa_ms(q, k, v, do, False, flash_only=True)
+    tower_bound = attention_bounds(q, k, v, do, False)["fwd"]
+    say_yardstick(TOWER_SHAPE, "bf16 non-causal", tower_lib, {"fwd": tower_bound})
+    say_forward(TOWER_SHAPE, "bf16 non-causal", tower["fwd"],
+                cuda_ms_alone(lambda: fa.flash_fwd_cuda(q, k, v, False, tower_scale)), fwd_flops(q, k, False),
+                tower_bound, tower_lib)
     return {"ms": t, "library": lib}, [
-        {"name": "flash_fwd_varlen", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:91",
+        {"name": "flash_fwd_varlen", "route": "cuda", "source": FWD_SOURCE, "replaces": f"{JAX_FLASH}:91",
          "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
          **bounds["fwd"], "library_ms": lib["fwd"]},
         {"name": "flash_bwd_fused_varlen", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:208",
@@ -931,11 +1010,13 @@ def time_split(shape, causal: bool, dtype, seed: int, full_lens: bool = False, f
         })
     t = {n: cuda_ms(f) for n, f in fns.items()}
     what = f"{str(dtype).split('.')[-1]} {'causal' if causal else 'non-causal'}{', full lens' if full_lens else ''}"
-    say(f"[split] median ms at {list(shape)} {what}: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
+    say(f"[split] ms a call at {list(shape)} {what}: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
     bounds = attention_bounds(q, k, v, do, causal, kv_lens)
     if fused is None:
         fused = {"ms": t, "library": sdpa_ms(q, k, v, do, causal, flash_only=dtype == torch.bfloat16)}
         say_yardstick(shape, what, fused["library"], bounds)
+        say_forward(shape, what, t["fwd"], cuda_ms_alone(fns["fwd"]), fwd_flops(q, k, causal, kv_lens),
+                    bounds["fwd"], fused["library"])
     bwd = bounds["bwd"]["bound_ms"]
     say(f"[yardstick] {list(shape)} {what}: split pair {t['split']:.3f} ms, fused {fused['ms']['bwd']:.3f} ms "
         f"(split / fused {t['split'] / fused['ms']['bwd']:.3f}); against the backward's bound {bwd:.4f} ms "
@@ -955,6 +1036,8 @@ def phase_split_kernels(pythia: dict, decoder: dict) -> list[dict]:
     torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
     errs = check_kernels_at(SLICE_SHAPE, True, seed=30, split=True)
     check_kernels_at(VIT_SHAPE, False, seed=31, dtype=torch.float32, split=True)
+    check_forward_edges("[split]", torch.float32, "seq")
+    check_forward_edges("[split]", torch.float32, "lens")
     check_kernels_at(VIT_SHAPE, False, seed=32, split=True)
     for causal in (True, False):
         check_kernels_at(RAGGED_SHAPE, causal, seed=33 + causal, split=True)

@@ -1,8 +1,7 @@
-// Flash attention for NVIDIA Hopper (sm_90a): forward, fused backward and the
-// split backward.
+// Flash-attention backward for NVIDIA Hopper (sm_90a): the fused backward and
+// the split backward. The forward is csrc/flash_fwd.cu.
 //
 // Replaces the Pallas TPU kernels of multimodal_llm_pretraining_tpu/ops/flash_attention.py:
-//   flash_fwd_kernel      <- _fwd_kernel        (flash_attention.py:91, launched by _fwd_impl)
 //   flash_bwd_kernel      <- _bwd_fused_kernel  (flash_attention.py:208, launched by _bwd_impl)
 //   flash_bwd_dq_kernel   <- _bwd_dq_kernel     (flash_attention.py:161, launched at :572)
 //   flash_bwd_dkv_kernel  <- _bwd_dkv_kernel    (flash_attention.py:293, launched at :589)
@@ -18,9 +17,8 @@
 //   k block's k, k*scale, v tiles, a 64-row q and dO tile, and f32 dk/dv
 //   accumulators resident: with 64-row k blocks that is ~270 KB, over the
 //   227 KB a block may use. The backward therefore takes 32-row k blocks
-//   (~214 KB at D=256); the forward takes 64x64 tiles plus a 64xD f32 output
-//   accumulator (~195 KB at D=256). Both opt in to the large dynamic shared
-//   memory with cudaFuncSetAttribute.
+//   (~214 KB at D=256), opting in to the large dynamic shared memory with
+//   cudaFuncSetAttribute.
 // * Cross-block reduction. The TPU's grid runs in order, so _bwd_fused_kernel
 //   keeps a whole-sequence dq block resident and revisits it from every k
 //   program. GPU blocks run in parallel and in no order, so each block adds
@@ -52,7 +50,7 @@
 // flash_attention.py:622-652): a nullable int32 kv_lens [BH] gives each
 // batch-head its own key count, read on the device (no host sync). Only the
 // loop bounds and the key masks take it: keys at or past kv_len get
-// probability 0, the forward's k loop and the backward's q loop stop at it,
+// probability 0, the backward's q loop stops at it,
 // and the per-head offsets keep the tensor's kv_seq. Every query row,
 // padded or not, attends the keys below kv_len. dk and dv rows in
 // [kv_len, kv_seq) are stored as exact zeros, also for a k block wholly past
@@ -133,178 +131,11 @@ __device__ __forceinline__ void load_tile(bf16* tile, int ld, const T* src, int 
   }
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
 using FragA = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::row_major>;
 using FragAT = wmma::fragment<wmma::matrix_a, 16, 16, 16, bf16, wmma::col_major>;
 using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
-
-// ---------------------------------------------------------------- forward
-
-constexpr int FWD_BQ = 64, FWD_BK = 64, FWD_THREADS = 128;  // 4 warps x 16 query rows
-
-template <int D>
-struct FwdSmem {
-  static constexpr int LDB = D + 8;       // bf16 q/k/v tiles (padding breaks bank conflicts)
-  static constexpr int LDS = FWD_BK + 4;  // f32 scores
-  static constexpr int LDP = FWD_BK + 8;  // bf16 probabilities
-  static constexpr int LDO = D + 4;       // f32 output accumulator
-  static constexpr size_t q = 0;
-  static constexpr size_t k = q + sizeof(bf16) * FWD_BQ * LDB;
-  static constexpr size_t v = k + sizeof(bf16) * FWD_BK * LDB;
-  static constexpr size_t s = v + sizeof(bf16) * FWD_BK * LDB;
-  static constexpr size_t p = s + sizeof(float) * FWD_BQ * LDS;
-  static constexpr size_t o = p + sizeof(bf16) * FWD_BQ * LDP;
-  static constexpr size_t m = o + sizeof(float) * FWD_BQ * LDO;
-  static constexpr size_t l = m + sizeof(float) * FWD_BQ;
-  static constexpr size_t alpha = l + sizeof(float) * FWD_BQ;
-  static constexpr size_t bytes = alpha + sizeof(float) * FWD_BQ;
-};
-
-// One block per (q block, batch-head). The k-block loop carries the online
-// softmax (running max m, running sum l) and the f32 output accumulator.
-template <typename T, int D>
-__global__ void __launch_bounds__(FWD_THREADS)
-    flash_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v, T* __restrict__ o,
-                     float* __restrict__ lse, const int* __restrict__ kv_lens, int q_seq, int kv_seq, int causal,
-                     float sm_scale) {
-  using L = FwdSmem<D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
-  bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
-  float* sS = reinterpret_cast<float*>(smem + L::s);
-  bf16* sP = reinterpret_cast<bf16*>(smem + L::p);
-  float* sO = reinterpret_cast<float*>(smem + L::o);
-  float* sM = reinterpret_cast<float*>(smem + L::m);
-  float* sL = reinterpret_cast<float*>(smem + L::l);
-  float* sA = reinterpret_cast<float*>(smem + L::alpha);
-
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
-  const int bh = blockIdx.y;
-  // causal: the last q blocks see the most keys; launch them first
-  const int q0 = (gridDim.x - 1 - blockIdx.x) * FWD_BQ;
-  const T* qb = q + (size_t)bh * q_seq * D;
-  const T* kb_base = k + (size_t)bh * kv_seq * D;
-  const T* vb_base = v + (size_t)bh * kv_seq * D;
-  const int kv_len = key_count(kv_lens, bh, kv_seq);
-
-  load_tile<T, D>(sQ, L::LDB, qb, q0, FWD_BQ, q_seq, sm_scale);
-  for (int i = threadIdx.x; i < FWD_BQ * L::LDO; i += blockDim.x) sO[i] = 0.f;
-  if (threadIdx.x < FWD_BQ) {
-    sM[threadIdx.x] = NEG_INF;
-    sL[threadIdx.x] = 0.f;
-  }
-  int num_kb = cdiv(kv_len, FWD_BK);
-  if (causal) num_kb = min(num_kb, cdiv(q0 + FWD_BQ, FWD_BK));
-  const int r0 = warp * 16;  // this warp's query rows within the block
-  __syncthreads();
-
-  for (int kb = 0; kb < num_kb; ++kb) {
-    const int k0 = kb * FWD_BK;
-    load_tile<T, D>(sK, L::LDB, kb_base, k0, FWD_BK, kv_len, 1.f);
-    load_tile<T, D>(sV, L::LDB, vb_base, k0, FWD_BK, kv_len, 1.f);
-    __syncthreads();
-
-    // s = (q * scale) . k^T for this warp's 16 rows x 64 keys
-    FragC acc[FWD_BK / 16];
-#pragma unroll
-    for (int j = 0; j < FWD_BK / 16; ++j) wmma::fill_fragment(acc[j], 0.f);
-    for (int d0 = 0; d0 < D; d0 += 16) {
-      FragA a;
-      wmma::load_matrix_sync(a, sQ + r0 * L::LDB + d0, L::LDB);
-#pragma unroll
-      for (int j = 0; j < FWD_BK / 16; ++j) {
-        FragBT b;
-        wmma::load_matrix_sync(b, sK + (j * 16) * L::LDB + d0, L::LDB);
-        wmma::mma_sync(acc[j], a, b, acc[j]);
-      }
-    }
-#pragma unroll
-    for (int j = 0; j < FWD_BK / 16; ++j)
-      wmma::store_matrix_sync(sS + r0 * L::LDS + j * 16, acc[j], L::LDS, wmma::mem_row_major);
-    __syncwarp();
-
-    // online softmax over the warp's rows: each lane owns keys lane, lane+32
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr, qi = q0 + r;
-      float s[2];
-      bool ok[2];
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const int c = lane + 32 * t, ki = k0 + c;
-        ok[t] = ki < kv_len && (!causal || qi >= ki);
-        s[t] = ok[t] ? sS[r * L::LDS + c] : NEG_INF;
-      }
-      const float m_old = sM[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(s[0], s[1])));
-      float psum = 0.f;
-#pragma unroll
-      for (int t = 0; t < 2; ++t) {
-        const float p = ok[t] ? expf(s[t] - m_new) : 0.f;
-        psum += p;
-        sP[r * L::LDP + lane + 32 * t] = __float2bfloat16(p);
-      }
-      psum = warp_sum(psum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        sL[r] = sL[r] * alpha + psum;
-        sM[r] = m_new;
-        sA[r] = alpha;
-      }
-    }
-    __syncwarp();
-
-    // acc = acc * alpha + p . v  (the accumulator lives in shared memory)
-    for (int i = lane; i < 16 * D; i += 32) {
-      const int rr = i / D, c = i % D;
-      sO[(r0 + rr) * L::LDO + c] *= sA[r0 + rr];
-    }
-    __syncwarp();
-    for (int n0 = 0; n0 < D; n0 += 16) {
-      FragC oacc;
-      wmma::load_matrix_sync(oacc, sO + r0 * L::LDO + n0, L::LDO, wmma::mem_row_major);
-#pragma unroll
-      for (int kk = 0; kk < FWD_BK; kk += 16) {
-        FragA a;
-        FragB b;
-        wmma::load_matrix_sync(a, sP + r0 * L::LDP + kk, L::LDP);
-        wmma::load_matrix_sync(b, sV + kk * L::LDB + n0, L::LDB);
-        wmma::mma_sync(oacc, a, b, oacc);
-      }
-      wmma::store_matrix_sync(sO + r0 * L::LDO + n0, oacc, L::LDO, wmma::mem_row_major);
-    }
-    __syncthreads();  // k/v tiles are overwritten next iteration
-  }
-
-  // o = acc / l, lse = m + log(l); an empty row (l == 0) gives o = 0
-  for (int rr = 0; rr < 16; ++rr) {
-    const int r = r0 + rr, qi = q0 + r;
-    if (qi >= q_seq) break;
-    const float l = sL[r];
-    const float l_safe = l > 0.f ? l : 1.f;
-    T* orow = o + ((size_t)bh * q_seq + qi) * D;
-    for (int c = lane * 8; c < D; c += 32 * 8) {
-      float vals[8];
-#pragma unroll
-      for (int j = 0; j < 8; ++j) vals[j] = sO[r * L::LDO + c + j] / l_safe;
-      store8(orow + c, vals);
-    }
-    if (lane == 0) lse[(size_t)bh * q_seq + qi] = sM[r] + logf(l_safe);
-  }
-}
 
 // ---------------------------------------------------------------- fused backward
 
@@ -648,20 +479,6 @@ __global__ void __launch_bounds__(DQ_THREADS)
 // ---------------------------------------------------------------- launchers
 
 template <typename T, int D>
-int launch_fwd(const void* q, const void* k, const void* v, void* o, float* lse, const int* kv_lens, int bh,
-               int q_seq, int kv_seq, int causal, float sm_scale, cudaStream_t stream) {
-  constexpr size_t smem = FwdSmem<D>::bytes;
-  static_assert(smem <= 232448, "forward tile set exceeds the 227 KB a block may use");
-  cudaError_t err = cudaFuncSetAttribute(flash_fwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(cdiv(q_seq, FWD_BQ), bh);
-  flash_fwd_kernel<T, D><<<grid, FWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<T*>(o), lse, kv_lens,
-      q_seq, kv_seq, causal, sm_scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
                const int* kv_lens, float* dq, void* dk, void* dv, int bh, int q_seq, int kv_seq, int causal,
                float sm_scale, cudaStream_t stream) {
@@ -717,24 +534,6 @@ int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout
 extern "C" {
 
 const char* mlpt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
-
-int mlpt_flash_fwd(const void* q, const void* k, const void* v, void* o, float* lse, const int* kv_lens, int bh,
-                   int q_seq, int kv_seq, int head_dim, int dtype, int causal, float sm_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  (void)cudaGetLastError();  // report this launch's error, not an earlier one
-#define MLPT_FWD(T, D) return launch_fwd<T, D>(q, k, v, o, lse, kv_lens, bh, q_seq, kv_seq, causal, sm_scale, s)
-  if (dtype == 0) {
-    if (head_dim == 64) MLPT_FWD(bf16, 64);
-    if (head_dim == 128) MLPT_FWD(bf16, 128);
-    if (head_dim == 256) MLPT_FWD(bf16, 256);
-  } else if (dtype == 1) {
-    if (head_dim == 64) MLPT_FWD(float, 64);
-    if (head_dim == 128) MLPT_FWD(float, 128);
-    if (head_dim == 256) MLPT_FWD(float, 256);
-  }
-#undef MLPT_FWD
-  return (int)cudaErrorInvalidValue;
-}
 
 int mlpt_flash_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                    const float* delta, const int* kv_lens, float* dq, void* dk, void* dv, int bh, int q_seq,

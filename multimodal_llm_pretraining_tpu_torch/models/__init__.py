@@ -89,7 +89,7 @@ class BaseModelClass(ABC, Generic[T]):
         use_custom_kernels: bool = True,
         activation_checkpointing: bool = False,
         compute_dtype: torch.dtype | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> ModelBundle:
         """``use_custom_kernels`` selects the hand-written kernels (flash
         attention, selective scan) over their plain eager paths."""

@@ -152,7 +152,7 @@ class MambaModelClass(LanguageModelClass[MambaT]):
         use_custom_kernels: bool = True,
         activation_checkpointing: bool = False,
         compute_dtype: torch.dtype | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> ModelBundle:
         """``activation_checkpointing`` remats each whole block. The sizes
         are this module's constants, read at call time as the JAX model reads

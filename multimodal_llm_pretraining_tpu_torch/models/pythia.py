@@ -123,7 +123,7 @@ class PythiaModelClass(LanguageModelClass[PythiaT]):
         use_custom_kernels: bool = True,
         activation_checkpointing: bool = False,
         compute_dtype: torch.dtype | None = None,
-        device: torch.device | str = "cpu",
+        device: torch.device | str = "cuda",
     ) -> ModelBundle:
         if activation_checkpointing:
             raise NotImplementedError("activation checkpointing (remat policies) is ROADMAP Queue 1 item 2")

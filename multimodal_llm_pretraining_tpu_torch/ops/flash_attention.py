@@ -6,8 +6,10 @@ forward kernel replaces ``_fwd_kernel`` (``:91``); the backward is either the
 fused single-pass kernel, replacing ``_bwd_fused_kernel`` (``:208``), or the
 split pair, a dq kernel replacing ``_bwd_dq_kernel`` (``:161``) and a dk/dv
 kernel replacing ``_bwd_dkv_kernel`` (``:293``). Each runs in its plain and
-its varlen (padded-batch, ``:622-652``) mode. All live in
-``csrc/flash_attention.cu`` and are built on first use (``ops/_build.py``).
+its varlen (padded-batch, ``:622-652``) mode. The forward lives in
+``csrc/flash_fwd.cu`` (TMA loads, ``wgmma`` products, softmax and output in
+registers), the backward kernels in ``csrc/flash_attention.cu``; all are
+built on first use (``ops/_build.py``).
 
 ``PREFER_FUSED_BWD`` chooses the backward, as in the JAX package (``:440-451``):
 set from ``MLPT_FLASH_FUSED_BWD`` (default on; ``0`` takes the split
@@ -24,9 +26,10 @@ There is no fallback from the kernel to the plain version.
 
 Numerics mirror the TPU kernels: the scale folds into q for the forward
 scores and the dq kernel's, into k for the other backward scores; products
-take bf16 operands with f32 accumulation, probabilities are recomputed from
-the saved f32 logsumexp, ds = p * (dp - delta) * scale, and a query row with
-no visible key gives 0.
+take bf16 operands with f32 accumulation (f32 inputs are rounded to bf16,
+by the forward's wrapper and by the backward kernels as they load),
+probabilities are recomputed from the saved f32 logsumexp, ds = p * (dp -
+delta) * scale, and a query row with no visible key gives 0.
 
 Varlen mode: an int32 ``kv_lens`` [BH] gives each batch-head its key count;
 keys at or past it are invisible to every query row, padded rows included,
@@ -175,7 +178,8 @@ def _check_kernel_inputs(tensors, head_dim: int) -> None:
 
 
 def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous, 16-byte aligned (the kernels load 16-byte vectors)."""
+    """Contiguous, 16-byte aligned (the kernels load 16-byte vectors, TMA
+    needs 16-byte aligned bases)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
@@ -191,10 +195,24 @@ def _lens_ptr(kv_lens: torch.Tensor | None, bh: int, device) -> tuple[torch.Tens
     return kv_lens, kv_lens.data_ptr()
 
 
+def _bf16_operands(q, k, v, sm_scale: float):
+    """The forward kernel's bf16 operands and the scale it still has to
+    apply: bf16 inputs as they are (the kernel rounds q*scale once); f32
+    inputs rounded here, one tensor op each, q*scale computed in f32 and
+    rounded once, as the plain version and the TPU's default-precision dot
+    round them."""
+    if q.dtype == torch.bfloat16:
+        return q, k, v, sm_scale
+    qs = torch.empty(q.shape, dtype=torch.bfloat16, device=q.device)
+    torch.mul(q, sm_scale, out=qs)
+    return qs, k.to(torch.bfloat16), v.to(torch.bfloat16), 1.0
+
+
 def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, kv_lens=None):
     """Launch the forward kernel on [BH, S, D] CUDA tensors; returns
     (out in q's dtype, lse f32 [BH, Sq]). ``kv_lens`` (int32 [BH]) selects
-    the varlen mode."""
+    the varlen mode. The kernel reads bf16 operands through TMA; f32 inputs
+    are rounded first (``_bf16_operands``), and that time counts here."""
     global FWD_LAUNCHES, VARLEN_FWD_LAUNCHES
     q, k, v = (_kernel_ready(t) for t in (q, k, v))
     bh, q_seq, d = q.shape
@@ -206,10 +224,11 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, kv_lens=None):
     lib = _build.load()
     out = torch.empty_like(q)
     lse = torch.empty(bh, q_seq, dtype=torch.float32, device=q.device)
+    qb, kb, vb, q_scale = _bf16_operands(q, k, v, sm_scale)
     with torch.cuda.device(q.device):
         err = lib.mlpt_flash_fwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), lse.data_ptr(), lens_ptr,
-            bh, q_seq, kv_seq, d, _DTYPE_CODE[q.dtype], int(causal), float(sm_scale),
+            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), lse.data_ptr(), lens_ptr,
+            bh, q_seq, kv_seq, d, _DTYPE_CODE[q.dtype], int(causal), float(q_scale),
             torch.cuda.current_stream(q.device).cuda_stream,
         )
     _build.check(lib, err, "flash attention forward kernel")

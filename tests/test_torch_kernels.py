@@ -11,7 +11,10 @@ CPU mode); the others check the wrappers' guards and run anywhere.
 Tolerances (bf16 inputs): out, dq, dk and dv within 1e-2 of their norm (the
 two sides round the same operands to bf16 and differ in summation order and
 in the online softmax's rescaling); lse within 1e-3 absolute (f32, no bf16
-output rounding). dq is summed with f32 atomics in an order that changes
+output rounding). The forward has no atomics and repeats bit for bit; it is
+also held at its tile edges (q lengths around its 64- and 128-row blocks,
+key counts other than the query count, varlen lengths 0, 1, 64, 127, 128
+and full). dq is summed with f32 atomics in an order that changes
 from run to run, so two runs may differ by one bf16 ulp of the larger value
 per element (plus f32 noise where terms cancel); dk and dv have no atomics
 and repeat bit for bit. The varlen mode (int32 lens per batch-head) keeps
@@ -99,6 +102,63 @@ def test_kernels_match_plain_versions(seq, head_dim, causal):
     for got, want in zip(grads, fa.flash_bwd_reference(q, k, v, out_ref, lse_ref, do, causal, scale)):
         assert got.dtype == torch.bfloat16
         _close(got, want)
+
+
+def _check_forward(q, k, v, causal, scale, kv_lens=None):
+    """The forward kernel against its plain version (out to NORM_REL of its
+    norm, lse per row to LSE_ABS, or to ``_lse_limit_f32`` on f32 inputs), a
+    second launch bit for bit, and out 0 on rows that see no key."""
+    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
+    out_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    assert out.dtype == q.dtype and out.shape == q.shape and lse.shape == q.shape[:2]
+    _close(out, out_ref)
+    limit = LSE_ABS if q.dtype == torch.bfloat16 else _lse_limit_f32(q, k, scale)
+    assert bool(((lse - lse_ref).abs() <= limit).all()), (lse - lse_ref).abs().max().item()
+    out2, lse2 = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+    if kv_lens is not None and bool((kv_lens == 0).any()):
+        assert not out[kv_lens == 0].any()
+
+
+# q lengths around the forward's 64- or 128-row q blocks and 64- or 128-key tiles
+EDGE_SEQS = (1, 63, 64, 65, 127, 128, 129, 2049)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("seq", EDGE_SEQS)
+def test_forward_at_tile_edges(seq, head_dim, causal, dtype):
+    _needs_cuda()
+    q, k, v = (_rand(3, seq, head_dim, seed=60 + i, dtype=dtype) for i in range(3))
+    _check_forward(q, k, v, causal, head_dim**-0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("q_seq,kv_seq", [(65, 200), (200, 65), (129, 1), (1, 129), (2049, 300)])
+def test_forward_with_other_key_count(q_seq, kv_seq, head_dim, causal):
+    """kv_seq other than q_seq: the key tail masks on its own length, and a
+    causal row still sees the keys at or before its own index."""
+    _needs_cuda()
+    q = _rand(3, q_seq, head_dim, seed=70)
+    k, v = (_rand(3, kv_seq, head_dim, seed=71 + i) for i in range(2))
+    _check_forward(q, k, v, causal, head_dim**-0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
+def test_varlen_forward_at_tile_edges(head_dim, causal, dtype):
+    """Lens 0, 1, 64, 127, 128 and full (300) per batch row, 2 heads each:
+    empty, one key, on and around both key-tile edges."""
+    _needs_cuda()
+    kv_lens = _lens([0, 1, 64, 127, 128, 300], 2)
+    q, k, v = (_rand(12, 300, head_dim, seed=80 + i, dtype=dtype) for i in range(3))
+    _check_forward(q, k, v, causal, head_dim**-0.5, kv_lens)
 
 
 @pytest.mark.cuda

@@ -201,6 +201,20 @@ def test_cuda_session_without_a_gpu_raises():
         TrainingPlan(mesh=MeshConfig(1, 1), **_plan_kwargs(mc)).build_session(mc)
 
 
+@pytest.mark.parametrize("model_type", ["pythia-14m", "mamba", "llava-pretrain", "vit"])
+def test_build_model_defaults_to_the_card(model_type):
+    """Every ported family's ``build_model`` builds on the card unless the
+    caller asks for the CPU, as the session does; without a GPU such a call
+    raises, it never builds on the CPU instead."""
+    import inspect
+
+    mc = get_model_class(model_type)
+    assert inspect.signature(mc.build_model).parameters["device"].default == "cuda"
+    if not torch.cuda.is_available():
+        with pytest.raises((RuntimeError, AssertionError), match="CUDA"):
+            mc.build_model()
+
+
 def test_training_plan_fields_and_defaults_match_jax():
     """Same field names, order and defaults as the JAX ``TrainingPlan``
     (the mesh default is each package's own ``MeshConfig()``)."""

@@ -139,7 +139,7 @@ def test_loss_fn_draws_dropout_only_when_training(jax_vit):
     repeatable from the seed); without one the loss is the deterministic
     model's, the JAX model's own."""
     with _narrow(tvit):
-        bundle = get_model_class("vit").build_model()
+        bundle = get_model_class("vit").build_model(device="cpu")
     module = _torch_model()
     module.load_state_dict(vit_params_from_jax(jax_vit[0]))
     pix, labels = _batch()
