@@ -13,8 +13,12 @@ Phases, one line (or a few) each; any failure exits non-zero:
    causal) and at a small ragged shape, with the tolerances stated below;
    the forward also at its tile edges (q_seq in FWD_EDGE_SEQS, kv_seq other
    than q_seq, every head dim, causal and not), every forward repeated bit
-   for bit; then CUDA-event times of kernel and plain version at the
-   training shape, and the forward's TFLOP/s, share of its bound and ratio
+   for bit, and the fused backward at its own (``check_backward_edges``:
+   q_seq in BWD_EDGE_SEQS, kv_seq other than q_seq both ways, varlen lengths
+   BWD_EDGE_LENS, every head dim, causal and not; dk/dv bit for bit and dq
+   within one ulp on a second launch, exact zeros past the lens); then
+   CUDA-event times of kernel and plain version at the training shape, and
+   the forward's and fused backward's TFLOP/s, share of the bound and ratio
    to PyTorch's call.
 4. slice: a two-layer GPTNeoX, loss and grads with the kernels against the
    plain f32 attention on the same weights and tokens.
@@ -65,8 +69,9 @@ Phases, one line (or a few) each; any failure exits non-zero:
     llava decoder's [16, 32, 1087, 64] causal (ragged lens) and [4, 2, 77,
     64] with an empty row; dq, dk and dv must repeat bit for bit on a
     second run, lie within TOL_NORM_REL of the fused kernel, and in varlen
-    mode dk/dv must be exactly 0 past each length; the forward on f32
-    inputs at its tile edges, plain and varlen. Then CUDA-event times at
+    mode dk/dv must be exactly 0 past each length; the forward and the
+    fused backward on f32 inputs at their tile edges, plain and varlen.
+    Then CUDA-event times at
     each main-path shape: the split kernels and their plain versions, set
     against the fused kernel (timed in phases 3 and 9, at ViT's shape
     here), PyTorch's attention (the yardstick) and the backward's bound.
@@ -76,6 +81,14 @@ Phases, one line (or a few) each; any failure exits non-zero:
 14. main path: the ViT-L/16 training step at full width and depth (24
     blocks, 197 tokens, 21,841 classes) in the f32 layout with dropout on,
     micro-batch 128 x accumulation 2.
+15. head dims: the forward, fused backward and split pair against their
+    plain versions at the head dims the kernels run zero-padded (32, 80,
+    88; plain and varlen, causal and not), then 2 steps each of pythia-14m
+    (head_dim 32) and of pythia-2.8b cut to 2 layers (head_dim 80, full
+    width) with every attention call on the kernels.
+16. grid: all of them at 65,536 batch-heads ([4096, 16, 16, 64], plain and
+    varlen), one more than a launch grid's y dimension holds: two launches
+    a call.
 
 Main paths 5, 11 and 14 run in one session each 1 warmup step under each
 backward (``fa.PREFER_FUSED_BWD``), then 3 timed steps under each,
@@ -120,6 +133,7 @@ from multimodal_llm_pretraining_tpu_torch.time_attention import card_line, visib
 from multimodal_llm_pretraining_tpu_torch.utils import require_cuda  # noqa: E402
 
 FWD_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/flash_fwd.cu"
+BWD_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/flash_bwd.cu"
 KERNEL_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/flash_attention.cu"
 JAX_FLASH = "multimodal_llm_pretraining_tpu/ops/flash_attention.py"
 SCAN_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/selective_scan.cu"
@@ -392,9 +406,105 @@ def check_forward_edges(tag: str, dtype: torch.dtype, mode: str) -> None:
         f"every second forward identical")
 
 
+def check_backward(q, k, v, do, causal: bool, kv_lens=None, out=None, lse=None) -> dict:
+    """The fused backward kernel against its plain version on the plain
+    forward's out and lse (or the given ones): dq, dk, dv finite in the
+    input dtype and within TOL_NORM_REL of their norm; a second launch gives
+    dk and dv bit for bit and dq within one bf16 ulp; dk and dv exactly 0 at
+    and past each length. Returns the errors against the plain version, the
+    largest change of dq between the two launches and the largest dk/dv
+    value past the lens."""
+    scale = q.shape[-1] ** -0.5
+    if out is None:
+        out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    grads = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
+    again = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
+    plain = fa.flash_bwd_reference(q, k, v, out, lse, do, causal, scale, kv_lens)
+    torch.cuda.synchronize()
+    what = f"{list(q.shape)} kv {k.shape[1]} {str(q.dtype).split('.')[-1]} causal={causal} lens {kv_lens}"
+    res = {}
+    for name, g, p in zip(("dq", "dk", "dv"), grads, plain):
+        if g.dtype != q.dtype or g.shape != p.shape or not torch.isfinite(g).all():
+            raise AssertionError(f"[backward] {name} not finite, or of the wrong type or shape, at {what}")
+        res[name] = _errs(g, p)
+        if not res[name][1] <= TOL_NORM_REL:
+            raise AssertionError(f"[backward] {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {what}")
+    # dq sums by f32 atomics in an order that changes between runs: a second
+    # run may differ by one bf16 ulp of the larger of the two values, plus
+    # f32 summation noise (1e-6) where terms cancel to near zero; dk and dv
+    # have no atomics and repeat exactly
+    dq_diff = (again[0].float() - grads[0].float()).abs()
+    dq_ulp = torch.maximum(again[0].float().abs(), grads[0].float().abs()) * 2.0**-7 + 1e-6
+    if not (torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2])):
+        raise AssertionError(f"[backward] dk/dv differ between two runs at {what}")
+    if not bool((dq_diff <= dq_ulp).all()):
+        raise AssertionError(f"[backward] dq differs by more than one bf16 ulp between two runs at {what}")
+    past_max = 0.0
+    if kv_lens is not None:
+        past = torch.arange(k.shape[1], device="cuda")[None, :] >= kv_lens[:, None]  # [BH, Sk]: keys at or past the length
+        if past.any():
+            past_max = max(g[past].abs().max().item() for g in grads[1:])
+        if past_max != 0.0:
+            raise AssertionError(f"[backward] dk/dv past the lens not exactly 0 at {what}")
+    return {"grads": grads, "errs": res, "dq_change": dq_diff.max().item(), "past_max": past_max}
+
+
+# The fused backward at its tile edges: 64-row q and k blocks, and varlen
+# lengths on and around them. A query alone (q_seq 1, or a causal row 0)
+# sees one key, where ds = p (dp - delta) is rounding noise on both sides,
+# so q_seq 1 runs non-causal only.
+BWD_EDGE_SEQS = (17, 63, 64, 65, 127, 128, 129, 2049)
+BWD_EDGE_KV = ((1, 129), (65, 200), (200, 65), (129, 130), (2049, 300), (300, 2049))  # (q_seq, kv_seq)
+BWD_EDGE_LENS = (0, 1, 63, 64, 65, 127, 128, 300)  # one per batch row of [8 x 2 heads, 300, D]
+
+
+def check_backward_edges(tag: str, dtype: torch.dtype) -> None:
+    """``check_backward`` at every head dim, causal and not, over q_seq =
+    kv_seq in BWD_EDGE_SEQS (3 heads), (q_seq, kv_seq) in BWD_EDGE_KV and
+    the varlen lengths BWD_EDGE_LENS."""
+    g = torch.Generator(device="cuda").manual_seed(51)
+
+    def rand(bh, s, d):
+        return torch.randn(bh, s, d, generator=g, device="cuda").to(dtype)
+
+    lens = torch.tensor(BWD_EDGE_LENS, dtype=torch.int32, device="cuda").repeat_interleave(2)
+    cases = [(s, s, None) for s in BWD_EDGE_SEQS] + [(q, kv, None) for q, kv in BWD_EDGE_KV] + [(300, 300, lens)]
+    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
+    dq_change = 0.0
+    n = 0
+    for d in fa.KERNEL_HEAD_DIMS:
+        for causal in (True, False):
+            for q_seq, kv_seq, kv_lens in cases:
+                if causal and q_seq == 1:
+                    continue
+                bh = 3 if kv_lens is None else len(kv_lens)
+                r = check_backward(rand(bh, q_seq, d), rand(bh, kv_seq, d), rand(bh, kv_seq, d), rand(bh, q_seq, d),
+                                   causal, kv_lens)
+                worst = {m: max(worst[m], r["errs"][m][1]) for m in worst}
+                dq_change = max(dq_change, r["dq_change"])
+                n += 1
+    say(f"{tag} fused backward at the tile edges, {n} cases, {str(dtype).split('.')[-1]}, D {list(fa.KERNEL_HEAD_DIMS)}, "
+        f"causal and not, q_seq = kv_seq in {list(BWD_EDGE_SEQS)}, (q_seq, kv_seq) in {list(BWD_EDGE_KV)}, "
+        f"[16, 300, D] lens {list(BWD_EDGE_LENS)} x 2 heads: worst norm_rel "
+        + ", ".join(f"{m} {r:.3e}" for m, r in worst.items())
+        + f"; dk/dv identical on every second run, dq max change {dq_change:.3e}, dk/dv past the lens exactly 0")
+
+
 def fwd_flops(q, k, causal: bool, kv_lens=None) -> float:
     """The forward's products: 2 x 2·D FLOP per visible (query, key) pair."""
     return 4 * q.shape[-1] * visible_pairs(q.shape[0], q.shape[1], k.shape[1], causal, kv_lens)
+
+
+def bwd_flops(q, k, causal: bool, kv_lens=None) -> float:
+    """The backward's products: 5 x 2·D FLOP per visible (query, key) pair."""
+    return 10 * q.shape[-1] * visible_pairs(q.shape[0], q.shape[1], k.shape[1], causal, kv_lens)
+
+
+def say_backward(shape, what: str, ms: float, flops: float, bnd: dict, lib: dict) -> None:
+    """The fused backward's time beside what it achieves, its bound and PyTorch's call."""
+    say(f"[yardstick] fused backward {list(shape)} {what}: {ms:.4f} ms a call, {flops / ms / 1e9:.1f} TFLOP/s, "
+        f"{bnd['bound_ms'] / ms:.3f} of the bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
+        f"PyTorch ({lib['backend']}) {lib['bwd']:.4f} ms, ours / PyTorch {ms / lib['bwd']:.3f}")
 
 
 def say_forward(shape, what: str, ms: float, ms_alone: float, flops: float, bnd: dict, lib: dict) -> None:
@@ -405,81 +515,63 @@ def say_forward(shape, what: str, ms: float, ms_alone: float, flops: float, bnd:
 
 
 def check_kernels_at(shape, causal: bool, seed: int = 0, lens: list[int] | None = None,
-                     dtype: torch.dtype = torch.bfloat16, split: bool = False) -> dict:
-    """The forward (``check_forward``) and the fused backward kernel against
-    their plain versions on identical inputs: dq, dk, dv within
-    TOL_NORM_REL of the norm; dk and dv repeat bit for bit on a second run,
-    dq within one bf16 ulp. With ``lens`` (one per batch row, broadcast
-    over heads as ``flash_attention`` does) all run in varlen mode, and dk
-    and dv must be exactly 0 at and past each length. With
-    ``split``, the split pair too: dq, dk, dv within TOL_NORM_REL of its
-    plain versions and of the fused kernel, all three bit for bit on a
-    second run (nothing is summed across blocks), and dq exactly 0 on a
-    row of length 0. Returns the errors against the plain versions."""
+                     dtype: torch.dtype = torch.bfloat16, split: bool = False, tag: str | None = None) -> dict:
+    """The forward (``check_forward``) and the fused backward kernel
+    (``check_backward``) against their plain versions on identical inputs.
+    With ``lens`` (one per batch row, broadcast over heads as
+    ``flash_attention`` does) all run in varlen mode. With ``split``, the
+    split pair too: dq, dk, dv within TOL_NORM_REL of its plain versions and
+    of the fused kernel, all three bit for bit on a second run (nothing is
+    summed across blocks), dk and dv exactly 0 past the lens and dq exactly 0
+    on a row of length 0. Returns the errors against the plain versions."""
     b, h, s, _ = shape
     q, k, v, do = _inputs(shape, seed, dtype)
     scale = shape[-1] ** -0.5
     kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
-    tag = "[split]" if split else "[kernels]" if lens is None else "[varlen]"
-    what = f"{list(shape)} {str(dtype).split('.')[-1]} causal={causal}{'' if lens is None else f' lens {lens}'}"
+    tag = tag or ("[split]" if split else "[kernels]" if lens is None else "[varlen]")
+    shown = lens if lens is None or len(lens) <= 16 else f"{len(lens)} in [{min(lens)}, {max(lens)}]"
+    what = f"{list(shape)} {str(dtype).split('.')[-1]} causal={causal}{'' if lens is None else f' lens {shown}'}"
     fwd = check_forward(q, k, v, causal, kv_lens)
-    out, lse, out_ref, lse_ref = fwd["out"], fwd["lse"], fwd["out_ref"], fwd["lse_ref"]
-    grads = {"": fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)}
-    plain = {"": fa.flash_bwd_reference(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)}
+    out_ref, lse_ref = fwd["out_ref"], fwd["lse_ref"]
+    bwd = check_backward(q, k, v, do, causal, kv_lens, out_ref, lse_ref)
+    res = {"out": _errs(fwd["out"], out_ref), "lse": _errs(fwd["lse"], lse_ref), **bwd["errs"]}
+    past_max, dq_empty, split_line = bwd["past_max"], 0.0, ""
     if split:
-        grads["split_"] = _split(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
-        plain["split_"] = _split(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens, kernels=False)
-    torch.cuda.synchronize()
-    res = {"out": _errs(out, out_ref), "lse": _errs(lse, lse_ref)}
-    for pre in grads:
-        res.update({pre + n: _errs(g, p) for n, g, p in zip(("dq", "dk", "dv"), grads[pre], plain[pre])})
-    named = {pre + n: g for pre in grads for n, g in zip(("dq", "dk", "dv"), grads[pre])}
-    for name, t in named.items():
-        if not torch.isfinite(t).all() or t.dtype != dtype:
-            raise AssertionError(f"{tag} {name} is not finite {t.dtype} at {what}")
-    past_max = dq_empty = 0.0
-    if kv_lens is not None:
-        past = torch.arange(s, device="cuda")[None, :] >= kv_lens[:, None]  # [BH, S]: keys at or past the length
-        if past.any():
-            past_max = max(g[i][past].abs().max().item() for g in grads.values() for i in (1, 2))
-        if split and (kv_lens == 0).any():
-            dq_empty = grads["split_"][0][kv_lens == 0].abs().max().item()
+        grads = _split(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
+        plain = _split(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens, kernels=False)
+        again = _split(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
+        torch.cuda.synchronize()
+        for n, g, p in zip(("dq", "dk", "dv"), grads, plain):
+            if not torch.isfinite(g).all() or g.dtype != dtype:
+                raise AssertionError(f"{tag} split {n} is not finite {g.dtype} at {what}")
+            res["split_" + n] = _errs(g, p)
+        if kv_lens is not None:
+            past = torch.arange(s, device="cuda")[None, :] >= kv_lens[:, None]  # [BH, S]: keys at or past the length
+            if past.any():
+                past_max = max(past_max, *(g[past].abs().max().item() for g in grads[1:]))
+            if (kv_lens == 0).any():
+                dq_empty = grads[0][kv_lens == 0].abs().max().item()
+        same_split = all(torch.equal(a, b) for a, b in zip(grads, again))
+        vs_fused = {n: _errs(a, f)[1] for n, a, f in zip(("dq", "dk", "dv"), grads, bwd["grads"])}
+        split_line = (f"; split pair second run identical {same_split}, vs fused norm_rel "
+                      + ", ".join(f"{n} {r:.3e}" for n, r in vs_fused.items()))
     say(f"{tag} {what}: " + ", ".join(f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in res.items())
         + f"; lse error / limit max {fwd['lse_margin']:.3f} (limit max {fwd['lse_limit_max']:.3e})"
         + ("" if lens is None else f"; dk/dv past the lens max_abs {past_max:.1e}")
         + (f", dq on empty rows {dq_empty:.1e}" if split and lens is not None else ""))
-    for name in named:
-        if not res[name][1] <= TOL_NORM_REL:
-            raise AssertionError(f"{tag} {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {what}")
-    if past_max != 0.0 or dq_empty != 0.0:
-        raise AssertionError(f"{tag} dk/dv past the lens or dq on an empty row not exactly 0 at {what}")
-    # dq sums by f32 atomics in an order that changes between runs: a second
-    # run may differ by one bf16 ulp of the larger of the two values, plus
-    # f32 summation noise (1e-6) where terms cancel to near zero; dk and dv
-    # have no atomics and repeat exactly
-    dq2, dk2, dv2 = fa.flash_bwd_cuda(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
-    dq, dk, dv = grads[""]
-    dq_diff = (dq2.float() - dq.float()).abs()
-    dq_ulp = torch.maximum(dq2.float().abs(), dq.float().abs()) * 2.0**-7 + 1e-6
-    same_kv = torch.equal(dk2, dk) and torch.equal(dv2, dv)
-    line = f"{tag} {what} second backward run: dq max_abs change {dq_diff.max().item():.3e}, dk/dv identical {same_kv}"
+    say(f"{tag} {what} second backward run: dq max_abs change {bwd['dq_change']:.3e}, dk/dv identical True"
+        + split_line)
     if split:
-        again = _split(q, k, v, out_ref, lse_ref, do, causal, scale, kv_lens)
-        same_split = all(torch.equal(a, b) for a, b in zip(grads["split_"], again))
-        vs_fused = {n: _errs(a, f)[1] for n, a, f in zip(("dq", "dk", "dv"), grads["split_"], grads[""])}
-        line += (f"; split pair second run identical {same_split}, vs fused norm_rel "
-                 + ", ".join(f"{n} {r:.3e}" for n, r in vs_fused.items()))
-    say(line)
-    if not same_kv:
-        raise AssertionError(f"dk/dv differ between two runs at {what}")
-    if not bool((dq_diff <= dq_ulp).all()):
-        raise AssertionError(f"dq differs by more than one bf16 ulp between two runs at {what}")
-    if split:
+        for name in ("split_dq", "split_dk", "split_dv"):
+            if not res[name][1] <= TOL_NORM_REL:
+                raise AssertionError(f"{tag} {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {what}")
+        if past_max != 0.0 or dq_empty != 0.0:
+            raise AssertionError(f"{tag} split dk/dv past the lens or dq on an empty row not exactly 0 at {what}")
         if not same_split:
-            raise AssertionError(f"[split] dq, dk, dv differ between two runs at {what}")
+            raise AssertionError(f"{tag} split dq, dk, dv differ between two runs at {what}")
         for n, r in vs_fused.items():
             if not r <= TOL_NORM_REL:
-                raise AssertionError(f"[split] {n} differs from the fused kernel's by {r:.3e} at {what}")
+                raise AssertionError(f"{tag} split {n} differs from the fused kernel's by {r:.3e} at {what}")
     return res
 
 
@@ -490,6 +582,7 @@ def phase_kernels() -> tuple[dict, list[dict]]:
     check_kernels_at(RAGGED_SHAPE, causal=False, seed=2)
     check_forward_edges("[kernels]", torch.bfloat16, "seq")
     check_forward_edges("[kernels]", torch.bfloat16, "kv")
+    check_backward_edges("[kernels]", torch.bfloat16)
 
     q, k, v, do = _inputs(SLICE_SHAPE, 3)
     scale = SLICE_SHAPE[-1] ** -0.5
@@ -512,12 +605,13 @@ def phase_kernels() -> tuple[dict, list[dict]]:
     say_yardstick(SLICE_SHAPE, "bf16 causal", lib, bounds)
     say_forward(SLICE_SHAPE, "bf16 causal", t["fwd"], cuda_ms_alone(lambda: fa.flash_fwd_cuda(q, k, v, True, scale)),
                 fwd_flops(q, k, True), bounds["fwd"], lib)
+    say_backward(SLICE_SHAPE, "bf16 causal", t["bwd"], bwd_flops(q, k, True), bounds["bwd"], lib)
     max_grad_err = max(errs[n][0] for n in ("dq", "dk", "dv"))
     return {"ms": t, "library": lib}, [
         {"name": "flash_fwd", "route": "cuda", "source": FWD_SOURCE, "replaces": f"{JAX_FLASH}:91",
          "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
          **bounds["fwd"], "library_ms": lib["fwd"]},
-        {"name": "flash_bwd_fused", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:208",
+        {"name": "flash_bwd_fused", "route": "cuda", "source": BWD_SOURCE, "replaces": f"{JAX_FLASH}:208",
          "launches": None, "max_abs_err": max_grad_err, "ms": t["bwd"], "plain_ms": t["bwd_plain"],
          **bounds["bwd"], "library_ms": lib["bwd"]},
     ]
@@ -566,10 +660,11 @@ AB_WARMUP = 2
 
 def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *, loss_band: tuple[float, float],
                    layout: str = "bf16_sr", names=("FWD_LAUNCHES", "BWD_LAUNCHES"),
-                   tokens_per_sample: int | None = None, split_ab: bool = False) -> dict:
+                   tokens_per_sample: int | None = None, split_ab: bool = False, steps: int = 4) -> dict:
     """The training step through the user's entry points with the model's
-    own optimizer and schedule: 1 warmup + 3 timed steps, or with
-    ``split_ab`` the fused/split schedule ``AB_SCHEDULE`` in one session.
+    own optimizer and schedule: 1 warmup + ``steps`` - 1 timed steps, or
+    with ``split_ab`` the fused/split schedule ``AB_SCHEDULE`` in one
+    session.
     ``layout`` is one of ``profile_step.make_plan``'s. ``counters`` is the
     kernel module whose launch counts ``names`` are zeroed just before the
     steps and read just after. The first loss must lie in ``loss_band``.
@@ -596,7 +691,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     # on the host, so that the peak memory below is the steps' own
     before = {n: p.detach().cpu() for n, p in state.params.items()} if masked else {}
 
-    schedule, warmup = (AB_SCHEDULE, AB_WARMUP) if split_ab else ((True,) * 4, 1)
+    schedule, warmup = (AB_SCHEDULE, AB_WARMUP) if split_ab else ((True,) * steps, 1)
     torch.cuda.reset_peak_memory_stats()
     counters.reset_launch_counts()
     losses, times = [], []
@@ -881,6 +976,8 @@ def phase_varlen_kernels() -> tuple[dict, list[dict]]:
     say_forward(VARLEN_SHAPE, "bf16 causal, varlen mode, full lens", t["fwd"],
                 cuda_ms_alone(lambda: fa.flash_fwd_cuda(q, k, v, True, scale, full)), fwd_flops(q, k, True, full),
                 bounds["fwd"], lib)
+    say_backward(VARLEN_SHAPE, "bf16 causal, varlen mode, full lens", t["bwd"], bwd_flops(q, k, True, full),
+                 bounds["bwd"], lib)
     del q, k, v, do, out, lse
     q, k, v, do = _inputs(TOWER_SHAPE, 24)
     tower_scale = TOWER_SHAPE[-1] ** -0.5
@@ -900,7 +997,7 @@ def phase_varlen_kernels() -> tuple[dict, list[dict]]:
         {"name": "flash_fwd_varlen", "route": "cuda", "source": FWD_SOURCE, "replaces": f"{JAX_FLASH}:91",
          "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
          **bounds["fwd"], "library_ms": lib["fwd"]},
-        {"name": "flash_bwd_fused_varlen", "route": "cuda", "source": KERNEL_SOURCE, "replaces": f"{JAX_FLASH}:208",
+        {"name": "flash_bwd_fused_varlen", "route": "cuda", "source": BWD_SOURCE, "replaces": f"{JAX_FLASH}:208",
          "launches": None, "max_abs_err": max(errs[n][0] for n in ("dq", "dk", "dv")), "ms": t["bwd"],
          "plain_ms": t["bwd_plain"], **bounds["bwd"], "library_ms": lib["bwd"]},
     ]
@@ -1017,6 +1114,7 @@ def time_split(shape, causal: bool, dtype, seed: int, full_lens: bool = False, f
         say_yardstick(shape, what, fused["library"], bounds)
         say_forward(shape, what, t["fwd"], cuda_ms_alone(fns["fwd"]), fwd_flops(q, k, causal, kv_lens),
                     bounds["fwd"], fused["library"])
+        say_backward(shape, what, t["bwd"], bwd_flops(q, k, causal, kv_lens), bounds["bwd"], fused["library"])
     bwd = bounds["bwd"]["bound_ms"]
     say(f"[yardstick] {list(shape)} {what}: split pair {t['split']:.3f} ms, fused {fused['ms']['bwd']:.3f} ms "
         f"(split / fused {t['split'] / fused['ms']['bwd']:.3f}); against the backward's bound {bwd:.4f} ms "
@@ -1038,6 +1136,7 @@ def phase_split_kernels(pythia: dict, decoder: dict) -> list[dict]:
     check_kernels_at(VIT_SHAPE, False, seed=31, dtype=torch.float32, split=True)
     check_forward_edges("[split]", torch.float32, "seq")
     check_forward_edges("[split]", torch.float32, "lens")
+    check_backward_edges("[split]", torch.float32)
     check_kernels_at(VIT_SHAPE, False, seed=32, split=True)
     for causal in (True, False):
         check_kernels_at(RAGGED_SHAPE, causal, seed=33 + causal, split=True)
@@ -1126,6 +1225,66 @@ def phase_vit_main_path() -> dict:
     return flash_launch_entries(run["launches"])
 
 
+# ---------------------------------------------------------------- head dims and batch*heads
+
+
+PADDED_HEAD_DIMS = (32, 80, 88)  # pythia-14m/31m, pythia-2.8b, the default ViLT trunk: zero-padded to 64, 128, 128
+
+
+def phase_head_dims() -> None:
+    """The forward, fused backward and split pair against their plain
+    versions at the head dims the kernels run zero-padded, plain and varlen
+    mode, causal and not; then 2 steps each of pythia-14m (D=32, 6 layers)
+    and of pythia-2.8b (D=80) cut to 2 layers at full width, whose launch
+    counters must show every attention call on the kernels."""
+    from multimodal_llm_pretraining_tpu_torch.models import pythia
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    for i, d in enumerate(PADDED_HEAD_DIMS):
+        for causal in (True, False):
+            check_kernels_at((2, 4, 300, d), causal, seed=60 + i, split=True, tag="[head dims]")
+            check_kernels_at((2, 4, 300, d), causal, seed=63 + i, lens=[300, 97], split=True, tag="[head dims]")
+    for model_type, layers, mbs, acc in (("pythia-14m", None, 4, 2), ("pythia-2.8b", 2, 4, 1)):
+        full = pythia.PYTHIA_SIZES[model_type]
+        if layers is not None:
+            pythia.PYTHIA_SIZES[model_type] = (layers, *full[1:])
+        try:
+            run = drive_training(model_type, mbs=mbs, acc=acc, remat=False, counters=fa, loss_band=TEXT_LOSS_BAND,
+                                 names=FLASH_COUNTERS, steps=2)
+        finally:
+            pythia.PYTHIA_SIZES[model_type] = full
+        expected = flash_launches_expected(FLASH_COUNTERS, len(run["module"].layers), 0, run["micro_batches"])
+        if run["launches"] != expected:
+            raise AssertionError(f"{model_type} flash launches {run['launches']}, expected {expected}")
+        attn = run["module"].layers[0].attn
+        say(f"[head dims] {model_type} ({len(run['module'].layers)} layers, head_dim {attn.head_dim}): every "
+            f"attention call on the kernels, launches as expected")
+
+
+GRID_SHAPE = (4096, 16, 16, 64)  # 65,536 batch-heads: one more than a launch grid's y dimension holds
+
+
+def phase_many_heads() -> None:
+    """The forward, fused backward and split pair against their plain
+    versions at 65,536 batch-heads, plain and varlen mode: each wrapper call
+    launches twice (two chunks)."""
+    b, h, s, _ = GRID_SHAPE
+    assert b * h == fa.MAX_GRID_Y + 1
+    lens = np.random.default_rng(7).integers(0, s + 1, b).tolist()
+    for causal, kv_lens in ((True, None), (False, lens)):
+        fa.reset_launch_counts()
+        check_kernels_at(GRID_SHAPE, causal, seed=70, lens=kv_lens, split=True, tag="[grid]")
+        # check_forward, check_backward and the split check each launch twice
+        calls = {"FWD_LAUNCHES": 2, "BWD_LAUNCHES": 2, "DQ_LAUNCHES": 2, "DKV_LAUNCHES": 2}
+        if kv_lens is not None:
+            calls = {"VARLEN_" + n: c for n, c in calls.items()}
+        got = {n: getattr(fa, n) for n in FLASH_COUNTERS}
+        want = {n: 2 * calls.get(n, 0) for n in FLASH_COUNTERS}  # two chunks a call
+        if got != want:
+            raise AssertionError(f"[grid] launches {got}, expected {want}")
+        say(f"[grid] {b * h} batch-heads, {'varlen' if kv_lens else 'plain'} mode: two launches a call, {got}")
+
+
 def main() -> int:
     card = phase_env()
     phase_build()
@@ -1148,6 +1307,8 @@ def main() -> int:
     kernels += phase_split_kernels(pythia_times, decoder_times)
     phase_vit_slice()
     add(phase_vit_main_path())
+    phase_head_dims()
+    phase_many_heads()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     say(json.dumps({"kernels": kernels}))

@@ -1,45 +1,34 @@
-// Flash-attention backward for NVIDIA Hopper (sm_90a): the fused backward and
-// the split backward. The forward is csrc/flash_fwd.cu.
+// Flash-attention split backward for NVIDIA Hopper (sm_90a): the dq kernel
+// and the dk/dv kernel. The forward is csrc/flash_fwd.cu, the fused backward
+// csrc/flash_bwd.cu.
 //
 // Replaces the Pallas TPU kernels of multimodal_llm_pretraining_tpu/ops/flash_attention.py:
-//   flash_bwd_kernel      <- _bwd_fused_kernel  (flash_attention.py:208, launched by _bwd_impl)
 //   flash_bwd_dq_kernel   <- _bwd_dq_kernel     (flash_attention.py:161, launched at :572)
 //   flash_bwd_dkv_kernel  <- _bwd_dkv_kernel    (flash_attention.py:293, launched at :589)
 //
-// Layout: q/k/v/o/do are row-major [BH, S, D] (batch*heads folded), lse and delta
-// are f32 [BH, S]. Products run on the tensor cores through nvcuda::wmma
-// 16x16x16 bf16 fragments with f32 accumulation; f32 inputs are rounded to bf16
-// as they land in shared memory, which is what a default-precision f32 dot does
-// on the TPU. Softmax statistics, dk/dv and dq accumulate in f32.
+// Layout: q/k/v/do are row-major [BH, S, D] (batch*heads folded), lse and
+// delta are f32 [BH, S]. Products run on the tensor cores through
+// nvcuda::wmma 16x16x16 bf16 fragments with f32 accumulation; f32 inputs are
+// rounded to bf16 as they land in shared memory, which is what a
+// default-precision f32 dot does on the TPU. Softmax statistics, dk/dv and dq
+// accumulate in f32.
 //
-// What bounds these kernels on this card, and what the design does about it:
-// * Shared memory. At D=256 a 64-row bf16 tile is 32 KB. The backward keeps its
-//   k block's k, k*scale, v tiles, a 64-row q and dO tile, and f32 dk/dv
-//   accumulators resident: with 64-row k blocks that is ~270 KB, over the
-//   227 KB a block may use. The backward therefore takes 32-row k blocks
-//   (~214 KB at D=256), opting in to the large dynamic shared memory with
-//   cudaFuncSetAttribute.
-// * Cross-block reduction. The TPU's grid runs in order, so _bwd_fused_kernel
-//   keeps a whole-sequence dq block resident and revisits it from every k
-//   program. GPU blocks run in parallel and in no order, so each block adds
-//   its ds.k contribution into a zeroed f32 dq buffer with atomicAdd; the
-//   summation order, and so the last bits of dq, vary from run to run.
-// * Tensor-core rate. wmma issues warp-wide mma.sync; Hopper's full rate needs
-//   wgmma, TMA and warp specialisation. Those are later work: this version is
-//   written to be right first, one block per SM at D=256.
-// * The split backward (the JAX package's MLPT_FLASH_FUSED_BWD=0 path) does
-//   7 tile products where the fused one does 5: s and dp are computed twice,
-//   once per q block for dq and once per k block for dk/dv. In exchange it
-//   adds no partial sums across blocks, so all three gradients repeat bit for
-//   bit. flash_bwd_dq_kernel keeps its [64 x D] f32 dq accumulator in wmma
+// The split backward (the JAX package's MLPT_FLASH_FUSED_BWD=0 path) does 7
+// tile products where the fused one does 5: s and dp are computed twice, once
+// per q block for dq and once per k block for dk/dv. In exchange it adds no
+// partial sums across blocks, so all three gradients repeat bit for bit.
+// * flash_bwd_dq_kernel keeps its [64 x D] f32 dq accumulator in wmma
 //   accumulator fragments, in registers (64 of them a thread at D=256, 8
 //   warps), not in shared memory: that frees the 66 KB a shared f32
 //   accumulator would take at D=256, so 64-row k tiles still fit (~180 KB),
 //   and dq is stored once, in the output dtype, with no atomics.
-//   flash_bwd_dkv_kernel is the fused kernel without its dq part (the same
-//   code, compiled without the k tile and the atomics), 32-row k blocks,
-//   ~197 KB at D=256. The TPU's halved blocks at D > 128
+// * flash_bwd_dkv_kernel keeps its k*scale, v, a 64-row q and dO tile and f32
+//   dk/dv accumulators in shared memory, with 32-row k blocks (~197 KB at
+//   D=256, opting in to the large dynamic shared memory with
+//   cudaFuncSetAttribute). The TPU's halved blocks at D > 128
 //   (flash_attention.py:568-570) were a VMEM artifact and are not carried over.
+// Both still use wmma and no warp specialisation: their Hopper redesign is
+// later work.
 //
 // Sequence tails (S=2049 is not a multiple of any block) are masked in-kernel:
 // rows past the end load as zeros and are never stored, keys past the end
@@ -50,11 +39,10 @@
 // flash_attention.py:622-652): a nullable int32 kv_lens [BH] gives each
 // batch-head its own key count, read on the device (no host sync). Only the
 // loop bounds and the key masks take it: keys at or past kv_len get
-// probability 0, the backward's q loop stops at it,
-// and the per-head offsets keep the tensor's kv_seq. Every query row,
-// padded or not, attends the keys below kv_len. dk and dv rows in
-// [kv_len, kv_seq) are stored as exact zeros, also for a k block wholly past
-// the length. kv_lens == nullptr is the plain mode (kv_len = kv_seq).
+// probability 0, a k block wholly past it runs no q block, and the per-head
+// offsets keep the tensor's kv_seq. Every query row, padded or not, attends
+// the keys below kv_len. dk and dv rows in [kv_len, kv_seq) are stored as
+// exact zeros. kv_lens == nullptr is the plain mode (kv_len = kv_seq).
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -65,8 +53,6 @@ using namespace nvcuda;
 using bf16 = __nv_bfloat16;
 
 namespace {
-
-constexpr float NEG_INF = -1e30f;
 
 __host__ __device__ constexpr int cdiv(int a, int b) { return (a + b - 1) / b; }
 
@@ -137,20 +123,17 @@ using FragB = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::row_major>;
 using FragBT = wmma::fragment<wmma::matrix_b, 16, 16, 16, bf16, wmma::col_major>;
 using FragC = wmma::fragment<wmma::accumulator, 16, 16, 16, float>;
 
-// ---------------------------------------------------------------- fused backward
+// ---------------------------------------------------------------- split backward
 
 constexpr int BWD_BQ = 64, BWD_BK = 32, BWD_THREADS = 256;  // 8 warps
 
-// DQ: the fused kernel, which also keeps the unscaled k tile for dq = ds . k;
-// without it, the dk/dv kernel of the split backward.
-template <int D, bool DQ>
+template <int D>
 struct BwdSmem {
   static constexpr int LDB = D + 8;       // bf16 tiles
   static constexpr int LDF = D + 4;       // f32 dk/dv accumulators
   static constexpr int LDS = BWD_BK + 4;  // f32 s and dp tiles
   static constexpr int LDP = BWD_BK + 8;  // bf16 p and ds tiles
-  static constexpr size_t k = 0;
-  static constexpr size_t ks = k + (DQ ? sizeof(bf16) * BWD_BK * LDB : 0);
+  static constexpr size_t ks = 0;
   static constexpr size_t v = ks + sizeof(bf16) * BWD_BK * LDB;
   static constexpr size_t q = v + sizeof(bf16) * BWD_BK * LDB;
   static constexpr size_t dout = q + sizeof(bf16) * BWD_BQ * LDB;
@@ -165,21 +148,20 @@ struct BwdSmem {
   static constexpr size_t bytes = delta + sizeof(float) * BWD_BQ;
 };
 
-// One block per (k block, batch-head), looping over q blocks from the causal
-// start. Per q block: s = q . (k*scale)^T, dp = dO . v^T, p = exp(s - lse),
-// ds = p * (dp - delta) * scale; dv += p^T . dO and dk += ds^T . q stay in
-// shared memory; with DQ, dq += ds . k goes to global memory by f32 atomicAdd.
-template <typename T, int D, bool DQ>
-__device__ __forceinline__ void bwd_kv_block(const T* __restrict__ q, const T* __restrict__ k,
-                                             const T* __restrict__ v, const T* __restrict__ dout,
-                                             const float* __restrict__ lse, const float* __restrict__ delta,
-                                             const int* __restrict__ kv_lens, float* __restrict__ dq,
-                                             T* __restrict__ dk, T* __restrict__ dv, int q_seq, int kv_seq,
-                                             int causal, float sm_scale) {
-  using L = BwdSmem<D, DQ>;
+// dk and dv only, one block per (k block, batch-head), looping over q blocks
+// from the causal start: the TPU's _bwd_dkv_kernel, the scale folded into k
+// for the scores. Per q block: s = q . (k*scale)^T, dp = dO . v^T, p = exp(s
+// - lse), ds = p * (dp - delta) * scale; dv += p^T . dO and dk += ds^T . q
+// stay in shared memory.
+template <typename T, int D>
+__global__ void __launch_bounds__(BWD_THREADS)
+    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+                         const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
+                         const int* __restrict__ kv_lens, T* __restrict__ dk, T* __restrict__ dv, int q_seq,
+                         int kv_seq, int causal, float sm_scale) {
+  using L = BwdSmem<D>;
   constexpr int NF = D / 16;  // 16-wide column fragments across the head dim
   extern __shared__ __align__(128) unsigned char smem[];
-  bf16* sK = reinterpret_cast<bf16*>(smem + L::k);
   bf16* sKs = reinterpret_cast<bf16*>(smem + L::ks);
   bf16* sV = reinterpret_cast<bf16*>(smem + L::v);
   bf16* sQ = reinterpret_cast<bf16*>(smem + L::q);
@@ -193,15 +175,14 @@ __device__ __forceinline__ void bwd_kv_block(const T* __restrict__ q, const T* _
   float* sLse = reinterpret_cast<float*>(smem + L::lse);
   float* sDelta = reinterpret_cast<float*>(smem + L::delta);
 
-  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  const int warp = threadIdx.x / 32;
   const int bh = blockIdx.y;
   const int k0 = blockIdx.x * BWD_BK;
   const size_t qoff = (size_t)bh * q_seq, koff = (size_t)bh * kv_seq;
   const int kv_len = key_count(kv_lens, bh, kv_seq);
 
   // the TPU kernel folds the scale into k for the scores; q stays unscaled
-  // for dk = ds^T . q, and ds carries the scale for dq = ds . k
-  if constexpr (DQ) load_tile<T, D>(sK, L::LDB, k + koff * D, k0, BWD_BK, kv_len, 1.f);
+  // for dk = ds^T . q
   load_tile<T, D>(sKs, L::LDB, k + koff * D, k0, BWD_BK, kv_len, sm_scale);
   load_tile<T, D>(sV, L::LDB, v + koff * D, k0, BWD_BK, kv_len, 1.f);
   for (int i = threadIdx.x; i < BWD_BK * L::LDF; i += blockDim.x) {
@@ -212,8 +193,6 @@ __device__ __forceinline__ void bwd_kv_block(const T* __restrict__ q, const T* _
   // stores its zeroed dk/dv below
   const int num_qb = k0 < kv_len ? cdiv(q_seq, BWD_BQ) : 0;
   const int qb_start = causal ? k0 / BWD_BQ : 0;
-  // the s tile is dead once p is formed: it doubles as per-warp scratch for dq
-  float* scratch = sS + warp * 256;
 
   for (int qb = qb_start; qb < num_qb; ++qb) {
     const int q0 = qb * BWD_BQ;
@@ -280,30 +259,7 @@ __device__ __forceinline__ void bwd_kv_block(const T* __restrict__ q, const T* _
       wmma::store_matrix_sync(sdK + fr * L::LDF + fc, dk_acc, L::LDF, wmma::mem_row_major);
     }
 
-    // dq += ds . k, [64 x D], added to global memory fragment by fragment
-    if constexpr (DQ) {
-      for (int f = warp; f < 4 * NF; f += BWD_THREADS / 32) {
-        const int fr = (f / NF) * 16, fc = (f % NF) * 16;
-        FragC dq_acc;
-        wmma::fill_fragment(dq_acc, 0.f);
-#pragma unroll
-        for (int kk = 0; kk < BWD_BK; kk += 16) {
-          FragA a;
-          FragB b;
-          wmma::load_matrix_sync(a, sdS + fr * L::LDP + kk, L::LDP);
-          wmma::load_matrix_sync(b, sK + kk * L::LDB + fc, L::LDB);
-          wmma::mma_sync(dq_acc, a, b, dq_acc);
-        }
-        wmma::store_matrix_sync(scratch, dq_acc, 16, wmma::mem_row_major);
-        __syncwarp();
-        for (int e = lane; e < 256; e += 32) {
-          const int qi = q0 + fr + e / 16;
-          if (qi < q_seq) atomicAdd(dq + (qoff + qi) * D + fc + e % 16, scratch[e]);
-        }
-        __syncwarp();
-      }
-    }
-    __syncthreads();  // q/dO tiles and the scratch are reused next iteration
+    __syncthreads();  // the q/dO tiles are reused next iteration
   }
   // a k block no query sees (causal with kv_seq > q_seq, or wholly past
   // kv_len) runs no iteration: the zeroed accumulators still need a barrier
@@ -317,28 +273,6 @@ __device__ __forceinline__ void bwd_kv_block(const T* __restrict__ q, const T* _
       store8(dv + (koff + k0 + r) * D + c, sdV + r * L::LDF + c);
     }
   }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-    flash_bwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                     const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                     const int* __restrict__ kv_lens, float* __restrict__ dq, T* __restrict__ dk,
-                     T* __restrict__ dv, int q_seq, int kv_seq, int causal, float sm_scale) {
-  bwd_kv_block<T, D, true>(q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, q_seq, kv_seq, causal, sm_scale);
-}
-
-// ---------------------------------------------------------------- split backward
-
-// dk and dv only, one block per (k block, batch-head): the TPU's
-// _bwd_dkv_kernel, the scale folded into k for the scores.
-template <typename T, int D>
-__global__ void __launch_bounds__(BWD_THREADS)
-    flash_bwd_dkv_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-                         const T* __restrict__ dout, const float* __restrict__ lse, const float* __restrict__ delta,
-                         const int* __restrict__ kv_lens, T* __restrict__ dk, T* __restrict__ dv, int q_seq,
-                         int kv_seq, int causal, float sm_scale) {
-  bwd_kv_block<T, D, false>(q, k, v, dout, lse, delta, kv_lens, nullptr, dk, dv, q_seq, kv_seq, causal, sm_scale);
 }
 
 constexpr int DQ_BQ = 64, DQ_BK = 64, DQ_THREADS = 256;  // 8 warps
@@ -479,21 +413,6 @@ __global__ void __launch_bounds__(DQ_THREADS)
 // ---------------------------------------------------------------- launchers
 
 template <typename T, int D>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
-               const int* kv_lens, float* dq, void* dk, void* dv, int bh, int q_seq, int kv_seq, int causal,
-               float sm_scale, cudaStream_t stream) {
-  constexpr size_t smem = BwdSmem<D, true>::bytes;
-  static_assert(smem <= 232448, "backward tile set exceeds the 227 KB a block may use");
-  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  dim3 grid(cdiv(kv_seq, BWD_BK), bh);
-  flash_bwd_kernel<T, D><<<grid, BWD_THREADS, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), static_cast<const T*>(dout), lse,
-      delta, kv_lens, dq, static_cast<T*>(dk), static_cast<T*>(dv), q_seq, kv_seq, causal, sm_scale);
-  return (int)cudaGetLastError();
-}
-
-template <typename T, int D>
 int launch_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse, const float* delta,
                   const int* kv_lens, void* dq, int bh, int q_seq, int kv_seq, int causal, float sm_scale,
                   cudaStream_t stream) {
@@ -513,7 +432,7 @@ template <typename T, int D>
 int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
                    const float* delta, const int* kv_lens, void* dk, void* dv, int bh, int q_seq, int kv_seq,
                    int causal, float sm_scale, cudaStream_t stream) {
-  constexpr size_t smem = BwdSmem<D, false>::bytes;
+  constexpr size_t smem = BwdSmem<D>::bytes;
   static_assert(smem <= 232448, "dk/dv tile set exceeds the 227 KB a block may use");
   cudaError_t err =
       cudaFuncSetAttribute(flash_bwd_dkv_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
@@ -534,26 +453,6 @@ int launch_bwd_dkv(const void* q, const void* k, const void* v, const void* dout
 extern "C" {
 
 const char* mlpt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }
-
-int mlpt_flash_bwd(const void* q, const void* k, const void* v, const void* dout, const float* lse,
-                   const float* delta, const int* kv_lens, float* dq, void* dk, void* dv, int bh, int q_seq,
-                   int kv_seq, int head_dim, int dtype, int causal, float sm_scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  (void)cudaGetLastError();
-#define MLPT_BWD(T, D) \
-  return launch_bwd<T, D>(q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, bh, q_seq, kv_seq, causal, sm_scale, s)
-  if (dtype == 0) {
-    if (head_dim == 64) MLPT_BWD(bf16, 64);
-    if (head_dim == 128) MLPT_BWD(bf16, 128);
-    if (head_dim == 256) MLPT_BWD(bf16, 256);
-  } else if (dtype == 1) {
-    if (head_dim == 64) MLPT_BWD(float, 64);
-    if (head_dim == 128) MLPT_BWD(float, 128);
-    if (head_dim == 256) MLPT_BWD(float, 256);
-  }
-#undef MLPT_BWD
-  return (int)cudaErrorInvalidValue;
-}
 
 // The split backward: dq [BH, Sq, D] in the input dtype, no zeroing needed.
 int mlpt_flash_bwd_dq(const void* q, const void* k, const void* v, const void* dout, const float* lse,

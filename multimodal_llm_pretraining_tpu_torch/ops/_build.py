@@ -24,7 +24,8 @@ from ..utils import get_logger
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_fwd.cu", "flash_attention.cu", "selective_scan.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_attention.cu", "selective_scan.cu")
+HEADERS = ("hopper.cuh",)  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-lineinfo",
@@ -48,7 +49,7 @@ def find_nvcc() -> str:
 
 def _source_hash() -> str:
     h = hashlib.sha256()
-    for name in SOURCES:
+    for name in SOURCES + HEADERS:
         h.update(name.encode())
         h.update((CSRC_DIR / name).read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
@@ -105,7 +106,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
             lib.mlpt_flash_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, ptr]
             lib.mlpt_flash_fwd.restype = i32
-            lib.mlpt_flash_bwd.argtypes = [ptr] * 10 + [i32] * 6 + [f32, ptr]
+            lib.mlpt_flash_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [f32, ptr]
             lib.mlpt_flash_bwd.restype = i32
             lib.mlpt_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 6 + [f32, ptr]
             lib.mlpt_flash_bwd_dq.restype = i32

@@ -8,8 +8,18 @@ split pair, a dq kernel replacing ``_bwd_dq_kernel`` (``:161``) and a dk/dv
 kernel replacing ``_bwd_dkv_kernel`` (``:293``). Each runs in its plain and
 its varlen (padded-batch, ``:622-652``) mode. The forward lives in
 ``csrc/flash_fwd.cu`` (TMA loads, ``wgmma`` products, softmax and output in
-registers), the backward kernels in ``csrc/flash_attention.cu``; all are
-built on first use (``ops/_build.py``).
+registers), the fused backward in ``csrc/flash_bwd.cu`` (TMA loads, ``wgmma``
+products, dk and dv in registers), the split pair in
+``csrc/flash_attention.cu``; all are built on first use (``ops/_build.py``).
+
+The kernels are instantiated at head dims 64, 128 and 256. The wrappers take
+any head dim up to 256 and zero-pad it to the next of these in the copy they
+make for the kernel (32 -> 64, 80 -> 128, 88 -> 128), keeping the caller's
+``sm_scale``, and slice the outputs back. That is exact: the zero columns add
+exact zeros to every score, out's padded columns are 0 (v is 0 there), and
+dq, dk, dv are 0 there (k, q, dO are 0 there). The launch grid's y dimension
+holds at most ``MAX_GRID_Y`` batch-heads, so the wrappers launch larger
+batches in contiguous chunks (``bh_chunks``), each launch counted.
 
 ``PREFER_FUSED_BWD`` chooses the backward, as in the JAX package (``:440-451``):
 set from ``MLPT_FLASH_FUSED_BWD`` (default on; ``0`` takes the split
@@ -27,7 +37,8 @@ There is no fallback from the kernel to the plain version.
 Numerics mirror the TPU kernels: the scale folds into q for the forward
 scores and the dq kernel's, into k for the other backward scores; products
 take bf16 operands with f32 accumulation (f32 inputs are rounded to bf16,
-by the forward's wrapper and by the backward kernels as they load),
+by the forward's and the fused backward's wrappers and by the split
+kernels as they load),
 probabilities are recomputed from the saved f32 logsumexp, ds = p * (dp -
 delta) * scale, and a query row with no visible key gives 0.
 
@@ -37,6 +48,7 @@ and dk, dv are exactly 0 there. ``flash_attention(..., kv_len_mask=m)``
 reduces a [B, Sk] keep-mask to lens as the JAX package does (``:694-697``).
 """
 
+import math
 import os
 
 import torch
@@ -44,7 +56,9 @@ import torch
 from . import _build
 
 NEG_INF = -1e30
-KERNEL_HEAD_DIMS = (64, 128, 256)
+KERNEL_HEAD_DIMS = (64, 128, 256)  # instantiated; other head dims up to the last are zero-padded to the next
+MAX_GRID_Y = 65535  # batch-heads of one launch: the launch grid's y dimension
+STATS_ROWS = 64  # the fused backward reads lse and delta in rows of this many queries
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # The fused backward (default) or the split dq + dk/dv kernels; see above.
@@ -157,19 +171,29 @@ def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal: bool, sm_scale: f
 # ---------------------------------------------------------------- kernel wrappers
 
 
-MAX_GRID_Y = 65535  # batch*heads is the launch grid's y dimension
+def kernel_head_dim(head_dim: int) -> int:
+    """The instantiated head dim a kernel runs ``head_dim`` at: the smallest
+    of ``KERNEL_HEAD_DIMS`` not below it."""
+    for d in KERNEL_HEAD_DIMS:
+        if head_dim <= d:
+            return d
+    raise ValueError(f"flash attention kernels take head_dim up to {KERNEL_HEAD_DIMS[-1]}, got {head_dim} "
+                     "(ROADMAP Queue 3: head dims above 256)")
+
+
+def bh_chunks(bh: int, limit: int = MAX_GRID_Y) -> list[tuple[int, int]]:
+    """Contiguous [start, stop) ranges of at most ``limit`` batch-heads that
+    cover ``bh``: one launch each."""
+    return [(b0, min(b0 + limit, bh)) for b0 in range(0, bh, limit)]
 
 
 def _check_kernel_inputs(tensors, head_dim: int) -> None:
     dev, dtype = tensors[0].device, tensors[0].dtype
     if dev.type != "cuda":
         raise ValueError(f"flash attention kernels take CUDA tensors, got {dev}")
-    if tensors[0].shape[0] > MAX_GRID_Y:
-        raise ValueError(f"flash attention kernels take at most {MAX_GRID_Y} batch*heads, got {tensors[0].shape[0]}")
     if dtype not in _DTYPE_CODE:
         raise ValueError(f"flash attention kernels take bfloat16 or float32, got {dtype}")
-    if head_dim not in KERNEL_HEAD_DIMS:
-        raise ValueError(f"flash attention kernels take head_dim in {KERNEL_HEAD_DIMS}, got {head_dim}")
+    kernel_head_dim(head_dim)
     for t in tensors:
         if t.device != dev or t.dtype != dtype:
             raise ValueError("flash attention kernel inputs must share one device and dtype")
@@ -177,22 +201,29 @@ def _check_kernel_inputs(tensors, head_dim: int) -> None:
             raise ValueError(f"flash attention kernels take [BH, S, D] tensors, got {tuple(t.shape)}")
 
 
-def _kernel_ready(t: torch.Tensor) -> torch.Tensor:
+def _kernel_ready(t: torch.Tensor, head_dim: int | None = None) -> torch.Tensor:
     """Contiguous, 16-byte aligned (the kernels load 16-byte vectors, TMA
-    needs 16-byte aligned bases)."""
+    needs 16-byte aligned bases), the last dim zero-padded to ``head_dim``."""
+    if head_dim is not None and t.shape[-1] != head_dim:
+        return torch.nn.functional.pad(t, (0, head_dim - t.shape[-1]))
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _lens_ptr(kv_lens: torch.Tensor | None, bh: int, device) -> tuple[torch.Tensor | None, int | None]:
-    """(contiguous int32 lens, its device pointer), or (None, None) for the
-    plain mode. The lens stay on the device: no value is read back."""
+def _checked_lens(kv_lens: torch.Tensor | None, bh: int, device) -> torch.Tensor | None:
+    """Contiguous int32 lens [BH] on ``device``, or None for the plain mode.
+    The lens stay on the device: no value is read back."""
     if kv_lens is None:
-        return None, None
+        return None
     if kv_lens.device != device or kv_lens.dtype != torch.int32 or kv_lens.shape != (bh,):
         raise ValueError(f"kv_lens must be int32 [{bh}] on {device}, got {kv_lens.dtype} {tuple(kv_lens.shape)} on {kv_lens.device}")
-    kv_lens = kv_lens.contiguous()
-    return kv_lens, kv_lens.data_ptr()
+    return kv_lens.contiguous()
+
+
+def _chunk_ptr(t: torch.Tensor | None, b0: int) -> int | None:
+    """The device pointer of ``t[b0]`` (a contiguous tensor's chunk from
+    batch-head ``b0``), or None."""
+    return None if t is None else t[b0].data_ptr()
 
 
 def _bf16_operands(q, k, v, sm_scale: float):
@@ -214,29 +245,31 @@ def flash_fwd_cuda(q, k, v, causal: bool, sm_scale: float, kv_lens=None):
     the varlen mode. The kernel reads bf16 operands through TMA; f32 inputs
     are rounded first (``_bf16_operands``), and that time counts here."""
     global FWD_LAUNCHES, VARLEN_FWD_LAUNCHES
-    q, k, v = (_kernel_ready(t) for t in (q, k, v))
     bh, q_seq, d = q.shape
     _check_kernel_inputs((q, k, v), d)
     kv_seq = k.shape[1]
     if k.shape != v.shape or k.shape[0] != bh or q_seq == 0 or kv_seq == 0:
         raise ValueError(f"flash attention shapes disagree: q {tuple(q.shape)} k {tuple(k.shape)} v {tuple(v.shape)}")
-    kv_lens, lens_ptr = _lens_ptr(kv_lens, bh, q.device)
+    kv_lens = _checked_lens(kv_lens, bh, q.device)
+    dp = kernel_head_dim(d)
+    q, k, v = (_kernel_ready(t, dp) for t in (q, k, v))
     lib = _build.load()
     out = torch.empty_like(q)
     lse = torch.empty(bh, q_seq, dtype=torch.float32, device=q.device)
     qb, kb, vb, q_scale = _bf16_operands(q, k, v, sm_scale)
-    with torch.cuda.device(q.device):
-        err = lib.mlpt_flash_fwd(
-            qb.data_ptr(), kb.data_ptr(), vb.data_ptr(), out.data_ptr(), lse.data_ptr(), lens_ptr,
-            bh, q_seq, kv_seq, d, _DTYPE_CODE[q.dtype], int(causal), float(q_scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(lib, err, "flash attention forward kernel")
-    if kv_lens is None:
-        FWD_LAUNCHES += 1
-    else:
-        VARLEN_FWD_LAUNCHES += 1
-    return out, lse
+    for b0, b1 in bh_chunks(bh):
+        with torch.cuda.device(q.device):
+            err = lib.mlpt_flash_fwd(
+                qb[b0].data_ptr(), kb[b0].data_ptr(), vb[b0].data_ptr(), out[b0].data_ptr(), lse[b0].data_ptr(),
+                _chunk_ptr(kv_lens, b0), b1 - b0, q_seq, kv_seq, dp, _DTYPE_CODE[q.dtype], int(causal),
+                float(q_scale), torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        _build.check(lib, err, "flash attention forward kernel")
+        if kv_lens is None:
+            FWD_LAUNCHES += 1
+        else:
+            VARLEN_FWD_LAUNCHES += 1
+    return out[..., :d], lse
 
 
 def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, sm_scale: float, kv_lens=None):
@@ -245,42 +278,57 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, sm_scale: float, kv_le
     that changes between runs, so two runs may differ by one ulp of dq's
     dtype per element; dk and dv repeat exactly. ``kv_lens`` (int32 [BH])
     selects the varlen mode; dk and dv rows at or past each length are
-    written as zeros."""
+    written as zeros. The kernel reads bf16 q, k, v and dO: f32 inputs are
+    rounded here, and dk and dv come back in f32; its first launch takes
+    delta = rowsum(dO * out) from out and dO in the input dtype. At head dim
+    256 (padded or not) the scale must be a power of two, which the model's
+    own 1/16 is: the kernel then scales the f32 scores, having no shared
+    memory left for a k*scale tile."""
     global BWD_LAUNCHES, VARLEN_BWD_LAUNCHES
-    q, k, v, out, dout = (_kernel_ready(t) for t in (q, k, v, out, dout))
     bh, q_seq, d = q.shape
     _check_kernel_inputs((q, k, v, out, dout), d)
     kv_seq = k.shape[1]
-    if out.shape != q.shape or dout.shape != q.shape or k.shape != v.shape or lse.shape != (bh, q_seq):
+    if (out.shape != q.shape or dout.shape != q.shape or k.shape != v.shape or k.shape[0] != bh or lse.shape != (bh, q_seq)
+            or q_seq == 0 or kv_seq == 0):
         raise ValueError("flash attention backward shapes disagree")
     if lse.device != q.device:
         raise ValueError(f"lse lies on {lse.device}, the other inputs on {q.device}")
-    kv_lens, lens_ptr = _lens_ptr(kv_lens, bh, q.device)
+    dp = kernel_head_dim(d)
+    if dp == KERNEL_HEAD_DIMS[-1] and math.frexp(sm_scale)[0] != 0.5:
+        raise ValueError(f"the fused backward takes head_dim {dp} with a power-of-two sm_scale only, got {sm_scale} "
+                         "(ROADMAP Queue 3: custom scales at head_dim 256)")
+    kv_lens = _checked_lens(kv_lens, bh, q.device)
+    out, dout = (_kernel_ready(t, dp) for t in (out, dout))
+    qb, kb, vb, dob = (_kernel_ready(t.to(torch.bfloat16), dp) for t in (q, k, v, dout))
     lse = _kernel_ready(lse.float())
-    delta = _kernel_ready(bwd_delta(out, dout))
+    # the first launch fills these: [BH, Sq rounded up to STATS_ROWS], delta
+    # 0 and lse +inf past Sq (a query row there gets p = exp(s - inf) = 0)
+    stats = torch.empty(2, bh, -(-q_seq // STATS_ROWS) * STATS_ROWS, dtype=torch.float32, device=q.device)
     lib = _build.load()
-    dq = torch.zeros(bh, q_seq, d, dtype=torch.float32, device=q.device)
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = lib.mlpt_flash_bwd(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), lens_ptr,
-            dq.data_ptr(), dk.data_ptr(), dv.data_ptr(),
-            bh, q_seq, kv_seq, d, _DTYPE_CODE[q.dtype], int(causal), float(sm_scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(lib, err, "flash attention backward kernel")
-    if kv_lens is None:
-        BWD_LAUNCHES += 1
-    else:
-        VARLEN_BWD_LAUNCHES += 1
-    return dq.to(q.dtype), dk, dv
+    dq = torch.zeros(bh, q_seq, dp, dtype=torch.float32, device=q.device)
+    dk = torch.empty(bh, kv_seq, dp, dtype=q.dtype, device=q.device)
+    dv = torch.empty_like(dk)
+    for b0, b1 in bh_chunks(bh):
+        with torch.cuda.device(q.device):
+            err = lib.mlpt_flash_bwd(
+                qb[b0].data_ptr(), kb[b0].data_ptr(), vb[b0].data_ptr(), dob[b0].data_ptr(), out[b0].data_ptr(),
+                dout[b0].data_ptr(), lse[b0].data_ptr(), stats[0, b0].data_ptr(), stats[1, b0].data_ptr(),
+                _chunk_ptr(kv_lens, b0), dq[b0].data_ptr(), dk[b0].data_ptr(), dv[b0].data_ptr(), b1 - b0, q_seq,
+                kv_seq, dp, _DTYPE_CODE[q.dtype], int(causal), float(sm_scale),
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        _build.check(lib, err, "flash attention backward kernel")
+        if kv_lens is None:
+            BWD_LAUNCHES += 1
+        else:
+            VARLEN_BWD_LAUNCHES += 1
+    return dq[..., :d].to(q.dtype), dk[..., :d], dv[..., :d]
 
 
 def _split_inputs(q, k, v, dout, lse, delta, kv_lens):
-    """The split kernels' common checks: contiguous 16-byte aligned tensors,
-    f32 lse and delta [BH, Sq] on q's device, and the lens pointer."""
-    q, k, v, dout = (_kernel_ready(t) for t in (q, k, v, dout))
+    """The split kernels' common checks: contiguous 16-byte aligned tensors
+    with the head dim padded to the kernel's, f32 lse and delta [BH, Sq] on
+    q's device, and the lens."""
     bh, q_seq, d = q.shape
     _check_kernel_inputs((q, k, v, dout), d)
     if dout.shape != q.shape or k.shape != v.shape or k.shape[0] != bh or k.shape[1] == 0 or q_seq == 0:
@@ -288,8 +336,10 @@ def _split_inputs(q, k, v, dout, lse, delta, kv_lens):
     for name, t in (("lse", lse), ("delta", delta)):
         if t.device != q.device or t.shape != (bh, q_seq):
             raise ValueError(f"{name} must be [{bh}, {q_seq}] on {q.device}, got {tuple(t.shape)} on {t.device}")
-    kv_lens, lens_ptr = _lens_ptr(kv_lens, bh, q.device)
-    return q, k, v, dout, _kernel_ready(lse.float()), _kernel_ready(delta.float()), kv_lens, lens_ptr
+    kv_lens = _checked_lens(kv_lens, bh, q.device)
+    dp = kernel_head_dim(d)
+    q, k, v, dout = (_kernel_ready(t, dp) for t in (q, k, v, dout))
+    return q, k, v, dout, _kernel_ready(lse.float()), _kernel_ready(delta.float()), kv_lens
 
 
 def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool, sm_scale: float, kv_lens=None):
@@ -297,45 +347,50 @@ def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool, sm_scale: float, 
     atomics: two runs give the same bits. ``delta`` is ``bwd_delta(out,
     dout)``; ``kv_lens`` (int32 [BH]) selects the varlen mode."""
     global DQ_LAUNCHES, VARLEN_DQ_LAUNCHES
-    q, k, v, dout, lse, delta, kv_lens, lens_ptr = _split_inputs(q, k, v, dout, lse, delta, kv_lens)
-    bh, q_seq, d = q.shape
+    d = q.shape[-1]
+    q, k, v, dout, lse, delta, kv_lens = _split_inputs(q, k, v, dout, lse, delta, kv_lens)
+    bh, q_seq, dp = q.shape
     lib = _build.load()
     dq = torch.empty_like(q)
-    with torch.cuda.device(q.device):
-        err = lib.mlpt_flash_bwd_dq(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), lens_ptr,
-            dq.data_ptr(), bh, q_seq, k.shape[1], d, _DTYPE_CODE[q.dtype], int(causal), float(sm_scale),
-            torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(lib, err, "flash attention dq kernel")
-    if kv_lens is None:
-        DQ_LAUNCHES += 1
-    else:
-        VARLEN_DQ_LAUNCHES += 1
-    return dq
+    for b0, b1 in bh_chunks(bh):
+        with torch.cuda.device(q.device):
+            err = lib.mlpt_flash_bwd_dq(
+                q[b0].data_ptr(), k[b0].data_ptr(), v[b0].data_ptr(), dout[b0].data_ptr(), lse[b0].data_ptr(),
+                delta[b0].data_ptr(), _chunk_ptr(kv_lens, b0), dq[b0].data_ptr(), b1 - b0, q_seq, k.shape[1], dp,
+                _DTYPE_CODE[q.dtype], int(causal), float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        _build.check(lib, err, "flash attention dq kernel")
+        if kv_lens is None:
+            DQ_LAUNCHES += 1
+        else:
+            VARLEN_DQ_LAUNCHES += 1
+    return dq[..., :d]
 
 
 def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool, sm_scale: float, kv_lens=None):
     """Launch the split backward's dk/dv kernel; returns (dk, dv) in the
     input dtype, rows at or past each varlen length written as zeros."""
     global DKV_LAUNCHES, VARLEN_DKV_LAUNCHES
-    q, k, v, dout, lse, delta, kv_lens, lens_ptr = _split_inputs(q, k, v, dout, lse, delta, kv_lens)
-    bh, q_seq, d = q.shape
+    d = q.shape[-1]
+    q, k, v, dout, lse, delta, kv_lens = _split_inputs(q, k, v, dout, lse, delta, kv_lens)
+    bh, q_seq, dp = q.shape
     lib = _build.load()
     dk = torch.empty_like(k)
     dv = torch.empty_like(v)
-    with torch.cuda.device(q.device):
-        err = lib.mlpt_flash_bwd_dkv(
-            q.data_ptr(), k.data_ptr(), v.data_ptr(), dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), lens_ptr,
-            dk.data_ptr(), dv.data_ptr(), bh, q_seq, k.shape[1], d, _DTYPE_CODE[q.dtype], int(causal),
-            float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
-        )
-    _build.check(lib, err, "flash attention dk/dv kernel")
-    if kv_lens is None:
-        DKV_LAUNCHES += 1
-    else:
-        VARLEN_DKV_LAUNCHES += 1
-    return dk, dv
+    for b0, b1 in bh_chunks(bh):
+        with torch.cuda.device(q.device):
+            err = lib.mlpt_flash_bwd_dkv(
+                q[b0].data_ptr(), k[b0].data_ptr(), v[b0].data_ptr(), dout[b0].data_ptr(), lse[b0].data_ptr(),
+                delta[b0].data_ptr(), _chunk_ptr(kv_lens, b0), dk[b0].data_ptr(), dv[b0].data_ptr(), b1 - b0, q_seq,
+                k.shape[1], dp, _DTYPE_CODE[q.dtype], int(causal), float(sm_scale),
+                torch.cuda.current_stream(q.device).cuda_stream,
+            )
+        _build.check(lib, err, "flash attention dk/dv kernel")
+        if kv_lens is None:
+            DKV_LAUNCHES += 1
+        else:
+            VARLEN_DKV_LAUNCHES += 1
+    return dk[..., :d], dv[..., :d]
 
 
 def _on_device(cuda_fn, plain_fn, q, *args):

@@ -35,7 +35,7 @@ KINDS = (
     ("flash forward", ("flash_fwd_kernel",)),
     ("flash backward dq", ("flash_bwd_dq_kernel",)),
     ("flash backward dkv", ("flash_bwd_dkv_kernel",)),
-    ("flash backward", ("flash_bwd_kernel",)),
+    ("flash backward", ("flash_bwd_kernel", "flash_bwd_prep_kernel")),
     ("scan forward", ("scan_fwd_kernel",)),
     ("scan backward", ("scan_bwd_kernel",)),
     ("GEMM", ("gemm", "nvjet", "xmma")),

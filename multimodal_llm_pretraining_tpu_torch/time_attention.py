@@ -1,4 +1,4 @@
-"""Time the flash-attention forward on the card at chosen shapes.
+"""Time the flash-attention forward and fused backward on the card at chosen shapes.
 
     python -m multimodal_llm_pretraining_tpu_torch.time_attention 16,16,577,64 16,32,1087,64:causal:varlen 128,16,197,64:f32
 
@@ -8,8 +8,11 @@ For each shape: the milliseconds a call of ``flash_fwd_cuda`` takes in a run
 of 10 launches back to back (the median of 3 runs), its TFLOP/s (2 x 2·D
 FLOP per visible query-key pair), and the device time of each kernel a call
 launches, from ``torch.profiler`` over 10 calls: the forward kernel and, on
-f32 inputs, the wrapper's casts to bf16. The card's ``nvidia-smi`` name and
-power limit head the output.
+f32 inputs, the wrapper's casts to bf16. Then the same for a call of the
+fused backward ``flash_bwd_cuda`` (5 x 2·D FLOP per visible pair; its
+device time also holds delta, the padded lse and delta rows, dq's zeroing
+and cast, and on f32 inputs the casts to bf16). The card's ``nvidia-smi``
+name and power limit head the output.
 """
 
 import argparse
@@ -84,17 +87,23 @@ def main() -> int:
         causal = "causal" in flags
         dtype = torch.float32 if "f32" in flags else torch.bfloat16
         g = torch.Generator(device="cuda").manual_seed(0)
-        q, k, v = (torch.randn(b * h, s, d, generator=g, device="cuda").to(dtype) for _ in range(3))
+        q, k, v, do = (torch.randn(b * h, s, d, generator=g, device="cuda").to(dtype) for _ in range(4))
         lens = torch.full((b * h,), s, dtype=torch.int32, device="cuda") if "varlen" in flags else None
 
         def fwd():
             return fa.flash_fwd_cuda(q, k, v, causal, d**-0.5, lens)
 
-        ms = ms_per_call(fwd)
-        flops = 4 * d * visible_pairs(b * h, s, s, causal, lens)
-        kernels = ", ".join(f"{name[:60]} {us:.1f} us" for name, us in kernel_us(fwd).items())
-        print(f"[forward] {spec}: {ms:.4f} ms a call, {flops / ms / 1e9:.1f} TFLOP/s; device time a call: {kernels}",
-              flush=True)
+        out, lse = fwd()
+
+        def bwd():
+            return fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, d**-0.5, lens)
+
+        pairs = visible_pairs(b * h, s, s, causal, lens)
+        for name, fn, flops in (("forward", fwd, 4 * d * pairs), ("backward", bwd, 10 * d * pairs)):
+            ms = ms_per_call(fn)
+            kernels = ", ".join(f"{k_name[:60]} {us:.1f} us" for k_name, us in kernel_us(fn).items())
+            print(f"[{name}] {spec}: {ms:.4f} ms a call, {flops / ms / 1e9:.1f} TFLOP/s; device time a call: {kernels}",
+                  flush=True)
     return 0
 
 

@@ -14,10 +14,12 @@ in the online softmax's rescaling); lse within 1e-3 absolute (f32, no bf16
 output rounding). The forward has no atomics and repeats bit for bit; it is
 also held at its tile edges (q lengths around its 64- and 128-row blocks,
 key counts other than the query count, varlen lengths 0, 1, 64, 127, 128
-and full). dq is summed with f32 atomics in an order that changes
-from run to run, so two runs may differ by one bf16 ulp of the larger value
-per element (plus f32 noise where terms cancel); dk and dv have no atomics
-and repeat bit for bit. The varlen mode (int32 lens per batch-head) keeps
+and full), as is the fused backward (q lengths around its 64-row blocks,
+other key counts, lengths 0, 1, 63, 64, 65, 127, 128 and full). dq is summed
+with f32 atomics in an order that changes from run to run, so two runs may
+differ by one bf16 ulp of the larger value per element (plus f32 noise where
+terms cancel); dk and dv are summed in one block each and repeat bit for
+bit. The varlen mode (int32 lens per batch-head) keeps
 these tolerances, and dk and dv at and past each length are exactly 0. The
 split backward keeps them too; it has no atomics, so dq, dk and dv all
 repeat bit for bit, and it lies within 1e-2 of the fused kernel's norm.
@@ -26,6 +28,12 @@ plain versions are not: out and the gradients keep the 1e-2 of their norm (a
 few roundings of 2^-9 each), and each row's lse is held to 1e-3 plus the
 most that rounding q*scale and k can move its largest score, (2^-8 +
 2^-18) * max_k sum_d |q_d * scale| * |k_d| (``_lse_limit_f32``).
+
+Head dims other than the kernels' 64, 128 and 256 are zero-padded by the
+wrappers (32 and 80 and 88 here): the kernels keep the tolerances above, and
+on the CPU pad -> plain version -> slice equals the plain version to f32
+summation order (1e-6). Batches of more than 65,535 batch-heads launch in
+chunks, one launch counted each.
 
 Selective scan (f32 or bf16 u/delta/B/C, both sides computing in f32 and
 differing only in summation order and in the kernels' fast exp): y within
@@ -217,9 +225,12 @@ def test_dq_varies_by_at_most_one_ulp_between_runs():
 @pytest.mark.cuda
 def test_wrappers_refuse_what_the_kernels_do_not_take():
     _needs_cuda()
-    q = _rand(2, 16, 96)
-    with pytest.raises(ValueError, match="head_dim"):
+    q = _rand(2, 16, 320)
+    with pytest.raises(ValueError, match="head_dim up to 256"):
         fa.flash_fwd_cuda(q, q, q, True, 0.1)
+    q = _rand(2, 16, 256)
+    with pytest.raises(ValueError, match="power-of-two sm_scale"):
+        fa.flash_bwd_cuda(q, q, q, q, torch.zeros(2, 16, device="cuda"), q, True, 0.1)
     q = _rand(2, 16, 64, dtype=torch.float16)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         fa.flash_fwd_cuda(q, q, q, True, 0.1)
@@ -228,6 +239,149 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
                  torch.tensor([16], dtype=torch.int32, device="cuda")):
         with pytest.raises(ValueError, match="kv_lens"):
             fa.flash_fwd_cuda(q, q, q, True, 0.1, lens)
+
+
+def _check_backward(q, k, v, do, causal, scale, kv_lens=None):
+    """The fused backward against its plain version (dq, dk, dv to NORM_REL
+    of their norm, in the input dtype), dk and dv bit for bit on a second
+    launch, dq within one bf16 ulp, dk and dv exactly 0 at and past each
+    length."""
+    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    grads = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
+    for got, want in zip(grads, fa.flash_bwd_reference(q, k, v, out, lse, do, causal, scale, kv_lens)):
+        assert got.dtype == q.dtype and got.shape == want.shape
+        _close(got, want)
+    dq2, dk2, dv2 = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
+    assert torch.equal(dk2, grads[1]) and torch.equal(dv2, grads[2])
+    ulp = torch.maximum(dq2.float().abs(), grads[0].float().abs()) * 2.0**-7
+    assert ((dq2.float() - grads[0].float()).abs() <= ulp + 1e-6).all()
+    if kv_lens is not None:
+        past = torch.arange(k.shape[1], device="cuda")[None, :] >= kv_lens[:, None]
+        assert not grads[1][past].any() and not grads[2][past].any()
+
+
+# q lengths around the fused backward's 64-row q and k blocks. One query
+# alone (q_seq 1, or a causal row 0) sees one key, where ds = p (dp - delta)
+# is rounding noise on both sides: such rows are kept to a minority.
+BWD_EDGE_SEQS = (17, 63, 64, 65, 127, 128, 129, 2049)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("seq", BWD_EDGE_SEQS)
+def test_fused_backward_at_tile_edges(seq, head_dim, causal, dtype):
+    _needs_cuda()
+    q, k, v, do = (_rand(3, seq, head_dim, seed=90 + i, dtype=dtype) for i in range(4))
+    _check_backward(q, k, v, do, causal, head_dim**-0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("q_seq,kv_seq,causal", [
+    (1, 129, False), (65, 200, True), (65, 200, False), (200, 65, True), (200, 65, False), (129, 130, True),
+    (2049, 300, True), (300, 2049, False),
+])
+def test_fused_backward_with_other_key_count(q_seq, kv_seq, causal, head_dim):
+    _needs_cuda()
+    q, do = (_rand(3, q_seq, head_dim, seed=100 + i) for i in range(2))
+    k, v = (_rand(3, kv_seq, head_dim, seed=102 + i) for i in range(2))
+    _check_backward(q, k, v, do, causal, head_dim**-0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
+def test_varlen_backward_at_tile_edges(head_dim, causal, dtype):
+    """Lens 0, 1, 63, 64, 65, 127, 128 and full (300) per batch row, 2
+    heads each: empty, one key, on and around the 64-key block edges."""
+    _needs_cuda()
+    kv_lens = _lens([0, 1, 63, 64, 65, 127, 128, 300], 2)
+    q, k, v, do = (_rand(16, 300, head_dim, seed=110 + i, dtype=dtype) for i in range(4))
+    _check_backward(q, k, v, do, causal, head_dim**-0.5, kv_lens)
+
+
+PADDED_HEAD_DIMS = (32, 80, 88)  # pythia-14m/31m, pythia-2.8b, the default ViLT trunk
+
+
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim", PADDED_HEAD_DIMS)
+def test_padded_head_dim_is_exact_in_the_plain_versions(head_dim, causal):
+    """On the CPU: the wrappers' zero padding of the head dim, then the plain
+    versions at the model's scale, then the slice back, equal the plain
+    versions at the model's head dim (f32, to summation order: 1e-6)."""
+    g = torch.Generator().manual_seed(head_dim)
+    q, k, v, do = (torch.randn(3, 70, head_dim, generator=g) for _ in range(4))
+    scale = head_dim**-0.5
+    dp = fa.kernel_head_dim(head_dim)
+    pq, pk, pv, pdo = (fa._kernel_ready(t, dp) for t in (q, k, v, do))
+    assert pq.shape[-1] == dp and not pq[..., head_dim:].any()
+    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    pout, plse = fa.flash_fwd_reference(pq, pk, pv, causal, scale)
+    assert not pout[..., head_dim:].any()
+    torch.testing.assert_close(pout[..., :head_dim], out, rtol=1e-6, atol=1e-6)
+    torch.testing.assert_close(plse, lse, rtol=1e-6, atol=1e-6)
+    grads = fa.flash_bwd_reference(q, k, v, out, lse, do, causal, scale)
+    pgrads = fa.flash_bwd_reference(pq, pk, pv, pout, plse, pdo, causal, scale)
+    for got, want in zip(pgrads, grads):
+        assert not got[..., head_dim:].any()
+        torch.testing.assert_close(got[..., :head_dim], want, rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("bh,limit,expected", [
+    (1, 65535, [(0, 1)]), (65535, 65535, [(0, 65535)]), (65536, 65535, [(0, 65535), (65535, 65536)]),
+    (7, 3, [(0, 3), (3, 6), (6, 7)]), (131070, 65535, [(0, 65535), (65535, 131070)]),
+])
+def test_bh_chunks_cover_the_batch_in_launchable_pieces(bh, limit, expected):
+    chunks = fa.bh_chunks(bh, limit)
+    assert chunks == expected
+    assert all(0 < b1 - b0 <= limit for b0, b1 in chunks) and chunks[0][0] == 0 and chunks[-1][1] == bh
+    assert all(a[1] == b[0] for a, b in zip(chunks, chunks[1:]))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim", PADDED_HEAD_DIMS)
+def test_kernels_at_padded_head_dims(head_dim, causal):
+    """The forward, fused backward and split pair at head dims the kernels
+    run zero-padded, plain and varlen mode, against the plain versions at the
+    model's head dim; each output keeps the caller's head dim."""
+    _needs_cuda()
+    q, k, v, do = (_rand(4, 130, head_dim, seed=120 + i) for i in range(4))
+    scale = head_dim**-0.5
+    for kv_lens in (None, _lens([130, 64], 2)):
+        _check_forward(q, k, v, causal, scale, kv_lens)
+        _check_backward(q, k, v, do, causal, scale, kv_lens)
+        out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+        for got, want in zip(_split(q, k, v, out, lse, do, causal, scale, kv_lens),
+                             _split_reference(q, k, v, out, lse, do, causal, scale, kv_lens)):
+            assert got.shape == want.shape
+            _close(got, want)
+
+
+@pytest.mark.cuda
+def test_kernels_launch_more_than_max_grid_y_batch_heads():
+    """65,536 batch-heads, one more than a launch grid's y dimension holds:
+    every wrapper launches twice, and the results equal the plain versions."""
+    _needs_cuda()
+    bh = fa.MAX_GRID_Y + 1
+    q, k, v, do = (_rand(bh, 16, 64, seed=130 + i) for i in range(4))
+    lens = torch.randint(0, 17, (bh,), generator=torch.Generator().manual_seed(0), dtype=torch.int32).cuda()
+    fa.reset_launch_counts()
+    for kv_lens in (None, lens):
+        _check_forward(q, k, v, True, 0.125, kv_lens)
+        out, lse = fa.flash_fwd_reference(q, k, v, True, 0.125, kv_lens)
+        for got, want in zip(fa.flash_bwd_cuda(q, k, v, out, lse, do, True, 0.125, kv_lens),
+                             fa.flash_bwd_reference(q, k, v, out, lse, do, True, 0.125, kv_lens)):
+            _close(got, want)
+        for got, want in zip(_split(q, k, v, out, lse, do, True, 0.125, kv_lens),
+                             _split_reference(q, k, v, out, lse, do, True, 0.125, kv_lens)):
+            _close(got, want)
+    counts = (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES, fa.VARLEN_FWD_LAUNCHES,
+              fa.VARLEN_BWD_LAUNCHES, fa.VARLEN_DQ_LAUNCHES, fa.VARLEN_DKV_LAUNCHES)
+    assert counts == (4, 2, 2, 2, 4, 2, 2, 2)  # _check_forward launches the forward twice
 
 
 # ---------------------------------------------------------------- varlen mode

@@ -13,6 +13,7 @@ from multimodal_llm_pretraining_tpu_torch.profile_step import device_breakdown, 
 @pytest.mark.parametrize("name, kind", [
     ("void (anonymous namespace)::flash_fwd_kernel<__nv_bfloat16, 64>(...)", "flash forward"),
     ("void (anonymous namespace)::flash_bwd_kernel<__nv_bfloat16, 64>(...)", "flash backward"),
+    ("void (anonymous namespace)::flash_bwd_prep_kernel<float>(...)", "flash backward"),
     ("void (anonymous namespace)::flash_bwd_dq_kernel<float, 64>(...)", "flash backward dq"),
     ("void (anonymous namespace)::flash_bwd_dkv_kernel<__nv_bfloat16, 256>(...)", "flash backward dkv"),
     ("scan_bwd_kernel", "scan backward"),
