@@ -31,7 +31,8 @@ Phases, one line (or a few) each; any failure exits non-zero:
    the mamba-2.8b shape ([2, 4096, 5120], d_state 16) and at a ragged shape
    ([2, 300, 96]), for f32 and bf16 inputs, plus dD through the autograd
    Function; a second backward run must repeat bit for bit; then median
-   CUDA-event times of kernel and plain version at the mamba shape (bf16).
+   CUDA-event times of kernel and plain version at the mamba shape (bf16),
+   and the backward's share of its bound beside the earlier design's time.
 7. scan slice: a two-layer narrow Mamba, f32, loss and every grad with the
    kernels against the plain chunked scan (``use_custom_kernels=False``).
 8. main path: the mamba-2.8b training step at full width and depth (64
@@ -89,8 +90,17 @@ Phases, one line (or a few) each; any failure exits non-zero:
 16. grid: all of them at 65,536 batch-heads ([4096, 16, 16, 64], plain and
     varlen), one more than a launch grid's y dimension holds: two launches
     a call.
+17. repairs: the shapes the JAX package computes that the kernels do not
+    take as such, each against its plain version: head dim 320 through
+    ``dot_product_attention(impl="flash")``, which sends it to the xla
+    branch by shape (one xla-branch call, no flash launch); the fused
+    backward at head dim 256 with scale 0.07 (its one-stage variant with a
+    k*scale tile), plain and varlen; both scan kernels at d_state 8, 24 and
+    64 (zero-padded groups of 16 states, one launch each).
 
-Main paths 5, 11 and 14 run in one session each 1 warmup step under each
+Every main path must send no attention call to the xla branch
+(``attention.XLA_BRANCH_CALLS`` stays 0). Main paths 5, 11 and 14 run in
+one session each 1 warmup step under each
 backward (``fa.PREFER_FUSED_BWD``), then 3 timed steps under each,
 interleaved fused, split, split, fused, fused, split; the median of each is
 printed, and the launch counters must show every attention backward of a
@@ -126,6 +136,7 @@ import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
 from multimodal_llm_pretraining_tpu_torch.ops import _build  # noqa: E402
+from multimodal_llm_pretraining_tpu_torch.ops import attention as attn  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.ops import selective_scan_fused as ssf  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.time_attention import ms_per_call as cuda_ms  # noqa: E402
@@ -139,7 +150,8 @@ JAX_FLASH = "multimodal_llm_pretraining_tpu/ops/flash_attention.py"
 SCAN_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/selective_scan.cu"
 JAX_SCAN = "multimodal_llm_pretraining_tpu/ops/selective_scan_pallas.py"
 SCAN_SHAPE = (2, 4096, 5120)  # mamba-2.8b: mbs 2, seq 4096, d_inner 5120 (d_state 16)
-SCAN_RAGGED = (2, 300, 96)  # L not a multiple of 256, I not a multiple of the 32-channel tile
+SCAN_RAGGED = (2, 300, 96)  # L not a multiple of 256, I not a multiple of the backward's 80-channel tile
+SCAN_BWD_EARLIER_MS = 5.485  # the earlier backward (one state a thread, synchronous staging) at SCAN_SHAPE bf16
 SLICE_SHAPE = (4, 8, 2049, 256)  # pythia-1b: mbs 4, 8 heads, seq 2049, head_dim 256
 RAGGED_SHAPE = (2, 3, 77, 64)
 # llava-pretrain at the main path's mbs 16: the decoder's attention (32
@@ -406,15 +418,16 @@ def check_forward_edges(tag: str, dtype: torch.dtype, mode: str) -> None:
         f"every second forward identical")
 
 
-def check_backward(q, k, v, do, causal: bool, kv_lens=None, out=None, lse=None) -> dict:
+def check_backward(q, k, v, do, causal: bool, kv_lens=None, out=None, lse=None, scale: float | None = None) -> dict:
     """The fused backward kernel against its plain version on the plain
-    forward's out and lse (or the given ones): dq, dk, dv finite in the
+    forward's out and lse (or the given ones), at ``scale`` (default
+    D^-0.5): dq, dk, dv finite in the
     input dtype and within TOL_NORM_REL of their norm; a second launch gives
     dk and dv bit for bit and dq within one bf16 ulp; dk and dv exactly 0 at
     and past each length. Returns the errors against the plain version, the
     largest change of dq between the two launches and the largest dk/dv
     value past the lens."""
-    scale = q.shape[-1] ** -0.5
+    scale = q.shape[-1] ** -0.5 if scale is None else scale
     if out is None:
         out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
     grads = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
@@ -694,6 +707,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     schedule, warmup = (AB_SCHEDULE, AB_WARMUP) if split_ab else ((True,) * steps, 1)
     torch.cuda.reset_peak_memory_stats()
     counters.reset_launch_counts()
+    attn.XLA_BRANCH_CALLS = 0
     losses, times = [], []
     try:
         for i, fused in enumerate(schedule):
@@ -713,6 +727,8 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
         fa.PREFER_FUSED_BWD = True
     launches = {n: getattr(counters, n) for n in names}
     peak = torch.cuda.max_memory_allocated()
+    if attn.XLA_BRANCH_CALLS != 0:
+        raise AssertionError(f"{model_type}: {attn.XLA_BRANCH_CALLS} attention calls took the xla branch")
 
     if not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{model_type}: non-finite loss: {losses}")
@@ -749,7 +765,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
         say(f"[main] {model_type} fused vs split backward, median step: {medians[True]:.4f} vs {medians[False]:.4f} s "
             f"(split / fused {medians[False] / medians[True]:.4f})")
     say(f"[main] {model_type} peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches "
-        + ", ".join(f"{n} {c}" for n, c in launches.items()))
+        + ", ".join(f"{n} {c}" for n, c in launches.items()) + ", xla-branch attention calls 0")
     return {"module": sess.module, "launches": launches,
             "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)}}
 
@@ -799,25 +815,25 @@ def phase_main_path() -> dict:
 # ---------------------------------------------------------------- selective scan
 
 
-def _scan_inputs(shape, dtype, seed: int):
+def _scan_inputs(shape, dtype, seed: int, d_state: int = 16):
     """u, delta, A, B, C, D, dy on the card; delta in (0.01, 0.51) and A in
     -(0.5, 1.5) as in the JAX suite's scan tests."""
     b, L, I = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
     u = torch.randn(b, L, I, generator=g, device="cuda").to(dtype)
     delta = (torch.rand(b, L, I, generator=g, device="cuda") * 0.5 + 0.01).to(dtype)
-    A = -(torch.rand(I, 16, generator=g, device="cuda") + 0.5)
-    B, C = (torch.randn(b, L, 16, generator=g, device="cuda").to(dtype) for _ in range(2))
+    A = -(torch.rand(I, d_state, generator=g, device="cuda") + 0.5)
+    B, C = (torch.randn(b, L, d_state, generator=g, device="cuda").to(dtype) for _ in range(2))
     D = torch.randn(I, generator=g, device="cuda")
     dy = torch.randn(b, L, I, generator=g, device="cuda")
     return u, delta, A, B, C, D, dy
 
 
-def check_scan_at(shape, dtype, seed: int = 0) -> dict:
+def check_scan_at(shape, dtype, seed: int = 0, d_state: int = 16) -> dict:
     """Both scan kernels vs their plain versions on identical inputs, dD
     through the autograd Function, and a second backward run; returns the
     errors."""
-    u, delta, A, B, C, D, dy = _scan_inputs(shape, dtype, seed)
+    u, delta, A, B, C, D, dy = _scan_inputs(shape, dtype, seed, d_state)
     y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
     y_ref, ckpt_ref = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
     grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref)
@@ -835,7 +851,7 @@ def check_scan_at(shape, dtype, seed: int = 0) -> dict:
             raise AssertionError(f"scan {name} has non-finite values at {shape} {dtype}")
         res[name] = _errs(a, b)
         tol = TOL_SCAN_Y if name == "y" else TOL_SCAN_GRAD
-        say(f"[scan] {list(shape)} N16 {str(dtype).split('.')[-1]} {name}: max_abs {res[name][0]:.3e} "
+        say(f"[scan] {list(shape)} N{d_state} {str(dtype).split('.')[-1]} {name}: max_abs {res[name][0]:.3e} "
             f"norm_rel {res[name][1]:.3e} (tol {tol:g})")
         if not res[name][1] <= tol:
             raise AssertionError(f"scan {name} norm-relative error {res[name][1]:.3e} > {tol} at {shape} {dtype}")
@@ -877,6 +893,9 @@ def phase_scan_kernels() -> list[dict]:
     bounds = {n: bound(*w) for n, w in work.items()}
     for n, b in bounds.items():
         say(f"[scan] {n} bound at {list(SCAN_SHAPE)}: {b['bound_ms']:.4f} ms ({b['bound_by']}); {bound_terms(*work[n])}")
+    say(f"[scan] backward at {list(SCAN_SHAPE)} bf16: {t['bwd']:.4f} ms a call, {bounds['bwd']['bound_ms'] / t['bwd']:.3f} "
+        f"of its bound; the earlier design's {SCAN_BWD_EARLIER_MS} ms (one state a thread, synchronous staging; "
+        f"H100 SXM, 700 W) is {SCAN_BWD_EARLIER_MS / t['bwd']:.2f}x this")
     return [
         {"name": "scan_fwd", "route": "cuda", "source": SCAN_SOURCE, "replaces": f"{JAX_SCAN}:47",
          "launches": None, "max_abs_err": errs["y"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
@@ -1285,6 +1304,68 @@ def phase_many_heads() -> None:
         say(f"[grid] {b * h} batch-heads, {'varlen' if kv_lens else 'plain'} mode: two launches a call, {got}")
 
 
+REPAIR_XLA_SHAPE = (2, 4, 300, 320)  # head dim 320: above the kernels' 256, inside the JAX kernel's 512
+REPAIR_SCALE_SHAPE = (4, 8, 300, 256)  # the fused backward at head dim 256 with scale 0.07
+REPAIR_SCALE = 0.07
+REPAIR_D_STATES = (8, 24, 64)  # the scan at d_states other than 16: zero-padded groups of 16
+
+
+def phase_repairs() -> None:
+    """The shapes the JAX package computes and the kernels once refused,
+    each against its plain version on the card: head dim 320 through
+    ``dot_product_attention(impl="flash")``, which ``flash_supported``
+    sends to the xla branch (out and the gradients through autograd against
+    the f32 ``naive`` branch, to TOL_NORM_REL: the branch rounds its
+    probabilities to bf16); the fused backward at head dim 256 with scale
+    0.07, plain and varlen (its one-stage variant with a k*scale tile, as
+    ``check_backward`` holds every backward); both scan kernels at d_state
+    8, 24 and 64 (as ``check_scan_at`` holds them at 16, one launch per
+    group of 16 states)."""
+    b, h, s, d = REPAIR_XLA_SHAPE
+    q, k, v, do = (t.view(b, h, s, d) for t in _inputs(REPAIR_XLA_SHAPE, 80))
+    fa.reset_launch_counts()
+    attn.XLA_BRANCH_CALLS = 0
+    results = {}
+    for impl in ("flash", "naive"):
+        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
+        out = attn.dot_product_attention(*leaves, causal=True, impl=impl)
+        out.backward(do.to(out.dtype))
+        results[impl] = [out, *(t.grad for t in leaves)]
+    torch.cuda.synchronize()
+    flash = {n: getattr(fa, n) for n in FLASH_COUNTERS}
+    if attn.XLA_BRANCH_CALLS != 1 or any(flash.values()):
+        raise AssertionError(f"[repairs] head dim {d}: xla-branch calls {attn.XLA_BRANCH_CALLS}, flash launches {flash}")
+    errs = {n: _errs(a, p) for n, a, p in zip(("out", "dq", "dk", "dv"), results["flash"], results["naive"])}
+    say(f"[repairs] head dim {d} {list(REPAIR_XLA_SHAPE)} bf16 causal through the xla branch (1 call, no flash "
+        f"launch): " + ", ".join(f"{n} norm_rel {r:.3e}" for n, (_, r) in errs.items()) + f" (tol {TOL_NORM_REL:g})")
+    if not all(r <= TOL_NORM_REL for _, r in errs.values()):
+        raise AssertionError(f"[repairs] the xla branch differs from the plain attention: {errs}")
+
+    b, h, s, d = REPAIR_SCALE_SHAPE
+    q, k, v, do = _inputs(REPAIR_SCALE_SHAPE, 81)
+    for lens in (None, [300, 1, 64, 0]):
+        kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
+        fa.reset_launch_counts()
+        res = check_backward(q, k, v, do, True, kv_lens, scale=REPAIR_SCALE)
+        counted = fa.BWD_LAUNCHES if lens is None else fa.VARLEN_BWD_LAUNCHES
+        if counted != 2:
+            raise AssertionError(f"[repairs] fused backward at head dim {d}: {counted} launches counted, expected 2")
+        say(f"[repairs] fused backward {list(REPAIR_SCALE_SHAPE)} bf16 causal scale {REPAIR_SCALE} lens {lens}: "
+            + ", ".join(f"{n} norm_rel {r:.3e}" for n, (_, r) in res["errs"].items())
+            + f" (tol {TOL_NORM_REL:g}); dk/dv identical on a second launch; {counted} launches counted")
+
+    for n_state in REPAIR_D_STATES:
+        ssf.reset_launch_counts()
+        check_scan_at(SCAN_RAGGED, torch.bfloat16, seed=82, d_state=n_state)
+        groups = -(-n_state // 16)
+        got = (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES)
+        # check_scan_at: one forward, then backwards by the wrapper, the autograd Function and once more
+        if got != (2 * groups, 3 * groups):
+            raise AssertionError(f"[repairs] scan at d_state {n_state}: launches {got}, expected "
+                                 f"({2 * groups}, {3 * groups})")
+        say(f"[repairs] scan d_state {n_state}: {groups} group(s) of 16 states a call, launches fwd {got[0]} bwd {got[1]}")
+
+
 def main() -> int:
     card = phase_env()
     phase_build()
@@ -1309,6 +1390,7 @@ def main() -> int:
     add(phase_vit_main_path())
     phase_head_dims()
     phase_many_heads()
+    phase_repairs()
     for k in kernels:
         k["launches"] = launches[k["name"]]
     say(json.dumps({"kernels": kernels}))

@@ -30,10 +30,11 @@
 // bf16(k*scale) is k*scale exactly, and so is the f32 product scaled after
 // the fact: the scores are multiplied by the scale in registers, and no
 // scaled k tile is made (at D=256 there is no shared memory for one).
-// Otherwise (D=128, and the head dims padded to 64 or 128) bf16(k*scale) is
-// formed once per block in its own tile of shared memory from the loaded k
-// tile (a same-offset pass keeps the swizzle), then fence.proxy.async. The
-// wrapper refuses D=256 with a scale that is not a power of two.
+// Otherwise (D=128, the head dims padded to 64 or 128, and D=256 with another
+// scale) bf16(k*scale) is formed once per block in its own tile of shared
+// memory from the loaded k tile (a same-offset pass keeps the swizzle), then
+// fence.proxy.async. At D=256 that tile takes the room of the ring's second
+// q/dO stage (STAGES = 1), so only that case loads q and dO a block at a time.
 //
 // What bounds it on this card (H100 SXM: 989 TFLOP/s bf16, 3.35 TB/s), at
 // the main paths' shapes: pythia-1b [4*8, 2049, 256] causal and the llava
@@ -77,7 +78,8 @@
 //            16 registers each) and dK, dV, dQ for D columns [64w, 64w + 64)
 //            (32 each).
 //     D=256: as D=128 without the k*scale tile, 2 x 32 + 2 x 64 + 32 = 224
-//            KB of the 227; a consumer holds S^T, dP^T (16 each), dK and dV
+//            KB of the 227 (a scale that is not a power of two: k, k*scale,
+//            v 3 x 32 + one q/dO stage 64 + 32 = 192 KB); a consumer holds S^T, dP^T (16 each), dK and dV
 //            for its 128 columns (64 each) and one 64-column dQ region (32):
 //            192 registers of its 232. (64 keys of dK and dV over one
 //            warpgroup would be 256 registers a thread, over the 255 limit.)
@@ -98,10 +100,13 @@
 
 namespace {
 
-constexpr int STAGES = 2;
-
-template <int D>
+// STAGES: the q/dO ring's depth; KS: room for a k*scale tile. Every head dim
+// runs STAGES = 2, with KS at D <= 128; D = 256 with a scale that is not a
+// power of two runs the one-stage variant, whose freed stage holds k*scale.
+template <int D, int STAGES_ = 2, bool KS_ = D != 256>
 struct BwdTile {
+  static constexpr int STAGES = STAGES_;
+  static constexpr bool KS = KS_;
   static constexpr int CONSUMERS = D == 64 ? 1 : 2;
   static constexpr int THREADS = CONSUMERS == 1 ? 160 : 384;
   static constexpr int MIN_BLOCKS = CONSUMERS == 1 ? 2 : 1;
@@ -109,7 +114,6 @@ struct BwdTile {
   static constexpr int QCOLS = BQ / CONSUMERS;    // S^T columns (queries) per consumer warpgroup
   static constexpr int REGIONS = D / 64;          // 64-column (128-byte) boxes per row
   static constexpr int DREG = REGIONS / CONSUMERS;  // regions of dK, dV, dQ per consumer warpgroup
-  static constexpr bool KS = D != 256;            // room for a k*scale tile
   static constexpr int KV_BYTES = BK * D * 2;     // one k (or v) tile
   static constexpr int Q_BYTES = BQ * D * 2;      // one q (or dO) tile
   static constexpr int PS_BYTES = BK * BQ * 2;    // one P^T (or dS^T) tile
@@ -172,14 +176,14 @@ __global__ void __launch_bounds__(PREP_THREADS)
 
 // ---------------------------------------------------------------- the kernel
 
-template <int D, typename OutT>
-__global__ void __launch_bounds__(BwdTile<D>::THREADS, BwdTile<D>::MIN_BLOCKS)
+template <int D, typename OutT, int STAGES, bool KS>
+__global__ void __launch_bounds__(BwdTile<D, STAGES, KS>::THREADS, BwdTile<D, STAGES, KS>::MIN_BLOCKS)
     flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
                      const float* __restrict__ lse, const float* __restrict__ delta,
                      const int* __restrict__ kv_lens, float* __restrict__ dq, OutT* __restrict__ dk,
                      OutT* __restrict__ dv, int q_seq, int kv_seq, int causal, float sm_scale, int scale_k) {
-  using L = BwdTile<D>;
+  using L = BwdTile<D, STAGES, KS>;
   constexpr int BK = L::BK, BQ = L::BQ, QCOLS = L::QCOLS, DREG = L::DREG;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -432,14 +436,13 @@ bool power_of_two(float x) {
   return x > 0.f && frexpf(x, &e) == 0.5f;
 }
 
-template <int D, typename OutT>
+template <int D, typename OutT, int STAGES = 2, bool KS = D != 256>
 int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* o_in, const void* do_in,
                const float* lse_in, float* lse, float* delta, const int* kv_lens, float* dq, void* dk, void* dv,
                int bh, int q_seq, int kv_seq, int causal, float sm_scale, cudaStream_t stream) {
-  using L = BwdTile<D>;
+  using L = BwdTile<D, STAGES, KS>;
   static_assert(L::launch_bytes <= 232448, "backward tile set exceeds the 227 KB a block may use");
   const int scale_k = power_of_two(sm_scale) ? 0 : 1;
-  if (scale_k && !L::KS) return (int)cudaErrorInvalidValue;  // no room for a k*scale tile
   const int stats_stride = cdiv(q_seq, L::BQ) * L::BQ;
   const long rows = (long)bh * stats_stride;
   flash_bwd_prep_kernel<OutT><<<(unsigned)((rows + PREP_THREADS / PREP_LANES - 1) / (PREP_THREADS / PREP_LANES)),
@@ -455,10 +458,11 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
       !encode_rows(fn, &tk, k, bh, kv_seq, D, L::BK) || !encode_rows(fn, &tv, v, bh, kv_seq, D, L::BK))
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      cudaFuncSetAttribute(flash_bwd_kernel<D, OutT>, cudaFuncAttributeMaxDynamicSharedMemorySize, L::launch_bytes);
+      cudaFuncSetAttribute(flash_bwd_kernel<D, OutT, STAGES, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           L::launch_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(cdiv(kv_seq, L::BK), bh);
-  flash_bwd_kernel<D, OutT><<<grid, L::THREADS, L::launch_bytes, stream>>>(
+  flash_bwd_kernel<D, OutT, STAGES, KS><<<grid, L::THREADS, L::launch_bytes, stream>>>(
       tq, tk, tv, tdo, lse, delta, kv_lens, dq, static_cast<OutT*>(dk), static_cast<OutT*>(dv), q_seq, kv_seq,
       causal, sm_scale, scale_k);
   return (int)cudaGetLastError();
@@ -473,7 +477,7 @@ int launch_bwd(const void* q, const void* k, const void* v, const void* dout, co
 // cdiv(q_seq, 64) * 64] that the first launch fills. dq: a zeroed f32 [bh,
 // q_seq, D] that the kernel adds into. dtype is the input type and dk's and
 // dv's: 0 = bfloat16, 1 = float32. kv_lens: int32 [bh] on the device for the
-// varlen mode, or nullptr. At D=256 sm_scale must be a power of two. Returns
+// varlen mode, or nullptr. Returns
 // the cudaError_t of the launches (0 on success); nothing is allocated and
 // nothing synchronises.
 extern "C" int mlpt_flash_bwd(const void* q, const void* k, const void* v, const void* dout, const void* o_in,
@@ -485,15 +489,23 @@ extern "C" int mlpt_flash_bwd(const void* q, const void* k, const void* v, const
 #define MLPT_BWD(D, T)                                                                                            \
   return launch_bwd<D, T>(q, k, v, dout, o_in, do_in, lse_in, lse, delta, kv_lens, dq, dk, dv, bh, q_seq, kv_seq, \
                           causal, sm_scale, s)
+  // D = 256 with a scale that is not a power of two: one q/dO stage and a k*scale tile
+#define MLPT_BWD_256_SCALED(T)                                                                                 \
+  return launch_bwd<256, T, 1, true>(q, k, v, dout, o_in, do_in, lse_in, lse, delta, kv_lens, dq, dk, dv, bh, \
+                                     q_seq, kv_seq, causal, sm_scale, s)
+  const bool scaled_256 = head_dim == 256 && !power_of_two(sm_scale);
   if (dtype == 0) {
     if (head_dim == 64) MLPT_BWD(64, bf16);
     if (head_dim == 128) MLPT_BWD(128, bf16);
+    if (scaled_256) MLPT_BWD_256_SCALED(bf16);
     if (head_dim == 256) MLPT_BWD(256, bf16);
   } else if (dtype == 1) {
     if (head_dim == 64) MLPT_BWD(64, float);
     if (head_dim == 128) MLPT_BWD(128, float);
+    if (scaled_256) MLPT_BWD_256_SCALED(float);
     if (head_dim == 256) MLPT_BWD(256, float);
   }
 #undef MLPT_BWD
+#undef MLPT_BWD_256_SCALED
   return (int)cudaErrorInvalidValue;
 }

@@ -19,7 +19,10 @@ make for the kernel (32 -> 64, 80 -> 128, 88 -> 128), keeping the caller's
 exact zeros to every score, out's padded columns are 0 (v is 0 there), and
 dq, dk, dv are 0 there (k, q, dO are 0 there). The launch grid's y dimension
 holds at most ``MAX_GRID_Y`` batch-heads, so the wrappers launch larger
-batches in contiguous chunks (``bh_chunks``), each launch counted.
+batches in contiguous chunks (``bh_chunks``), each launch counted. Head
+dims above 256 never reach the kernels: ``flash_supported`` sends them to
+the dispatcher's ``xla`` branch (``ops/attention.py``), and the wrappers
+raise on them.
 
 ``PREFER_FUSED_BWD`` chooses the backward, as in the JAX package (``:440-451``):
 set from ``MLPT_FLASH_FUSED_BWD`` (default on; ``0`` takes the split
@@ -48,7 +51,6 @@ and dk, dv are exactly 0 there. ``flash_attention(..., kv_len_mask=m)``
 reduces a [B, Sk] keep-mask to lens as the JAX package does (``:694-697``).
 """
 
-import math
 import os
 
 import torch
@@ -178,7 +180,18 @@ def kernel_head_dim(head_dim: int) -> int:
         if head_dim <= d:
             return d
     raise ValueError(f"flash attention kernels take head_dim up to {KERNEL_HEAD_DIMS[-1]}, got {head_dim} "
-                     "(ROADMAP Queue 3: head dims above 256)")
+                     "(dot_product_attention sends larger head dims to its xla branch)")
+
+
+def flash_supported(q, k, v, mask) -> bool:
+    """Whether ``dot_product_attention(impl="flash")`` takes the kernels, by
+    shape alone: the contract of the JAX ``flash_supported`` (``:35-42``),
+    [B, H, S, D] q, k, v and a None or [B, Sk] keep-mask, with the kernels'
+    largest head dim in place of the TPU kernel's 512. Anything else takes
+    the dispatcher's ``xla`` branch."""
+    if not (q.ndim == 4 and k.ndim == 4 and v.ndim == 4 and q.shape[-1] <= KERNEL_HEAD_DIMS[-1]):
+        return False
+    return mask is None or (mask.ndim == 2 and mask.shape[0] == q.shape[0] and mask.shape[1] == k.shape[2])
 
 
 def bh_chunks(bh: int, limit: int = MAX_GRID_Y) -> list[tuple[int, int]]:
@@ -281,9 +294,9 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, sm_scale: float, kv_le
     written as zeros. The kernel reads bf16 q, k, v and dO: f32 inputs are
     rounded here, and dk and dv come back in f32; its first launch takes
     delta = rowsum(dO * out) from out and dO in the input dtype. At head dim
-    256 (padded or not) the scale must be a power of two, which the model's
-    own 1/16 is: the kernel then scales the f32 scores, having no shared
-    memory left for a k*scale tile."""
+    256 (padded or not) a power-of-two scale, as the model's own 1/16, is
+    applied to the f32 scores; any other scale runs the kernel's one-stage
+    variant, which has room for a k*scale tile."""
     global BWD_LAUNCHES, VARLEN_BWD_LAUNCHES
     bh, q_seq, d = q.shape
     _check_kernel_inputs((q, k, v, out, dout), d)
@@ -294,9 +307,6 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, sm_scale: float, kv_le
     if lse.device != q.device:
         raise ValueError(f"lse lies on {lse.device}, the other inputs on {q.device}")
     dp = kernel_head_dim(d)
-    if dp == KERNEL_HEAD_DIMS[-1] and math.frexp(sm_scale)[0] != 0.5:
-        raise ValueError(f"the fused backward takes head_dim {dp} with a power-of-two sm_scale only, got {sm_scale} "
-                         "(ROADMAP Queue 3: custom scales at head_dim 256)")
     kv_lens = _checked_lens(kv_lens, bh, q.device)
     out, dout = (_kernel_ready(t, dp) for t in (out, dout))
     qb, kb, vb, dob = (_kernel_ready(t.to(torch.bfloat16), dp) for t in (q, k, v, dout))

@@ -15,18 +15,26 @@ each 256-step chunk, f32 [B, ceil(L / 256), N, I] (the TPU kernel's
 ``du += D * g`` term and ``dD`` stay in ``SelectiveScanFused``, in f32, as in
 the JAX custom VJP.
 
+The kernels run 16 states a launch. Any other d_state N is zero-padded to a
+multiple of 16, as the JAX kernels pad it to a multiple of 8
+(``selective_scan_pallas.py:96-100``), and each group of 16 states is one
+launch on its own copies of A, B and C (``state_groups``, ``grouped_fwd``,
+``grouped_bwd``); at N = 16 that is one launch on the inputs as given.
+
 Which version runs is decided by where the tensors lie, and nothing else:
 CPU tensors take the plain versions, CUDA tensors launch the kernels or
 raise. There is no fallback from a kernel to its plain version.
 """
 
 import torch
+import torch.nn.functional as F
 
 from . import _build
 
 SCAN_CHUNK = 256  # checkpoint interval, the TPU kernel's DEFAULT_BLOCK_L
-KERNEL_D_STATE = 16  # the kernels give one lane to each state: Mamba's d_state
-CHANNELS_PER_BLOCK = 32  # the backward kernel's channel tile: dB/dC partials per tile
+KERNEL_D_STATE = 16  # states a launch (Mamba's d_state); other d_states run in zero-padded groups of 16
+BWD_CHANNELS_PER_BLOCK = 80  # the backward kernel's channel tile: dB/dC partials per tile
+BWD_CHANNEL_MULTIPLE = 8  # the backward's tensor maps take rows of whole 16 bytes: I padded to a multiple
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # Kernel launches in this process, counted by the wrappers right where they
@@ -125,12 +133,76 @@ def selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt):
     return du, ddelta, dA, dB, dC
 
 
+# ---------------------------------------------------------------- state groups
+
+
+def padded_d_state(n: int) -> int:
+    """The d_state the kernels run ``n`` states at: the next multiple of
+    ``KERNEL_D_STATE``."""
+    return -(-n // KERNEL_D_STATE) * KERNEL_D_STATE
+
+
+def state_groups(A, B, C) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor]]:
+    """(A, B, C) of each group of ``KERNEL_D_STATE`` states, contiguous, the
+    state dim zero-padded to a whole number of groups; at d_state 16 the
+    inputs themselves, uncopied. The padding is exact: a padded state has A
+    = 0 (da = 1), B = 0 and a zero entry state, so it stays 0, and C = 0,
+    so it adds 0 to y; in the backward its cotangent C dy + da G stays 0, so
+    it adds 0 to du, ddelta, dA, dB and dC."""
+    n = A.shape[-1]
+    if n == KERNEL_D_STATE:
+        return [(A, B, C)]
+    pad = padded_d_state(n) - n
+    A, B, C = (F.pad(t, (0, pad)) for t in (A, B, C))
+    return [tuple(t[..., g:g + KERNEL_D_STATE].contiguous() for t in (A, B, C))
+            for g in range(0, n + pad, KERNEL_D_STATE)]
+
+
+def grouped_fwd(fwd, u, delta, A, B, C):
+    """The forward at any d_state through ``fwd`` (a forward at 16 states:
+    the kernel's launch, or in the CPU tests the plain version): y summed
+    over the groups in their order, so a second run repeats the first, and
+    the checkpoints concatenated along the state dim and sliced back to N."""
+    n = A.shape[-1]
+    outs = [fwd(u, delta, *g) for g in state_groups(A, B, C)]
+    if n == KERNEL_D_STATE:
+        return outs[0]
+    y = outs[0][0]
+    for o in outs[1:]:
+        y = y + o[0]
+    return y, torch.cat([o[1] for o in outs], dim=2)[:, :, :n]
+
+
+def grouped_bwd(bwd, u, delta, A, B, C, dy, ckpt):
+    """The backward at any d_state through ``bwd`` (a backward at 16
+    states): du and ddelta summed over the groups in their order, dA, dB and
+    dC concatenated along the state dim and sliced back to N; the checkpoint
+    zero-padded as the states are."""
+    n = A.shape[-1]
+    if n == KERNEL_D_STATE:
+        return bwd(u, delta, A, B, C, dy, ckpt)
+    ckpt = F.pad(ckpt, (0, 0, 0, padded_d_state(n) - n))
+    outs = [bwd(u, delta, *g, dy, ckpt[:, :, k * KERNEL_D_STATE:(k + 1) * KERNEL_D_STATE].contiguous())
+            for k, g in enumerate(state_groups(A, B, C))]
+    du, ddelta = outs[0][0], outs[0][1]
+    for o in outs[1:]:
+        du, ddelta = du + o[0], ddelta + o[1]
+    dA, dB, dC = (torch.cat([o[k] for o in outs], dim=-1)[..., :n] for k in (2, 3, 4))
+    return du, ddelta, dA, dB, dC
+
+
 # ---------------------------------------------------------------- kernel wrappers
+
+
+def _aligned(t: torch.Tensor) -> torch.Tensor:
+    """Contiguous with a 16-byte aligned base (the backward's TMA copies need one)."""
+    t = t.contiguous()
+    return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
 def _kernel_inputs(u, delta, A, B, C):
     """Check what the kernels take and return the tensors ready for them:
-    contiguous, and A as f32."""
+    contiguous and aligned, and A as f32."""
     if u.device.type != "cuda":
         raise ValueError(f"selective-scan kernels take CUDA tensors, got {u.device}")
     if u.dtype not in _DTYPE_CODE:
@@ -147,43 +219,70 @@ def _kernel_inputs(u, delta, A, B, C):
     N = A.shape[-1]
     if A.shape != (I, N) or B.shape != (bsz, L, N) or C.shape != (bsz, L, N):
         raise ValueError(f"selective-scan shapes disagree: A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}")
-    if N != KERNEL_D_STATE:
-        raise ValueError(f"selective-scan kernels take d_state {KERNEL_D_STATE}, got {N}")
-    if bsz == 0 or L == 0 or I == 0:
-        raise ValueError(f"selective-scan kernels take non-empty inputs, got {tuple(u.shape)}")
-    return u.contiguous(), delta.contiguous(), A.float().contiguous(), B.contiguous(), C.contiguous()
+    if bsz == 0 or L == 0 or I == 0 or N == 0:
+        raise ValueError(f"selective-scan kernels take non-empty inputs, got {tuple(u.shape)} and d_state {N}")
+    return _aligned(u), _aligned(delta), _aligned(A.float()), _aligned(B), _aligned(C)
 
 
 def _n_chunks(L: int) -> int:
     return -(-L // SCAN_CHUNK)
 
 
-def selective_scan_fwd_cuda(u, delta, A, B, C):
-    """Launch the forward kernel; returns (y f32 [B, L, I] before the D skip,
-    checkpoint f32 [B, ceil(L / 256), N, I])."""
+def _launch_fwd(u, delta, A, B, C):
+    """One forward launch at 16 states."""
     global FWD_LAUNCHES
-    u, delta, A, B, C = _kernel_inputs(u, delta, A, B, C)
     bsz, L, I = u.shape
-    N = A.shape[1]
     lib = _build.load()
     y = torch.empty(bsz, L, I, dtype=torch.float32, device=u.device)
-    ckpt = torch.empty(bsz, _n_chunks(L), N, I, dtype=torch.float32, device=u.device)
+    ckpt = torch.empty(bsz, _n_chunks(L), KERNEL_D_STATE, I, dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         err = lib.mlpt_scan_fwd(
             u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), ckpt.data_ptr(),
-            bsz, L, I, N, _DTYPE_CODE[u.dtype], torch.cuda.current_stream(u.device).cuda_stream,
+            bsz, L, I, KERNEL_D_STATE, _DTYPE_CODE[u.dtype], torch.cuda.current_stream(u.device).cuda_stream,
         )
     _build.check(lib, err, "selective-scan forward kernel")
     FWD_LAUNCHES += 1
     return y, ckpt
 
 
-def selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt):
-    """Launch the backward kernel; returns (du, ddelta, dA, dB, dC) f32 of y
-    before the D skip. dA comes from the kernel as one partial per batch
-    element and dB, dC as one partial per 32-channel tile; they are summed
-    here, so two runs give identical results."""
+def _launch_bwd(u, delta, A, B, C, dy, ckpt):
+    """One backward launch at 16 states, I a multiple of 8; dA, dB and dC
+    come back as partials and are summed here in a fixed order."""
     global BWD_LAUNCHES
+    bsz, L, I = u.shape
+    n_tiles = -(-I // BWD_CHANNELS_PER_BLOCK)
+    lib = _build.load()
+    f32 = dict(dtype=torch.float32, device=u.device)
+    du = torch.empty(bsz, L, I, **f32)
+    ddelta = torch.empty(bsz, L, I, **f32)
+    dA_part = torch.empty(bsz, KERNEL_D_STATE, I, **f32)
+    dB_part = torch.empty(n_tiles, bsz, L, KERNEL_D_STATE, **f32)
+    dC_part = torch.empty(n_tiles, bsz, L, KERNEL_D_STATE, **f32)
+    with torch.cuda.device(u.device):
+        err = lib.mlpt_scan_bwd(
+            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(), ckpt.data_ptr(),
+            du.data_ptr(), ddelta.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
+            bsz, L, I, KERNEL_D_STATE, _DTYPE_CODE[u.dtype], torch.cuda.current_stream(u.device).cuda_stream,
+        )
+    _build.check(lib, err, "selective-scan backward kernel")
+    BWD_LAUNCHES += 1
+    return du, ddelta, dA_part.sum(0).t(), dB_part.sum(0), dC_part.sum(0)
+
+
+def selective_scan_fwd_cuda(u, delta, A, B, C):
+    """Launch the forward kernel, once per group of 16 states; returns (y
+    f32 [B, L, I] before the D skip, checkpoint f32 [B, ceil(L / 256), N,
+    I])."""
+    return grouped_fwd(_launch_fwd, *_kernel_inputs(u, delta, A, B, C))
+
+
+def selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt):
+    """Launch the backward kernel, once per group of 16 states; returns
+    (du, ddelta, dA, dB, dC) f32 of y before the D skip. dA comes from the
+    kernel as one partial per batch element and dB, dC as one partial per
+    80-channel tile; they are summed here, so two runs give identical
+    results. I is zero-padded to a multiple of 8 for the kernel's tensor
+    maps where it is not one (exact: a zero channel adds nothing)."""
     u, delta, A, B, C = _kernel_inputs(u, delta, A, B, C)
     bsz, L, I = u.shape
     N = A.shape[1]
@@ -191,25 +290,15 @@ def selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt):
         raise ValueError(f"dy must be [B, L, I] on {u.device}, got {tuple(dy.shape)} on {dy.device}")
     if ckpt.shape != (bsz, _n_chunks(L), N, I) or ckpt.device != u.device:
         raise ValueError(f"checkpoint must be [B, ceil(L / {SCAN_CHUNK}), N, I] on {u.device}, got {tuple(ckpt.shape)}")
-    dy = dy.float().contiguous()
-    ckpt = ckpt.float().contiguous()
-    n_tiles = -(-I // CHANNELS_PER_BLOCK)
-    lib = _build.load()
-    f32 = dict(dtype=torch.float32, device=u.device)
-    du = torch.empty(bsz, L, I, **f32)
-    ddelta = torch.empty(bsz, L, I, **f32)
-    dA_part = torch.empty(bsz, N, I, **f32)
-    dB_part = torch.empty(n_tiles, bsz, L, N, **f32)
-    dC_part = torch.empty(n_tiles, bsz, L, N, **f32)
-    with torch.cuda.device(u.device):
-        err = lib.mlpt_scan_bwd(
-            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(), ckpt.data_ptr(),
-            du.data_ptr(), ddelta.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
-            bsz, L, I, N, _DTYPE_CODE[u.dtype], torch.cuda.current_stream(u.device).cuda_stream,
-        )
-    _build.check(lib, err, "selective-scan backward kernel")
-    BWD_LAUNCHES += 1
-    return du, ddelta, dA_part.sum(0).t(), dB_part.sum(0), dC_part.sum(0)
+    dy, ckpt = _aligned(dy.float()), _aligned(ckpt.float())
+    pad = -I % BWD_CHANNEL_MULTIPLE
+    if pad:
+        u, delta, dy, ckpt = (F.pad(t, (0, pad)) for t in (u, delta, dy, ckpt))
+        A = F.pad(A, (0, 0, 0, pad))
+    du, ddelta, dA, dB, dC = grouped_bwd(_launch_bwd, u, delta, A, B, C, dy, ckpt)
+    if pad:
+        du, ddelta, dA = du[..., :I], ddelta[..., :I], dA[:I]
+    return du, ddelta, dA, dB, dC
 
 
 def _fwd(u, delta, A, B, C):

@@ -39,7 +39,12 @@ Selective scan (f32 or bf16 u/delta/B/C, both sides computing in f32 and
 differing only in summation order and in the kernels' fast exp): y within
 1e-4 of its norm, the checkpoint and the five gradients within 1e-3 (dA and
 dB sum thousands of terms). The backward kernel sums its partials outside
-the kernel with no atomics, so two runs repeat bit for bit.
+the kernel with no atomics, so two runs repeat bit for bit. The kernels run
+16 states a launch: other d_states (1, 8, 12, 24, 64 here) go in
+zero-padded groups of 16. The backward is also held at its tile edges (L
+around its 8-step groups and 256-step chunks, I around its 80-channel tiles
+and not a multiple of 8). The fused backward at head dim 256 takes any
+scale (0.07, and 200^-0.5 at D=200 padded to 256).
 """
 
 import pytest
@@ -228,9 +233,12 @@ def test_wrappers_refuse_what_the_kernels_do_not_take():
     q = _rand(2, 16, 320)
     with pytest.raises(ValueError, match="head_dim up to 256"):
         fa.flash_fwd_cuda(q, q, q, True, 0.1)
-    q = _rand(2, 16, 256)
-    with pytest.raises(ValueError, match="power-of-two sm_scale"):
-        fa.flash_bwd_cuda(q, q, q, q, torch.zeros(2, 16, device="cuda"), q, True, 0.1)
+    # head_dim 256 with a scale that is not a power of two: no longer refused
+    q, k, v, do = (_rand(2, 16, 256, seed=140 + i) for i in range(4))
+    out, lse = fa.flash_fwd_reference(q, k, v, False, 0.1)
+    for got, want in zip(fa.flash_bwd_cuda(q, k, v, out, lse, do, False, 0.1),
+                         fa.flash_bwd_reference(q, k, v, out, lse, do, False, 0.1)):
+        _close(got, want)
     q = _rand(2, 16, 64, dtype=torch.float16)
     with pytest.raises(ValueError, match="bfloat16 or float32"):
         fa.flash_fwd_cuda(q, q, q, True, 0.1)
@@ -301,6 +309,22 @@ def test_varlen_backward_at_tile_edges(head_dim, causal, dtype):
     kv_lens = _lens([0, 1, 63, 64, 65, 127, 128, 300], 2)
     q, k, v, do = (_rand(16, 300, head_dim, seed=110 + i, dtype=dtype) for i in range(4))
     _check_backward(q, k, v, do, causal, head_dim**-0.5, kv_lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("varlen", [False, True])
+@pytest.mark.parametrize("head_dim,scale", [(256, 0.07), (200, 200**-0.5)])
+@pytest.mark.parametrize("causal", [True, False])
+def test_fused_backward_at_d256_with_any_scale(head_dim, scale, causal, varlen):
+    """Head dim 256 (or 200 zero-padded to 256) with a scale that is not a
+    power of two: the kernel's one-stage variant with its k*scale tile,
+    plain and varlen mode, held as ``_check_backward`` holds the others."""
+    _needs_cuda()
+    kv_lens = _lens([0, 1, 63, 64, 65, 300], 2) if varlen else None
+    q, k, v, do = (_rand(12, 300, head_dim, seed=130 + i) for i in range(4))
+    before = fa.VARLEN_BWD_LAUNCHES if varlen else fa.BWD_LAUNCHES
+    _check_backward(q, k, v, do, causal, scale, kv_lens)
+    assert (fa.VARLEN_BWD_LAUNCHES if varlen else fa.BWD_LAUNCHES) == before + 2
 
 
 PADDED_HEAD_DIMS = (32, 80, 88)  # pythia-14m/31m, pythia-2.8b, the default ViLT trunk
@@ -606,7 +630,7 @@ def test_scan_function_takes_plain_versions_on_cpu_without_launching():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_kernels_match_plain_versions(shape, dtype):
     """Ragged L (not a multiple of 256 or of the kernels' tiles) and ragged I
-    (not a multiple of the 32-channel tile)."""
+    (not a multiple of the kernels' channel tiles)."""
     _needs_cuda()
     u, delta, A, B, C, dy = _scan_inputs(*shape, seed=sum(shape), dtype=dtype)
     y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
@@ -658,9 +682,70 @@ def test_scan_function_launches_kernels_and_adds_the_skip():
 @pytest.mark.cuda
 def test_scan_wrappers_refuse_what_the_kernels_do_not_take():
     _needs_cuda()
-    u, delta, A, B, C, _ = _scan_inputs(1, 8, 4, N=8)
-    with pytest.raises(ValueError, match="d_state 16"):
-        ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
+    # d_state 8 is no longer refused: the wrapper zero-pads it to 16
+    u, delta, A, B, C, dy = _scan_inputs(1, 8, 4, N=8)
+    y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
+    y_ref, ckpt_ref = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
+    _close(y, y_ref, SCAN_Y_NORM_REL)
+    assert ckpt.shape == ckpt_ref.shape == (1, 1, 8, 4)
+    for got, want in zip(ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref),
+                         ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt_ref)):
+        _close(got, want, SCAN_GRAD_NORM_REL)
     u, delta, A, B, C, _ = _scan_inputs(1, 8, 4)
     with pytest.raises(ValueError, match="one dtype"):
         ssf.selective_scan_fwd_cuda(u, delta.to(torch.bfloat16), A, B, C)
+
+
+def _check_scan(u, delta, A, B, C, dy):
+    """Both scan kernels against their plain versions (y to SCAN_Y_NORM_REL,
+    the checkpoint and gradients to SCAN_GRAD_NORM_REL of their norms, a
+    gradient that is exactly 0 in the plain version exactly 0) and the
+    backward bit for bit on a second run."""
+    y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
+    y_ref, ckpt_ref = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
+    _close(y, y_ref, SCAN_Y_NORM_REL)
+    assert ckpt.shape == ckpt_ref.shape
+    if ckpt.shape[1] > 1:
+        _close(ckpt[:, 1:], ckpt_ref[:, 1:], SCAN_GRAD_NORM_REL)
+    grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref)
+    for got, want in zip(grads, ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt_ref)):
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        if want.any():
+            _close(got, want, SCAN_GRAD_NORM_REL)
+        else:  # dA at L = 1: its one term has the zero entry state, on both sides
+            assert not got.any()
+    for a, b in zip(grads, ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("N", [1, 8, 12, 24, 64])
+def test_scan_kernels_at_any_d_state(N):
+    """d_state zero-padded to a multiple of 16, one launch per group of 16."""
+    _needs_cuda()
+    ssf.reset_launch_counts()
+    _check_scan(*_scan_inputs(2, 300, 96, N=N, seed=N, dtype=torch.bfloat16))
+    groups = -(-N // 16)
+    assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES) == (groups, 2 * groups)
+
+
+# the backward's tile edges: 8-step groups, 256-step chunks, 80-channel
+# tiles, and I not a multiple of 8 (zero-padded by the wrapper)
+SCAN_EDGE_L = (1, 7, 8, 9, 15, 16, 17, 255, 256, 257, 4096)
+SCAN_EDGE_I = (1, 31, 33, 79, 80, 81, 100, 5120)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", SCAN_EDGE_L)
+def test_scan_backward_at_step_edges(L, dtype):
+    _needs_cuda()
+    _check_scan(*_scan_inputs(2, L, 33, seed=L, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("I", SCAN_EDGE_I)
+def test_scan_backward_at_channel_edges(I, dtype):
+    _needs_cuda()
+    _check_scan(*_scan_inputs(2, 257, I, seed=I, dtype=dtype))
