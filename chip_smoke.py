@@ -29,10 +29,13 @@ Phases, one line (or a few) each; any failure exits non-zero:
    call of the run on the kernels.
 6. scan kernels: both selective-scan kernels against their plain versions at
    the mamba-2.8b shape ([2, 4096, 5120], d_state 16) and at a ragged shape
-   ([2, 300, 96]), for f32 and bf16 inputs, plus dD through the autograd
-   Function; a second backward run must repeat bit for bit; then median
-   CUDA-event times of kernel and plain version at the mamba shape (bf16),
-   and the backward's share of its bound beside the earlier design's time.
+   ([2, 300, 96]), for f32 and bf16 inputs: the forward before the D skip
+   and with it (the skip and the cast in the kernel's epilogue), plus dD
+   through the autograd Function; a second forward and a second backward
+   must repeat bit for bit; then median CUDA-event times of kernel and plain
+   version at the mamba shape (bf16; the forward with D, as the Function
+   runs it), and each kernel's share of its bound beside its earlier
+   design's time.
 7. scan slice: a two-layer narrow Mamba, f32, loss and every grad with the
    kernels against the plain chunked scan (``use_custom_kernels=False``).
 8. main path: the mamba-2.8b training step at full width and depth (64
@@ -96,7 +99,8 @@ Phases, one line (or a few) each; any failure exits non-zero:
     branch by shape (one xla-branch call, no flash launch); the fused
     backward at head dim 256 with scale 0.07 (its one-stage variant with a
     k*scale tile), plain and varlen; both scan kernels at d_state 8, 24 and
-    64 (zero-padded groups of 16 states, one launch each).
+    64 (zero-padded groups of 16 states, one launch each) and at 65,536
+    batch elements (two launches a call).
 
 Every main path must send no attention call to the xla branch
 (``attention.XLA_BRANCH_CALLS`` stays 0). Main paths 5, 11 and 14 run in
@@ -152,6 +156,7 @@ JAX_SCAN = "multimodal_llm_pretraining_tpu/ops/selective_scan_pallas.py"
 SCAN_SHAPE = (2, 4096, 5120)  # mamba-2.8b: mbs 2, seq 4096, d_inner 5120 (d_state 16)
 SCAN_RAGGED = (2, 300, 96)  # L not a multiple of 256, I not a multiple of the backward's 80-channel tile
 SCAN_BWD_EARLIER_MS = 5.485  # the earlier backward (one state a thread, synchronous staging) at SCAN_SHAPE bf16
+SCAN_FWD_EARLIER_MS = 1.299  # the earlier forward (the same, f32 y before the skip) at SCAN_SHAPE bf16, kernel alone
 SLICE_SHAPE = (4, 8, 2049, 256)  # pythia-1b: mbs 4, 8 heads, seq 2049, head_dim 256
 RAGGED_SHAPE = (2, 3, 77, 64)
 # llava-pretrain at the main path's mbs 16: the decoder's attention (32
@@ -202,10 +207,11 @@ TOL_LSE_ABS = 1e-3  # lse is f32 and sees no bf16 output rounding; f32 inputs ad
 TOL_SLICE_LOSS = 2e-2
 TOL_SLICE_GRAD_NORM_REL = 5e-2
 # Scan kernels vs plain versions: both take the same inputs to f32 and
-# compute in f32; they differ in summation order (16-lane shuffle trees,
-# doubling scans, per-tile partial sums) and in the kernels' fast exp
-# (__expf, a few ulps), which the recurrence carries over thousands of steps.
-TOL_SCAN_Y = 1e-4  # ||kernel - plain|| / ||plain|| for y
+# compute in f32; they differ in summation order (shuffle sums, doubling
+# scans, per-tile partial sums) and in the kernels' fast exp (ex2.approx, a
+# few ulps), which the recurrence carries over thousands of steps.
+TOL_SCAN_Y = 1e-4  # ||kernel - plain|| / ||plain|| for y before the skip, and with it in f32
+TOL_SCAN_Y_BF16 = 4e-3  # y with the skip in bf16: both round to bf16 values the f32 error may put one ulp apart
 TOL_SCAN_GRAD = 1e-3  # same for the checkpoint and du, ddelta, dA, dB, dC, dD (dA, dB sum thousands of terms)
 # Two-layer Mamba in f32, kernels vs the plain scan under autograd: every
 # other op is the same on both sides, so only the scan's error shows
@@ -830,12 +836,22 @@ def _scan_inputs(shape, dtype, seed: int, d_state: int = 16):
 
 
 def check_scan_at(shape, dtype, seed: int = 0, d_state: int = 16) -> dict:
-    """Both scan kernels vs their plain versions on identical inputs, dD
-    through the autograd Function, and a second backward run; returns the
-    errors."""
+    """Both scan kernels vs their plain versions on identical inputs: the
+    forward before the D skip and with it (y in u's dtype), dD through the
+    autograd Function, and a second forward (with the skip) and backward
+    run bit for bit; returns the errors. Launches: the forward 4 calls (3
+    here, 1 in the Function), the backward 3 (2 here, 1 in the Function)."""
     u, delta, A, B, C, D, dy = _scan_inputs(shape, dtype, seed, d_state)
     y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
     y_ref, ckpt_ref = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
+    ys, ckpt_s = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
+    ys_ref, _ = ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)
+    again = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
+    same = ys.dtype == dtype and torch.equal(ckpt_s, ckpt) and all(torch.equal(a, b) for a, b in zip(again, (ys, ckpt_s)))
+    say(f"[scan] {list(shape)} N{d_state} {str(dtype).split('.')[-1]} second forward run: y (with the skip, "
+        f"{str(ys.dtype).split('.')[-1]}) and checkpoint identical {same}")
+    if not same:
+        raise AssertionError(f"the scan forward differs between two runs (or from its pre-skip run) at {shape} {dtype}")
     grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref)
     grads_ref = ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt_ref)
     leaves = [t.clone().requires_grad_() for t in (u, delta, A, B, C, D)]
@@ -843,14 +859,15 @@ def check_scan_at(shape, dtype, seed: int = 0, d_state: int = 16) -> dict:
     ssf.SelectiveScanFused.apply(*leaves).backward(g)
     dD_ref = (g.float() * u.float()).sum((0, 1))
     torch.cuda.synchronize()
-    got = {"y": (y, y_ref), "ckpt": (ckpt, ckpt_ref), "dD": (leaves[5].grad, dD_ref)}
+    got = {"y": (y, y_ref), "y+skip": (ys, ys_ref), "ckpt": (ckpt, ckpt_ref), "dD": (leaves[5].grad, dD_ref)}
     got.update({n: pair for n, pair in zip(("du", "ddelta", "dA", "dB", "dC"), zip(grads, grads_ref))})
     res = {}
     for name, (a, b) in got.items():
         if not torch.isfinite(a).all():
             raise AssertionError(f"scan {name} has non-finite values at {shape} {dtype}")
         res[name] = _errs(a, b)
-        tol = TOL_SCAN_Y if name == "y" else TOL_SCAN_GRAD
+        tol = TOL_SCAN_GRAD if name not in ("y", "y+skip") else (
+            TOL_SCAN_Y_BF16 if name == "y+skip" and dtype == torch.bfloat16 else TOL_SCAN_Y)
         say(f"[scan] {list(shape)} N{d_state} {str(dtype).split('.')[-1]} {name}: max_abs {res[name][0]:.3e} "
             f"norm_rel {res[name][1]:.3e} (tol {tol:g})")
         if not res[name][1] <= tol:
@@ -868,11 +885,11 @@ def phase_scan_kernels() -> list[dict]:
         errs = check_scan_at(SCAN_SHAPE, dtype, seed=10)
         check_scan_at(SCAN_RAGGED, dtype, seed=11)
 
-    u, delta, A, B, C, _, dy = _scan_inputs(SCAN_SHAPE, torch.bfloat16, 12)
+    u, delta, A, B, C, D, dy = _scan_inputs(SCAN_SHAPE, torch.bfloat16, 12)
     _, ckpt = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
-    t = {
-        "fwd": cuda_ms(lambda: ssf.selective_scan_fwd_cuda(u, delta, A, B, C)),
-        "fwd_plain": cuda_ms(lambda: ssf.selective_scan_fwd_reference(u, delta, A, B, C)),
+    t = {  # the forward with D, as SelectiveScanFused runs it
+        "fwd": cuda_ms(lambda: ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)),
+        "fwd_plain": cuda_ms(lambda: ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)),
         "bwd": cuda_ms(lambda: ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)),
         "bwd_plain": cuda_ms(lambda: ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)),
     }
@@ -881,24 +898,29 @@ def phase_scan_kernels() -> list[dict]:
     # forward one exp (exp(delta*A)) and 6 f32 operations (delta*A, the
     # decay, delta*u*B and its add, C*h and its sum); the backward the same
     # exp and 16 (the recomputed state, the reverse-time dh recurrence, the
-    # du, ddelta, dA, dB, dC terms). Bytes: the inputs and outputs as given.
-    y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
+    # du, ddelta, dA, dB, dC terms). Bytes: the inputs and outputs as given
+    # (the forward's y in u's dtype, with the skip).
+    y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
     grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)
     elems = u.numel() * A.shape[-1]
     ins = _nbytes(u, delta, A, B, C)
     work = {
-        "fwd": (ins + _nbytes(y, ckpt), 6 * elems, PEAK_F32_FLOPS, elems),
+        "fwd": (ins + _nbytes(D, y, ckpt), 6 * elems, PEAK_F32_FLOPS, elems),
         "bwd": (ins + _nbytes(dy, ckpt, *grads), 16 * elems, PEAK_F32_FLOPS, elems),
     }
     bounds = {n: bound(*w) for n, w in work.items()}
     for n, b in bounds.items():
         say(f"[scan] {n} bound at {list(SCAN_SHAPE)}: {b['bound_ms']:.4f} ms ({b['bound_by']}); {bound_terms(*work[n])}")
+    say(f"[scan] forward with the skip at {list(SCAN_SHAPE)} bf16: {t['fwd']:.4f} ms a call, "
+        f"{bounds['fwd']['bound_ms'] / t['fwd']:.3f} of its bound; the earlier design's {SCAN_FWD_EARLIER_MS} ms (one "
+        f"state a thread, synchronous staging, f32 y before the wrapper's skip; H100 SXM, 700 W) is "
+        f"{SCAN_FWD_EARLIER_MS / t['fwd']:.2f}x this")
     say(f"[scan] backward at {list(SCAN_SHAPE)} bf16: {t['bwd']:.4f} ms a call, {bounds['bwd']['bound_ms'] / t['bwd']:.3f} "
         f"of its bound; the earlier design's {SCAN_BWD_EARLIER_MS} ms (one state a thread, synchronous staging; "
         f"H100 SXM, 700 W) is {SCAN_BWD_EARLIER_MS / t['bwd']:.2f}x this")
     return [
         {"name": "scan_fwd", "route": "cuda", "source": SCAN_SOURCE, "replaces": f"{JAX_SCAN}:47",
-         "launches": None, "max_abs_err": errs["y"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
+         "launches": None, "max_abs_err": errs["y+skip"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
          **bounds["fwd"], "library_ms": None},
         {"name": "scan_bwd", "route": "cuda", "source": SCAN_SOURCE, "replaces": f"{JAX_SCAN}:161",
          "launches": None, "max_abs_err": max(errs[n][0] for n in ("du", "ddelta", "dA", "dB", "dC")),
@@ -1308,6 +1330,7 @@ REPAIR_XLA_SHAPE = (2, 4, 300, 320)  # head dim 320: above the kernels' 256, ins
 REPAIR_SCALE_SHAPE = (4, 8, 300, 256)  # the fused backward at head dim 256 with scale 0.07
 REPAIR_SCALE = 0.07
 REPAIR_D_STATES = (8, 24, 64)  # the scan at d_states other than 16: zero-padded groups of 16
+REPAIR_SCAN_BATCH = (65536, 3, 8)  # one more batch element than a launch grid's y holds: two launches a call
 
 
 def phase_repairs() -> None:
@@ -1320,7 +1343,8 @@ def phase_repairs() -> None:
     0.07, plain and varlen (its one-stage variant with a k*scale tile, as
     ``check_backward`` holds every backward); both scan kernels at d_state
     8, 24 and 64 (as ``check_scan_at`` holds them at 16, one launch per
-    group of 16 states)."""
+    group of 16 states) and at 65,536 batch elements (one launch per chunk
+    of at most 65,535)."""
     b, h, s, d = REPAIR_XLA_SHAPE
     q, k, v, do = (t.view(b, h, s, d) for t in _inputs(REPAIR_XLA_SHAPE, 80))
     fa.reset_launch_counts()
@@ -1359,11 +1383,17 @@ def phase_repairs() -> None:
         check_scan_at(SCAN_RAGGED, torch.bfloat16, seed=82, d_state=n_state)
         groups = -(-n_state // 16)
         got = (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES)
-        # check_scan_at: one forward, then backwards by the wrapper, the autograd Function and once more
-        if got != (2 * groups, 3 * groups):
+        if got != (4 * groups, 3 * groups):  # check_scan_at's 4 forward and 3 backward calls
             raise AssertionError(f"[repairs] scan at d_state {n_state}: launches {got}, expected "
-                                 f"({2 * groups}, {3 * groups})")
+                                 f"({4 * groups}, {3 * groups})")
         say(f"[repairs] scan d_state {n_state}: {groups} group(s) of 16 states a call, launches fwd {got[0]} bwd {got[1]}")
+    ssf.reset_launch_counts()
+    check_scan_at(REPAIR_SCAN_BATCH, torch.bfloat16, seed=83)
+    got = (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES)
+    if got != (4 * 2, 3 * 2):
+        raise AssertionError(f"[repairs] scan at batch {REPAIR_SCAN_BATCH[0]}: launches {got}, expected (8, 6)")
+    say(f"[repairs] scan {list(REPAIR_SCAN_BATCH)}: two launches a call (65,535 + 1 batch elements), "
+        f"launches fwd {got[0]} bwd {got[1]}")
 
 
 def main() -> int:

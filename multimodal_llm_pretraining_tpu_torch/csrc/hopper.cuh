@@ -1,7 +1,8 @@
 // Hopper (sm_90a) building blocks shared by the flash-attention forward
-// (flash_fwd.cu) and fused backward (flash_bwd.cu): mbarriers, TMA loads
-// through 3-D tensor maps, register hand-off between warpgroups, wgmma
-// descriptors and products, and the host-side tensor-map encoding.
+// (flash_fwd.cu), the fused backward (flash_bwd.cu) and the selective scan
+// (selective_scan.cu): mbarriers, TMA loads and stores through 3-D tensor
+// maps, register hand-off between warpgroups, wgmma descriptors and
+// products, and the host-side tensor-map encoding.
 //
 // Tiles are bf16 with the 128-byte swizzle the tensor maps write: a box is
 // 64 bf16 columns (one 128-byte row of the swizzle), so a [rows, D] tile is
@@ -83,6 +84,22 @@ __device__ __forceinline__ void bulk_load(uint32_t dst, const void* src, uint32_
       ::"r"(dst), "l"(reinterpret_cast<uint64_t>(src)), "r"(bytes), "r"(bar)
       : "memory");
 }
+
+// One box of a 3-D tensor map from shared memory (the source 128-byte
+// aligned) to device memory, in the executing thread's current bulk group;
+// coordinates past the ends are not written.
+__device__ __forceinline__ void tma_store_3d(const CUtensorMap* map, uint32_t src, int c0, int c1, int c2) {
+  asm volatile("cp.async.bulk.tensor.3d.global.shared::cta.bulk_group [%0, {%2, %3, %4}], [%1];\n"
+               ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1), "r"(c2)
+               : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() { asm volatile("cp.async.bulk.commit_group;\n" ::: "memory"); }
+
+// Wait until every bulk group this thread committed has read its shared memory (the source may be reused) ...
+__device__ __forceinline__ void bulk_wait_read() { asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory"); }
+// ... or has completed, its writes done.
+__device__ __forceinline__ void bulk_wait() { asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory"); }
 
 __device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
   asm volatile("prefetch.tensormap [%0];\n" ::"l"(reinterpret_cast<uint64_t>(map)) : "memory");

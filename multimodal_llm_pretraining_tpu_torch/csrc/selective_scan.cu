@@ -8,23 +8,70 @@
 //   da_t = exp(delta_t[i] * A[i, n]),   h_t = da_t * h_{t-1} + (delta_t[i] * u_t[i]) * B_t[n]
 //   y_t[i] = sum_n C_t[n] * h_t[n]                                   (before the D skip)
 // Layout: u, delta [B, L, I] and B, C [B, L, N] row-major, bf16 or f32 (one dtype
-// for the four); A f32 [I, N]; y, dy, du, ddelta f32 [B, L, I]. The state
-// checkpoint is f32 [B, ceil(L / 256), N, I]: the state entering each 256-step
-// chunk, as the TPU kernel's with_checkpoints output. Both kernels take N = 16
-// states a launch; the wrapper (ops/selective_scan_fused.py) zero-pads any
-// other d_state to a multiple of 16 and launches each group of 16 states.
+// for the four); A f32 [I, N]; D f32 [I]; dy, du, ddelta f32 [B, L, I]. The
+// state checkpoint is f32 [B, ceil(L / 256), N, I]: the state entering each
+// 256-step chunk, as the TPU kernel's with_checkpoints output. Both kernels
+// take N = 16 states a launch, I a multiple of 8 (their tensor maps need rows
+// of whole 16 bytes) and at most 65,535 batch elements (the grid's y); the
+// wrapper (ops/selective_scan_fused.py) zero-pads any other d_state to a
+// multiple of 16 and launches each group of 16 states, zero-pads I, and
+// launches larger batches in chunks.
 //
-// The forward, scan_fwd_kernel:
-// * The sequential carry. The TPU grid (batch, I-block, L-chunk) runs in order,
-//   so the state h lives in VMEM scratch and carries from chunk to chunk. GPU
-//   blocks run in parallel and in no order, so the whole L loop lives inside
-//   one block per (batch, 32 channels), and the carry inside each thread's
-//   registers. Each channel gets 16 lanes, one per state n: half a warp per
-//   channel, 512 threads per block. y_t is a 16-lane shuffle reduction.
-// * Memory traffic. Materialising the discretized [L, I, N] tensors would cost
-//   O(L * I * N) bytes of device memory; here they exist only in registers, so
-//   traffic stays O(L * I). Inputs stage through shared memory one tile of
-//   64 time steps at a time, loaded coalesced across channels.
+// Both kernels share one shape: a producer warp fills a ring of shared-memory
+// stages by TMA through 3-D tensor maps over [B, L, I] (boxes of G steps x the
+// block's channel tile) and [B, L, 16] (boxes of G rows), on full/empty
+// mbarriers; consumer warps hold 4 states a thread (a channel has 4 lanes, a
+// warp 8 channels: 4 independent chains a thread), with A * log2(e) in
+// registers and ex2 for the decays; a storer warp takes the outputs off the
+// consumers' path. Steps past L and channels past I read as zeros: an identity
+// transition that adds nothing. No float atomics, so a second launch repeats
+// the first bit for bit.
+//
+// The forward, scan_fwd_kernel. It reads u, delta, B, C and writes y and the
+// checkpoint; with D given it writes y = y_scan + D * u rounded to u's dtype
+// (the skip of selective_scan_pallas_fwd, :154-155, as __fmul_rn then
+// __fadd_rn in f32 and one rounding: the plain version's expression), else y
+// in f32 before the skip. Its bound at mamba-2.8b's [2, 4096, 5120] bf16 is
+// its exps, 6.7e8 at 16 a clock on each of 132 SMs at 1.98 GHz = 0.16 ms; its
+// bytes with a bf16 y (u, delta, y, the checkpoint) are about 263 MB, 0.079
+// ms. It replaces a design with one state a thread (512-thread blocks of 32
+// channels, 1.299 ms at that shape on an H100 SXM at 700 W, plus about 0.7
+// ms of device time for the wrapper's f32 skip; PERF.md), and does about
+// each of its costs:
+// * y's sum over a channel's 16 states was a 16-lane shuffle tree, 4
+//   shuffles a state-step. Here it is 3 multiply-adds in the thread, then a
+//   reduce-scatter over the channel's 4 lanes and 4 consecutive steps: 3
+//   shuffles for 4 steps, after which lane q holds y of step 4k + q.
+// * Staging was synchronous: all threads copied each 64-step tile with plain
+//   loads between __syncthreads. Here the producer's TMA ring keeps up to
+//   FW_STAGES - 1 groups of 64 steps in flight while the consumers compute,
+//   and no consumer waits at a block-wide barrier.
+// * Widening bf16 to f32 took 10 of the consumers' 40 or so instructions a
+//   thread-step, 8 of them for B and C, which the warp's 8 channels all
+//   widen alike: a widener warp widens each group's B and C once, into one
+//   of 4 f32 buffers on mbarriers (bf16 inputs; f32 ones are read as staged).
+// * __expf multiplied by log2(e) each state-step; log2(e) is folded into A
+//   once.
+// * y went out in f32 and the wrapper added the skip and cast it in four
+//   more passes (about 1.3 GB a call); here the skip and the cast are the
+//   epilogue (a template argument), and y leaves in u's dtype.
+// * y is staged a group at a time in shared memory (two buffers on
+//   mbarriers) and the storer warp writes each group by one TMA store, whose
+//   box clips steps past L and channels past I.
+// * Shared memory: 3 stages of 64 steps, 4 widened B/C buffers and 2 y
+//   tiles, 127,248 bytes (bf16) or 188,688 (f32, no widened buffers); the
+//   registers (ptxas -v) 79-85, well under the 152 that
+//   __launch_bounds__(416, 1) allows, 0 bytes of spills.
+// * The grid: 80-channel tiles give mamba-2.8b's (5120 / 80, 2) = 128 blocks
+//   of 13 warps, one wave on 132 SMs. The parallelism is B x I x 4 lanes,
+//   1280 consumer warps at that shape, about 2.4 a sub-partition, each with 4
+//   independent exp chains. The consumers issue about 35 instructions a
+//   thread-step for 4 exps, so issue and the exp units share the pace, and a
+//   sub-partition with 3 of a block's 10 consumer warps sets it.
+// Timed against variants in one process (time_scan_variants.py, which
+// rebuilds this file with constants replaced: no widener, 16- or 32-step
+// groups, 2 or 8 states a thread, 40-channel tiles two blocks an SM, the
+// ring's depth, y buffers; PERF.md).
 //
 // The backward, scan_bwd_kernel. It reads u, delta, dy, B, C and the
 // checkpoint and writes du, ddelta and the dA, dB, dC partials; its bound at
@@ -81,90 +128,311 @@
 //   per batch element ([B, N, I]) and dB, dC one per tile, all summed in a
 //   fixed order, so a second run repeats the first bit for bit.
 
+#include <type_traits>
+
 #include "hopper.cuh"
 
 namespace {
 
-constexpr int NS = 16;             // d_state of one launch
-constexpr int CH = 32;             // forward: channels per block, one lane per state
-constexpr int THREADS = CH * NS;   // 512
-constexpr int CHUNK = 256;         // checkpoint interval (the TPU kernel's block_l)
-constexpr int FWD_TILE = 64;       // forward: time steps staged per tile
+constexpr int NS = 16;        // d_state of one launch
+constexpr int CHUNK = 256;    // checkpoint interval (the TPU kernel's block_l)
 constexpr unsigned FULL = 0xffffffffu;
 
 __device__ __forceinline__ float to_f(bf16 x) { return __bfloat162float(x); }
 __device__ __forceinline__ float to_f(float x) { return x; }
 
-// Sum over the 16 lanes of a half warp (one channel's states).
-__device__ __forceinline__ float sum16(float v) {
-  v += __shfl_xor_sync(FULL, v, 8);
-  v += __shfl_xor_sync(FULL, v, 4);
-  v += __shfl_xor_sync(FULL, v, 2);
-  v += __shfl_xor_sync(FULL, v, 1);
-  return v;
+__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
+__device__ __forceinline__ float4 load4(const bf16* p) {
+  const uint2 r = *reinterpret_cast<const uint2*>(p);
+  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
+  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
+  return make_float4(lo.x, lo.y, hi.x, hi.y);
 }
 
-// Stage `rows` time steps from t0 of the [B, L, I] streams (channels i0..i0+CH)
-// and the [B, L, N] streams into shared memory; steps past L and channels past
-// I load as 0.
-template <typename T>
-__device__ __forceinline__ void stage_channels(float* dst, const T* src, size_t row0, int t0, int rows, int L, int I,
-                                               int i0) {
-  for (int k = threadIdx.x; k < rows * CH; k += THREADS) {
-    const int tt = k / CH, cc = k % CH, t = t0 + tt, i = i0 + cc;
-    dst[k] = (t < L && i < I) ? to_f(src[(row0 + t) * I + i]) : 0.f;
-  }
+// One level of a reduce-scatter across lanes `mask` apart: a lane with `bit`
+// set keeps `hi` plus its partner's `hi`, the other keeps `lo` plus its
+// partner's `lo`.
+__device__ __forceinline__ float rs_pair(float lo, float hi, bool bit, int mask) {
+  const float send = bit ? lo : hi;
+  return (bit ? hi : lo) + __shfl_xor_sync(FULL, send, mask);
+}
+
+// A 3-D map over [batch, rows, inner] of `type` whose box is `box_inner` x
+// `box_rows` x 1, unswizzled; coordinates past the ends read as zeros (and
+// are not written by a store).
+bool encode_3d(EncodeTiled fn, CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int esize, int inner,
+               int rows, int batch, int box_inner, int box_rows) {
+  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)batch};
+  const cuuint64_t strides[2] = {(cuuint64_t)inner * esize, (cuuint64_t)rows * inner * esize};
+  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1};
+  const cuuint32_t elem[3] = {1, 1, 1};
+  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
+            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <typename T>
-__device__ __forceinline__ void stage_states(float* dst, const T* src, size_t row0, int t0, int rows, int L) {
-  for (int k = threadIdx.x; k < rows * NS; k += THREADS) {
-    const int tt = k / NS, nn = k % NS, t = t0 + tt;
-    dst[k] = t < L ? to_f(src[(row0 + t) * NS + nn]) : 0.f;
-  }
+constexpr CUtensorMapDataType tma_type() {
+  return sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
 }
 
 // ---------------------------------------------------------------- forward
 
-template <typename T>
-__global__ void __launch_bounds__(THREADS) scan_fwd_kernel(const T* __restrict__ u, const T* __restrict__ delta,
-                                                           const float* __restrict__ A, const T* __restrict__ Bm,
-                                                           const T* __restrict__ Cm, float* __restrict__ y,
-                                                           float* __restrict__ ckpt, int L, int I) {
-  __shared__ float s_delta[FWD_TILE * CH], s_u[FWD_TILE * CH], s_y[FWD_TILE * CH];
-  __shared__ float s_B[FWD_TILE * NS], s_C[FWD_TILE * NS];
+constexpr int FW_CH = 80;                          // channels per block
+constexpr int FW_SPT = 4;                          // states per thread: independent chains
+constexpr int FW_LANES = NS / FW_SPT;              // lanes per channel
+constexpr int FW_CPW = 32 / FW_LANES;              // channels per warp
+constexpr int FW_CONSUMERS = FW_CH * FW_LANES;     // 320
+constexpr int FW_NW = FW_CONSUMERS / 32;           // consumer warps
+constexpr int FW_THREADS = FW_CONSUMERS + 96;      // and the producer, the storer and the widener warp
+constexpr int FW_G = 64;                           // time steps per group: one ring stage, one y tile
+constexpr int FW_STAGES = 3;
+constexpr int FW_WIDE_BUFS = 4;                    // B and C widened to f32 (bf16 inputs)
+constexpr int FW_OUT_BUFS = 2;
+static_assert(FW_CONSUMERS % 32 == 0 && FW_SPT % 2 == 0, "whole warps, states in pairs");
+static_assert(CHUNK % FW_G == 0 && FW_G % FW_LANES == 0, "groups tile a chunk; y's reduce-scatter tiles a group");
 
-  const int b = blockIdx.y, i0 = blockIdx.x * CH;
-  const int c = threadIdx.x / NS, n = threadIdx.x % NS, i = i0 + c;
-  const bool active = i < I;
-  const float a_n = active ? A[(size_t)i * NS + n] : 0.f;
-  const size_t row0 = (size_t)b * L;
-  const int n_chunks = cdiv(L, CHUNK);
-  float h = 0.f;
+// Shared memory of the forward block, in bytes from a 128-byte aligned base;
+// O is y's type (T with the D skip, f32 without). Barriers: full, empty
+// [STAGES]; wide_full, wide_empty [WIDE_BUFS]; out_full, out_empty
+// [OUT_BUFS].
+template <typename T, typename O>
+struct FwdLayout {
+  static constexpr bool WIDEN = sizeof(T) == 2;               // a warp widens each group's B and C to f32
+  static constexpr int CHAN = FW_G * FW_CH * (int)sizeof(T);  // one group of delta (or u)
+  static constexpr int ST = FW_G * NS * (int)sizeof(T);       // one group of B (or C)
+  static constexpr int s_delta = 0, s_u = CHAN, s_B = 2 * CHAN, s_C = 2 * CHAN + ST;
+  static constexpr int STAGE = 2 * CHAN + 2 * ST;
+  static constexpr int WIDE = 2 * FW_G * NS * 4;              // one group of B and C in f32
+  static constexpr int OUT = FW_G * FW_CH * (int)sizeof(O);   // one group of y
+  static constexpr int wide = FW_STAGES * STAGE;
+  static constexpr int out = wide + (WIDEN ? FW_WIDE_BUFS * WIDE : 0);
+  static constexpr int bars = out + FW_OUT_BUFS * OUT;
+  static constexpr int launch_bytes = bars + 16 * (FW_STAGES + FW_WIDE_BUFS + FW_OUT_BUFS) + 128;
+  static_assert(CHAN % 128 == 0 && ST % 128 == 0 && OUT % 128 == 0, "TMA boxes stay 128-byte aligned");
+};
 
-  for (int t0 = 0; t0 < L; t0 += FWD_TILE) {
-    if (ckpt != nullptr && t0 % CHUNK == 0 && active)
-      ckpt[(((size_t)b * n_chunks + t0 / CHUNK) * NS + n) * I + i] = h;  // state entering the chunk
-    __syncthreads();  // the previous tile's s_y has been stored
-    stage_channels(s_delta, delta, row0, t0, FWD_TILE, L, I, i0);
-    stage_channels(s_u, u, row0, t0, FWD_TILE, L, I, i0);
-    stage_states(s_B, Bm, row0, t0, FWD_TILE, L);
-    stage_states(s_C, Cm, row0, t0, FWD_TILE, L);
-    __syncthreads();
+__device__ __forceinline__ float2 load2(const float* p) { return *reinterpret_cast<const float2*>(p); }
+__device__ __forceinline__ float2 load2(const bf16* p) {
+  return __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(p));
+}
 
-    const int steps = min(FWD_TILE, L - t0);
-    for (int tt = 0; tt < steps; ++tt) {
-      const float d = s_delta[tt * CH + c];
-      h = __expf(d * a_n) * h + (d * s_u[tt * CH + c]) * s_B[tt * NS + n];
-      const float p = sum16(h * s_C[tt * NS + n]);
-      if (n == 0) s_y[tt * CH + c] = p;
+// A thread's SPT consecutive states of B (or C) at one step, as f32.
+template <int SPT, typename BT>
+__device__ __forceinline__ void load_states(float (&v)[SPT], const BT* p) {
+  if constexpr (SPT % 4 == 0) {
+#pragma unroll
+    for (int k = 0; k < SPT; k += 4) {
+      const float4 f = load4(p + k);
+      v[k] = f.x, v[k + 1] = f.y, v[k + 2] = f.z, v[k + 3] = f.w;
     }
-    __syncthreads();
-    for (int k = threadIdx.x; k < steps * CH; k += THREADS) {
-      const int tt = k / CH, ii = i0 + k % CH;
-      if (ii < I) y[(row0 + t0 + tt) * I + ii] = s_y[k];
+  } else {
+#pragma unroll
+    for (int k = 0; k < SPT; k += 2) {
+      const float2 f = load2(p + k);
+      v[k] = f.x, v[k + 1] = f.y;
     }
   }
+}
+
+// Sum each of N values over the N lanes (1, 2, 4 ... apart) that share them:
+// a reduce-scatter, after which lane q (of the N) holds the sum of p[q].
+template <int N>
+__device__ __forceinline__ float reduce_scatter(float (&p)[N], int q) {
+#pragma unroll
+  for (int m = N / 2; m >= 1; m /= 2) {
+#pragma unroll
+    for (int k = 0; k < m; ++k) p[k] = rs_pair(p[k], p[k + m], q & m, m);
+  }
+  return p[0];
+}
+
+__device__ __forceinline__ void store_y(float* p, float v) { *p = v; }
+__device__ __forceinline__ void store_y(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+template <typename T, bool SKIP>
+__global__ void __launch_bounds__(FW_THREADS, 1)
+    scan_fwd_kernel(const __grid_constant__ CUtensorMap tm_u, const __grid_constant__ CUtensorMap tm_delta,
+                    const __grid_constant__ CUtensorMap tm_B, const __grid_constant__ CUtensorMap tm_C,
+                    const __grid_constant__ CUtensorMap tm_y, const float* __restrict__ A,
+                    const float* __restrict__ D, float* __restrict__ ckpt, int L, int I) {
+  using O = std::conditional_t<SKIP, T, float>;
+  using S = FwdLayout<T, O>;
+  extern __shared__ unsigned char smem_raw[];
+  const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
+  const uint32_t base = (raw + 127) & ~127u;
+  unsigned char* smem = smem_raw + (base - raw);
+  const uint32_t bar_full = base + S::bars, bar_empty = bar_full + 8 * FW_STAGES;
+  const uint32_t bar_wide_full = bar_empty + 8 * FW_STAGES, bar_wide_empty = bar_wide_full + 8 * FW_WIDE_BUFS;
+  const uint32_t bar_out_full = bar_wide_empty + 8 * FW_WIDE_BUFS, bar_out_empty = bar_out_full + 8 * FW_OUT_BUFS;
+
+  const int b = blockIdx.y, i0 = blockIdx.x * FW_CH;
+  const int n_groups = cdiv(L, FW_G), n_chunks = cdiv(L, CHUNK);
+
+  if (threadIdx.x == 0) {
+#pragma unroll
+    for (int s = 0; s < FW_STAGES; ++s) {
+      mbar_init(bar_full + 8 * s, 1);
+      mbar_init(bar_empty + 8 * s, FW_NW + S::WIDEN);  // every consumer warp, and the widener
+    }
+#pragma unroll
+    for (int k = 0; k < FW_WIDE_BUFS; ++k) {
+      mbar_init(bar_wide_full + 8 * k, 1);
+      mbar_init(bar_wide_empty + 8 * k, FW_NW);
+    }
+#pragma unroll
+    for (int k = 0; k < FW_OUT_BUFS; ++k) {
+      mbar_init(bar_out_full + 8 * k, FW_NW);
+      mbar_init(bar_out_empty + 8 * k, 1);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+
+  const int warp = threadIdx.x / 32, lane = threadIdx.x % 32;
+  if (warp == FW_NW + 2) {
+    // ---- widener (bf16): each group's B and C to f32, once for all the block's channels
+    if constexpr (S::WIDEN) {
+      for (int j = 0; j < n_groups; ++j) {
+        const int s = j % FW_STAGES, w = j % FW_WIDE_BUFS;
+        if (j >= FW_WIDE_BUFS) mbar_wait(bar_wide_empty + 8 * w, (j / FW_WIDE_BUFS - 1) & 1);
+        mbar_wait(bar_full + 8 * s, (j / FW_STAGES) & 1);
+        const __nv_bfloat162* src = reinterpret_cast<const __nv_bfloat162*>(smem + s * S::STAGE + S::s_B);
+        float2* dst = reinterpret_cast<float2*>(smem + S::wide + w * S::WIDE);
+#pragma unroll
+        for (int r = 0; r < 2 * FW_G * NS / 2 / 32; ++r) dst[lane + 32 * r] = __bfloat1622float2(src[lane + 32 * r]);
+        __syncwarp();
+        if (lane == 0) {
+          mbar_arrive(bar_empty + 8 * s);
+          mbar_arrive(bar_wide_full + 8 * w);
+        }
+      }
+    }
+    return;
+  }
+  if (warp == FW_NW + 1) {
+    // ---- storer: one thread writes each group's y tile by TMA as the consumers finish it
+    if (lane == 0) {
+      prefetch_tensormap(&tm_y);
+      for (int j = 0; j < n_groups; ++j) {
+        const int buf = j % FW_OUT_BUFS;
+        mbar_wait(bar_out_full + 8 * buf, (j / FW_OUT_BUFS) & 1);
+        tma_store_3d(&tm_y, base + S::out + buf * S::OUT, i0, j * FW_G, b);
+        bulk_commit();
+        bulk_wait_read();
+        mbar_arrive(bar_out_empty + 8 * buf);
+      }
+      bulk_wait();
+    }
+    return;
+  }
+  if (warp == FW_NW) {
+    // ---- producer: one thread fills the ring, group by group
+    if (lane == 0) {
+      prefetch_tensormap(&tm_u);
+      prefetch_tensormap(&tm_delta);
+      prefetch_tensormap(&tm_B);
+      prefetch_tensormap(&tm_C);
+      for (int j = 0; j < n_groups; ++j) {
+        const int s = j % FW_STAGES, t0 = j * FW_G;
+        if (j >= FW_STAGES) mbar_wait(bar_empty + 8 * s, (j / FW_STAGES - 1) & 1);
+        const uint32_t st = base + s * S::STAGE, full = bar_full + 8 * s;
+        mbar_expect_tx(full, S::STAGE);
+        tma_load_3d(st + S::s_delta, &tm_delta, i0, t0, b, full);
+        tma_load_3d(st + S::s_u, &tm_u, i0, t0, b, full);
+        tma_load_3d(st + S::s_B, &tm_B, 0, t0, b, full);
+        tma_load_3d(st + S::s_C, &tm_C, 0, t0, b, full);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: lane q of channel c holds states q * SPT .. q * SPT + SPT - 1
+  const int cw = lane / FW_LANES, q = lane % FW_LANES;
+  const int c = warp * FW_CPW + cw, i = i0 + c;
+  const bool active = i < I;
+  float a2[FW_SPT], h[FW_SPT];  // A * log2(e), the state
+#pragma unroll
+  for (int j = 0; j < FW_SPT; ++j) {
+    a2[j] = active ? A[(size_t)i * NS + q * FW_SPT + j] * LOG2E : 0.f;
+    h[j] = 0.f;
+  }
+  const float d_skip = SKIP && active ? D[i] : 0.f;
+  float* ck = ckpt + ((size_t)b * n_chunks * NS + q * FW_SPT) * I + i;  // chunk k, state j: [(k*NS + j)*I]
+
+  for (int j = 0; j < n_groups; ++j) {
+    const int s = j % FW_STAGES, w = j % FW_WIDE_BUFS, buf = j % FW_OUT_BUFS, t0 = j * FW_G;
+    if (t0 % CHUNK == 0 && active) {
+#pragma unroll
+      for (int jj = 0; jj < FW_SPT; ++jj) ck[((size_t)(t0 / CHUNK) * NS + jj) * I] = h[jj];  // entering the chunk
+    }
+    const unsigned char* st = smem + s * S::STAGE;
+    const T* s_delta = reinterpret_cast<const T*>(st + S::s_delta);
+    const T* s_u = reinterpret_cast<const T*>(st + S::s_u);
+    // B and C: widened to f32 by the widener warp, or as staged
+    using BT = std::conditional_t<S::WIDEN, float, T>;
+    const BT* s_B = reinterpret_cast<const BT*>(S::WIDEN ? smem + S::wide + w * S::WIDE : st + S::s_B);
+    const BT* s_C = s_B + FW_G * NS;
+    s_B += q * FW_SPT, s_C += q * FW_SPT;
+    O* s_y = reinterpret_cast<O*>(smem + S::out + buf * S::OUT);
+    if (j >= FW_OUT_BUFS) mbar_wait(bar_out_empty + 8 * buf, (j / FW_OUT_BUFS - 1) & 1);  // the storer has read it
+    mbar_wait(bar_full + 8 * s, (j / FW_STAGES) & 1);
+    if constexpr (S::WIDEN) mbar_wait(bar_wide_full + 8 * w, (j / FW_WIDE_BUFS) & 1);
+
+#pragma unroll
+    for (int k = 0; k < FW_G / FW_LANES; ++k) {
+      float p[FW_LANES];  // this thread's part of y at steps LANES k .. LANES k + LANES - 1
+#pragma unroll
+      for (int tt = 0; tt < FW_LANES; ++tt) {
+        const int t = k * FW_LANES + tt;
+        const float d = to_f(s_delta[t * FW_CH + c]), du_ = d * to_f(s_u[t * FW_CH + c]);
+        float Bn[FW_SPT], Cn[FW_SPT];
+        load_states(Bn, s_B + t * NS);
+        load_states(Cn, s_C + t * NS);
+#pragma unroll
+        for (int jj = 0; jj < FW_SPT; ++jj) h[jj] = fmaf(ex2(d * a2[jj]), h[jj], du_ * Bn[jj]);
+        float acc = Cn[0] * h[0];
+#pragma unroll
+        for (int jj = 1; jj < FW_SPT; ++jj) acc = fmaf(Cn[jj], h[jj], acc);
+        p[tt] = acc;
+      }
+      const int t = k * FW_LANES + q;  // the step whose y this lane ends with
+      float yv = reduce_scatter(p, q);
+      if constexpr (SKIP) yv = __fadd_rn(yv, __fmul_rn(d_skip, to_f(s_u[t * FW_CH + c])));
+      store_y(s_y + t * FW_CH + c, yv);
+    }
+    fence_proxy_async();  // y's tile becomes visible to the TMA store
+    __syncwarp();
+    if (lane == 0) {
+      mbar_arrive(bar_empty + 8 * s);
+      if constexpr (S::WIDEN) mbar_arrive(bar_wide_empty + 8 * w);
+      mbar_arrive(bar_out_full + 8 * buf);
+    }
+  }
+}
+
+template <typename T, bool SKIP>
+int launch_fwd(const void* u, const void* delta, const float* A, const void* Bm, const void* Cm, const float* D,
+               void* y, float* ckpt, int batch, int L, int I, cudaStream_t stream) {
+  using O = std::conditional_t<SKIP, T, float>;
+  using S = FwdLayout<T, O>;
+  static_assert(S::launch_bytes <= 232448, "the forward's shared memory exceeds the 227 KB a block may use");
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return (int)cudaErrorNotSupported;
+  const int es = (int)sizeof(T);
+  CUtensorMap tu, td, tB, tC, ty;
+  if (!encode_3d(fn, &tu, u, tma_type<T>(), es, I, L, batch, FW_CH, FW_G) ||
+      !encode_3d(fn, &td, delta, tma_type<T>(), es, I, L, batch, FW_CH, FW_G) ||
+      !encode_3d(fn, &tB, Bm, tma_type<T>(), es, NS, L, batch, NS, FW_G) ||
+      !encode_3d(fn, &tC, Cm, tma_type<T>(), es, NS, L, batch, NS, FW_G) ||
+      !encode_3d(fn, &ty, y, tma_type<O>(), (int)sizeof(O), I, L, batch, FW_CH, FW_G))
+    return (int)cudaErrorInvalidValue;
+  cudaError_t err =
+      cudaFuncSetAttribute(scan_fwd_kernel<T, SKIP>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::launch_bytes);
+  if (err != cudaSuccess) return (int)err;
+  dim3 grid(cdiv(I, FW_CH), batch);
+  scan_fwd_kernel<T, SKIP><<<grid, FW_THREADS, S::launch_bytes, stream>>>(tu, td, tB, tC, ty, A, D, ckpt, L, I);
+  return (int)cudaGetLastError();
 }
 
 // ---------------------------------------------------------------- backward
@@ -217,21 +485,6 @@ __device__ __forceinline__ Item item_at(int j, int n_chunks, int last_groups) {
   return local < ng - 1 ? Item{k, local, 0} : Item{k, 2 * ng - 2 - local, 1};
 }
 
-__device__ __forceinline__ float4 load4(const float* p) { return *reinterpret_cast<const float4*>(p); }
-__device__ __forceinline__ float4 load4(const bf16* p) {
-  const uint2 r = *reinterpret_cast<const uint2*>(p);
-  const float2 lo = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.x));
-  const float2 hi = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&r.y));
-  return make_float4(lo.x, lo.y, hi.x, hi.y);
-}
-
-// One level of a reduce-scatter across lanes `mask` apart: a lane with `bit`
-// set keeps `hi` plus its partner's `hi`, the other keeps `lo` plus its
-// partner's `lo`.
-__device__ __forceinline__ float rs_pair(float lo, float hi, bool bit, int mask) {
-  const float send = bit ? lo : hi;
-  return (bit ? hi : lo) + __shfl_xor_sync(FULL, send, mask);
-}
 
 template <typename T>
 __global__ void __launch_bounds__(BW_THREADS, 1)
@@ -466,28 +719,6 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
 }
 
 template <typename T>
-int launch_fwd(const void* u, const void* delta, const float* A, const void* Bm, const void* Cm, float* y, float* ckpt,
-               int batch, int L, int I, cudaStream_t stream) {
-  dim3 grid(cdiv(I, CH), batch);
-  scan_fwd_kernel<T><<<grid, THREADS, 0, stream>>>(static_cast<const T*>(u), static_cast<const T*>(delta), A,
-                                                    static_cast<const T*>(Bm), static_cast<const T*>(Cm), y, ckpt, L, I);
-  return (int)cudaGetLastError();
-}
-
-// A 3-D map over [batch, rows, inner] of `type` whose box is `box_inner` x
-// `box_rows` x 1, unswizzled; coordinates past the ends read as zeros.
-bool encode_3d(EncodeTiled fn, CUtensorMap* map, const void* ptr, CUtensorMapDataType type, int esize, int inner,
-               int rows, int batch, int box_inner, int box_rows) {
-  const cuuint64_t dims[3] = {(cuuint64_t)inner, (cuuint64_t)rows, (cuuint64_t)batch};
-  const cuuint64_t strides[2] = {(cuuint64_t)inner * esize, (cuuint64_t)rows * inner * esize};
-  const cuuint32_t box[3] = {(cuuint32_t)box_inner, (cuuint32_t)box_rows, 1};
-  const cuuint32_t elem[3] = {1, 1, 1};
-  return fn(map, type, 3, const_cast<void*>(ptr), dims, strides, box, elem, CU_TENSOR_MAP_INTERLEAVE_NONE,
-            CU_TENSOR_MAP_SWIZZLE_NONE, CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
-}
-
-template <typename T>
 int launch_bwd(const void* u, const void* delta, const float* A, const void* Bm, const void* Cm, const float* dy,
                const float* ckpt, float* du, float* ddelta, float* dA_part, float* dB_part, float* dC_part, int batch,
                int L, int I, cudaStream_t stream) {
@@ -495,7 +726,7 @@ int launch_bwd(const void* u, const void* delta, const float* A, const void* Bm,
   static_assert(S::launch_bytes <= 232448, "the backward's shared memory exceeds the 227 KB a block may use");
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
-  const CUtensorMapDataType ty = sizeof(T) == 2 ? CU_TENSOR_MAP_DATA_TYPE_BFLOAT16 : CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  const CUtensorMapDataType ty = tma_type<T>();
   const int es = (int)sizeof(T);
   CUtensorMap tu, td, tdy, tB, tC;
   if (!encode_3d(fn, &tu, u, ty, es, I, L, batch, BW_CH, BW_G) ||
@@ -516,21 +747,27 @@ int launch_bwd(const void* u, const void* delta, const float* A, const void* Bm,
 
 // ---------------------------------------------------------------- C entry points
 // dtype: 0 = bf16, 1 = f32 (u, delta, B and C). N must be 16 (the wrapper
-// launches each group of 16 states). All pointers 16-byte aligned and
-// contiguous; the backward takes I a multiple of 8 (its tensor maps' row
-// pitch), and writes dB and dC as one partial per 80-channel tile, [ceil(I /
-// 80), B, L, 16], and dA as one per batch element, [B, 16, I]. Return a
-// cudaError_t code, 0 on success.
+// launches each group of 16 states), I a multiple of 8 (the tensor maps' row
+// pitch) and batch at most 65,535 (the grid's y; the wrapper launches larger
+// batches in chunks). All pointers 16-byte aligned and contiguous. The
+// forward takes a nullable D: given, y is y_scan + D * u in u's dtype, else
+// f32 y before the skip. The backward writes dB and dC as one partial per
+// 80-channel tile, [ceil(I / 80), B, L, 16], and dA as one per batch element,
+// [B, 16, I]. Return a cudaError_t code, 0 on success.
 
 extern "C" {
 
-int mlpt_scan_fwd(const void* u, const void* delta, const float* A, const void* Bm, const void* Cm, float* y,
-                  float* ckpt, int batch, int L, int I, int N, int dtype, void* stream) {
+int mlpt_scan_fwd(const void* u, const void* delta, const float* A, const void* Bm, const void* Cm, const float* D,
+                  void* y, float* ckpt, int batch, int L, int I, int N, int dtype, void* stream) {
   (void)cudaGetLastError();  // report this launch's error, not an earlier one
-  if (N != NS || batch <= 0 || L <= 0 || I <= 0 || batch > 65535) return (int)cudaErrorInvalidValue;
+  if (N != NS || batch <= 0 || L <= 0 || I <= 0 || I % 8 != 0 || batch > 65535) return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0) return launch_fwd<bf16>(u, delta, A, Bm, Cm, y, ckpt, batch, L, I, s);
-  if (dtype == 1) return launch_fwd<float>(u, delta, A, Bm, Cm, y, ckpt, batch, L, I, s);
+  if (dtype == 0)
+    return D != nullptr ? launch_fwd<bf16, true>(u, delta, A, Bm, Cm, D, y, ckpt, batch, L, I, s)
+                        : launch_fwd<bf16, false>(u, delta, A, Bm, Cm, D, y, ckpt, batch, L, I, s);
+  if (dtype == 1)
+    return D != nullptr ? launch_fwd<float, true>(u, delta, A, Bm, Cm, D, y, ckpt, batch, L, I, s)
+                        : launch_fwd<float, false>(u, delta, A, Bm, Cm, D, y, ckpt, batch, L, I, s);
   return (int)cudaErrorInvalidValue;
 }
 

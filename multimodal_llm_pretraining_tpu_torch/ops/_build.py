@@ -112,7 +112,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.mlpt_flash_bwd_dq.restype = i32
             lib.mlpt_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 6 + [f32, ptr]
             lib.mlpt_flash_bwd_dkv.restype = i32
-            lib.mlpt_scan_fwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+            lib.mlpt_scan_fwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
             lib.mlpt_scan_fwd.restype = i32
             lib.mlpt_scan_bwd.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
             lib.mlpt_scan_bwd.restype = i32

@@ -22,7 +22,7 @@ partial chunk.
 import torch
 import torch.nn.functional as F
 
-from .selective_scan_fused import SelectiveScanFused, chunked_scan
+from .selective_scan_fused import SelectiveScanFused, chunked_scan, skip
 
 
 def causal_conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -38,7 +38,7 @@ def selective_scan_reference(u, delta, A, B, C, D, *, chunk_size: int = 256) -> 
     discretize in f32, run the recurrence chunk by chunk (a doubling scan
     inside each chunk), add D * u, cast to u's dtype."""
     y, _ = chunked_scan(u, delta, A, B, C, chunk_size)
-    return (y + D.float() * u.float()).to(u.dtype)
+    return skip(y, D, u)
 
 
 def selective_scan(

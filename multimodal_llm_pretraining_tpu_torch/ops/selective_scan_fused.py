@@ -7,34 +7,44 @@ replaces ``_scan_kernel`` (``:47``) and the backward kernel
 ``_scan_bwd_kernel`` (``:161``). Both live in ``csrc/selective_scan.cu`` and
 are built on first use (``ops/_build.py``).
 
-Shapes: u, delta [B, L, I]; A [I, N]; B, C [B, L, N]; dy [B, L, I]. The
-forward returns y before the D skip, f32 [B, L, I], and the state entering
-each 256-step chunk, f32 [B, ceil(L / 256), N, I] (the TPU kernel's
-``with_checkpoints`` output at its default ``block_l``). The backward returns
-(du, ddelta, dA, dB, dC) of y before the D skip, all f32. The D skip, its
-``du += D * g`` term and ``dD`` stay in ``SelectiveScanFused``, in f32, as in
-the JAX custom VJP.
+Shapes: u, delta [B, L, I]; A [I, N]; B, C [B, L, N]; D [I]; dy [B, L, I].
+The forward returns y and the state entering each 256-step chunk, f32 [B,
+ceil(L / 256), N, I] (the TPU kernel's ``with_checkpoints`` output at its
+default ``block_l``). Given D, y is ``selective_scan_pallas_fwd``'s: the scan
+plus the skip D * u, in f32, rounded to u's dtype (``:154-155``; the kernel
+computes it in its epilogue); without D, y is f32 before the skip. The
+backward returns (du, ddelta, dA, dB, dC) of y before the D skip, all f32;
+the skip's ``du += D * g`` term and ``dD`` stay in ``SelectiveScanFused``,
+in f32, as in the JAX custom VJP.
 
 The kernels run 16 states a launch. Any other d_state N is zero-padded to a
 multiple of 16, as the JAX kernels pad it to a multiple of 8
 (``selective_scan_pallas.py:96-100``), and each group of 16 states is one
 launch on its own copies of A, B and C (``state_groups``, ``grouped_fwd``,
-``grouped_bwd``); at N = 16 that is one launch on the inputs as given.
+``grouped_bwd``); at N = 16 that is one launch on the inputs as given, with
+the skip fused. The kernels' tensor maps take I a multiple of 8: the
+wrappers zero-pad it and slice the outputs back (``padded_fwd``,
+``padded_bwd``). A launch takes at most 65,535 batch elements (the grid's
+y): larger batches launch in contiguous chunks, one counted launch each, and
+their outputs are joined in order (``batch_chunked``). All three are exact.
 
 Which version runs is decided by where the tensors lie, and nothing else:
 CPU tensors take the plain versions, CUDA tensors launch the kernels or
 raise. There is no fallback from a kernel to its plain version.
 """
 
+import functools
+
 import torch
 import torch.nn.functional as F
 
 from . import _build
+from .flash_attention import MAX_GRID_Y, bh_chunks
 
 SCAN_CHUNK = 256  # checkpoint interval, the TPU kernel's DEFAULT_BLOCK_L
 KERNEL_D_STATE = 16  # states a launch (Mamba's d_state); other d_states run in zero-padded groups of 16
 BWD_CHANNELS_PER_BLOCK = 80  # the backward kernel's channel tile: dB/dC partials per tile
-BWD_CHANNEL_MULTIPLE = 8  # the backward's tensor maps take rows of whole 16 bytes: I padded to a multiple
+CHANNEL_MULTIPLE = 8  # the kernels' tensor maps take rows of whole 16 bytes: I padded to a multiple
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # Kernel launches in this process, counted by the wrappers right where they
@@ -89,16 +99,23 @@ def chunked_scan(u, delta, A, B, C, chunk_size: int = SCAN_CHUNK):
     return torch.cat(ys, dim=1), entries
 
 
-def selective_scan_fwd_reference(u, delta, A, B, C):
-    """Plain version of the forward kernel: (y f32 [B, L, I] before the D
-    skip, checkpoint f32 [B, ceil(L / 256), N, I])."""
+def skip(y, D, u):
+    """y + D * u in f32, rounded to u's dtype: the D skip."""
+    return (y + D.float() * u.float()).to(u.dtype)
+
+
+def selective_scan_fwd_reference(u, delta, A, B, C, D=None):
+    """Plain version of the forward kernel: (y, checkpoint f32 [B, ceil(L /
+    256), N, I]); y is ``skip(y, D, u)`` given D, else f32 before the skip."""
     y, entries = chunked_scan(u, delta, A, B, C, SCAN_CHUNK)
-    return y, torch.stack(entries, dim=1).transpose(-1, -2).contiguous()
+    ckpt = torch.stack(entries, dim=1).transpose(-1, -2).contiguous()
+    return (y if D is None else skip(y, D, u)), ckpt
 
 
-def selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt):
-    """Plain version of the backward kernel: (du, ddelta, dA, dB, dC) of y
-    before the D skip, f32. Chunk by chunk in reverse: the states are
+def selective_scan_bwd_by_batch_reference(u, delta, A, B, C, dy, ckpt):
+    """Plain version of one backward launch: (du, ddelta, dA, dB, dC) of y
+    before the D skip, f32, with dA kept per batch element, [B, I, N], as
+    the kernel writes it. Chunk by chunk in reverse: the states are
     recomputed from the checkpoint, and the reverse recurrence
     gh_t = C_t dy_t + da_{t+1} gh_{t+1} runs as a doubling scan over the
     reversed chunk, carried between chunks by G = da_t gh_t of the chunk's
@@ -110,7 +127,7 @@ def selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt):
     ddelta = torch.empty_like(du)
     dB = torch.empty(bsz, L, A.shape[1], dtype=torch.float32, device=u.device)
     dC = torch.empty_like(dB)
-    dA = torch.zeros_like(A32)
+    dA = torch.zeros(bsz, *A32.shape, dtype=torch.float32, device=u.device)
     G = torch.zeros(bsz, I, A.shape[1], dtype=torch.float32, device=u.device)
     for k in reversed(range(ckpt.shape[1])):
         sl = slice(k * SCAN_CHUNK, (k + 1) * SCAN_CHUNK)
@@ -123,7 +140,7 @@ def selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt):
         x = Cc[:, :, None, :] * g[..., None]
         gh = scan_states(da_next.flip(1), x.flip(1), G).flip(1)
         common = gh * h_prev * da
-        dA += (common * d[..., None]).sum((0, 1))
+        dA += (common * d[..., None]).sum(1)
         gh_b = (gh * Bc[:, :, None, :]).sum(-1)
         ddelta[:, sl] = (common * A32).sum(-1) + gh_b * uu
         du[:, sl] = gh_b * d
@@ -131,6 +148,17 @@ def selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt):
         dC[:, sl] = (h * g[..., None]).sum(2)
         G = da[:, 0] * gh[:, 0]
     return du, ddelta, dA, dB, dC
+
+
+def sum_dA(du, ddelta, dA, dB, dC):
+    """A backward's outputs with dA summed over its batch dim, in one fixed order."""
+    return du, ddelta, dA.sum(0), dB, dC
+
+
+def selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt):
+    """Plain version of the backward kernel: (du, ddelta, dA, dB, dC) of y
+    before the D skip, f32."""
+    return sum_dA(*selective_scan_bwd_by_batch_reference(u, delta, A, B, C, dy, ckpt))
 
 
 # ---------------------------------------------------------------- state groups
@@ -158,19 +186,21 @@ def state_groups(A, B, C) -> list[tuple[torch.Tensor, torch.Tensor, torch.Tensor
             for g in range(0, n + pad, KERNEL_D_STATE)]
 
 
-def grouped_fwd(fwd, u, delta, A, B, C):
+def grouped_fwd(fwd, u, delta, A, B, C, D=None):
     """The forward at any d_state through ``fwd`` (a forward at 16 states:
-    the kernel's launch, or in the CPU tests the plain version): y summed
-    over the groups in their order, so a second run repeats the first, and
-    the checkpoints concatenated along the state dim and sliced back to N."""
+    the kernel's launch, or in the CPU tests the plain version). At 16
+    states, ``fwd`` itself, the skip included. Otherwise each group runs
+    without D, y is summed over the groups in their order in f32 (so a
+    second run repeats the first) and then skipped, and the checkpoints are
+    concatenated along the state dim and sliced back to N."""
     n = A.shape[-1]
-    outs = [fwd(u, delta, *g) for g in state_groups(A, B, C)]
     if n == KERNEL_D_STATE:
-        return outs[0]
+        return fwd(u, delta, A, B, C, D)
+    outs = [fwd(u, delta, *g) for g in state_groups(A, B, C)]
     y = outs[0][0]
     for o in outs[1:]:
         y = y + o[0]
-    return y, torch.cat([o[1] for o in outs], dim=2)[:, :, :n]
+    return (y if D is None else skip(y, D, u)), torch.cat([o[1] for o in outs], dim=2)[:, :, :n]
 
 
 def grouped_bwd(bwd, u, delta, A, B, C, dy, ckpt):
@@ -191,24 +221,66 @@ def grouped_bwd(bwd, u, delta, A, B, C, dy, ckpt):
     return du, ddelta, dA, dB, dC
 
 
+# ---------------------------------------------------------------- channel padding and batch chunks
+
+
+def padded_fwd(fwd, u, delta, A, B, C, D=None):
+    """``fwd`` on I zero-padded to a multiple of ``CHANNEL_MULTIPLE`` (u,
+    delta, A's rows and D), y and the checkpoint sliced back. Exact: a zero
+    channel has zero inputs and touches no other channel."""
+    I = u.shape[-1]
+    pad = -I % CHANNEL_MULTIPLE
+    if not pad:
+        return fwd(u, delta, A, B, C, D)
+    u, delta = (F.pad(t, (0, pad)) for t in (u, delta))
+    y, ckpt = fwd(u, delta, F.pad(A, (0, 0, 0, pad)), B, C, None if D is None else F.pad(D, (0, pad)))
+    return y[..., :I], ckpt[..., :I]
+
+
+def padded_bwd(bwd, u, delta, A, B, C, dy, ckpt):
+    """``bwd`` on I zero-padded as ``padded_fwd`` pads it (and dy and the
+    checkpoint), du, ddelta and dA sliced back."""
+    I = u.shape[-1]
+    pad = -I % CHANNEL_MULTIPLE
+    if not pad:
+        return bwd(u, delta, A, B, C, dy, ckpt)
+    u, delta, dy, ckpt = (F.pad(t, (0, pad)) for t in (u, delta, dy, ckpt))
+    du, ddelta, dA, dB, dC = bwd(u, delta, F.pad(A, (0, 0, 0, pad)), B, C, dy, ckpt)
+    return du[..., :I], ddelta[..., :I], dA[:I], dB, dC
+
+
+def batch_chunked(fn, *args, limit: int = MAX_GRID_Y):
+    """``fn(*args)`` in launches of at most ``limit`` batch elements. The
+    arguments of 3 or more dims (u, delta, B, C, dy, the checkpoint) are cut
+    along their batch dim into contiguous chunks (``bh_chunks``); the others
+    (A, D) go whole to each. Every output of ``fn`` is batch-major, and each
+    is joined along that dim in order: exact, since batch elements are
+    independent. One chunk is ``fn`` on the arguments as given."""
+    bsz = args[0].shape[0]
+    if bsz <= limit:
+        return fn(*args)
+    outs = [fn(*(a[b0:b1] if a is not None and a.ndim >= 3 else a for a in args)) for b0, b1 in bh_chunks(bsz, limit)]
+    return tuple(torch.cat(parts) for parts in zip(*outs))
+
+
 # ---------------------------------------------------------------- kernel wrappers
 
 
 def _aligned(t: torch.Tensor) -> torch.Tensor:
-    """Contiguous with a 16-byte aligned base (the backward's TMA copies need one)."""
+    """Contiguous with a 16-byte aligned base (the kernels' TMA copies need one)."""
     t = t.contiguous()
     return t if t.data_ptr() % 16 == 0 else t.clone()
 
 
-def _kernel_inputs(u, delta, A, B, C):
+def _kernel_inputs(u, delta, A, B, C, D=None):
     """Check what the kernels take and return the tensors ready for them:
-    contiguous and aligned, and A as f32."""
+    contiguous and aligned, and A and D as f32."""
     if u.device.type != "cuda":
         raise ValueError(f"selective-scan kernels take CUDA tensors, got {u.device}")
     if u.dtype not in _DTYPE_CODE:
         raise ValueError(f"selective-scan kernels take bfloat16 or float32, got {u.dtype}")
-    for t in (delta, A, B, C):
-        if t.device != u.device:
+    for t in (delta, A, B, C, D):
+        if t is not None and t.device != u.device:
             raise ValueError("selective-scan kernel inputs must lie on one device")
     for t in (delta, B, C):
         if t.dtype != u.dtype:
@@ -219,25 +291,31 @@ def _kernel_inputs(u, delta, A, B, C):
     N = A.shape[-1]
     if A.shape != (I, N) or B.shape != (bsz, L, N) or C.shape != (bsz, L, N):
         raise ValueError(f"selective-scan shapes disagree: A {tuple(A.shape)}, B {tuple(B.shape)}, C {tuple(C.shape)}")
+    if D is not None and D.shape != (I,):
+        raise ValueError(f"selective-scan D must be [I] = [{I}], got {tuple(D.shape)}")
     if bsz == 0 or L == 0 or I == 0 or N == 0:
         raise ValueError(f"selective-scan kernels take non-empty inputs, got {tuple(u.shape)} and d_state {N}")
-    return _aligned(u), _aligned(delta), _aligned(A.float()), _aligned(B), _aligned(C)
+    return (_aligned(u), _aligned(delta), _aligned(A.float()), _aligned(B), _aligned(C),
+            None if D is None else _aligned(D.float()))
 
 
 def _n_chunks(L: int) -> int:
     return -(-L // SCAN_CHUNK)
 
 
-def _launch_fwd(u, delta, A, B, C):
-    """One forward launch at 16 states."""
+def _launch_fwd(u, delta, A, B, C, D=None):
+    """One forward launch at 16 states, I a multiple of 8, at most
+    ``MAX_GRID_Y`` batch elements: (y, checkpoint); y in u's dtype with the
+    skip given D, else f32 before it."""
     global FWD_LAUNCHES
     bsz, L, I = u.shape
     lib = _build.load()
-    y = torch.empty(bsz, L, I, dtype=torch.float32, device=u.device)
+    y = torch.empty(bsz, L, I, dtype=torch.float32 if D is None else u.dtype, device=u.device)
     ckpt = torch.empty(bsz, _n_chunks(L), KERNEL_D_STATE, I, dtype=torch.float32, device=u.device)
     with torch.cuda.device(u.device):
         err = lib.mlpt_scan_fwd(
-            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), y.data_ptr(), ckpt.data_ptr(),
+            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            None if D is None else D.data_ptr(), y.data_ptr(), ckpt.data_ptr(),
             bsz, L, I, KERNEL_D_STATE, _DTYPE_CODE[u.dtype], torch.cuda.current_stream(u.device).cuda_stream,
         )
     _build.check(lib, err, "selective-scan forward kernel")
@@ -246,8 +324,10 @@ def _launch_fwd(u, delta, A, B, C):
 
 
 def _launch_bwd(u, delta, A, B, C, dy, ckpt):
-    """One backward launch at 16 states, I a multiple of 8; dA, dB and dC
-    come back as partials and are summed here in a fixed order."""
+    """One backward launch at 16 states, I a multiple of 8, at most
+    ``MAX_GRID_Y`` batch elements: (du, ddelta, dA [B, I, 16] per batch
+    element, dB, dC). dB and dC come from the kernel as one partial per
+    80-channel tile and are summed here in a fixed order."""
     global BWD_LAUNCHES
     bsz, L, I = u.shape
     n_tiles = -(-I // BWD_CHANNELS_PER_BLOCK)
@@ -266,46 +346,44 @@ def _launch_bwd(u, delta, A, B, C, dy, ckpt):
         )
     _build.check(lib, err, "selective-scan backward kernel")
     BWD_LAUNCHES += 1
-    return du, ddelta, dA_part.sum(0).t(), dB_part.sum(0), dC_part.sum(0)
+    return du, ddelta, dA_part.transpose(1, 2), dB_part.sum(0), dC_part.sum(0)
 
 
-def selective_scan_fwd_cuda(u, delta, A, B, C):
-    """Launch the forward kernel, once per group of 16 states; returns (y
-    f32 [B, L, I] before the D skip, checkpoint f32 [B, ceil(L / 256), N,
-    I])."""
-    return grouped_fwd(_launch_fwd, *_kernel_inputs(u, delta, A, B, C))
+def selective_scan_fwd_cuda(u, delta, A, B, C, D=None):
+    """Launch the forward kernel, once per group of 16 states and chunk of
+    at most 65,535 batch elements; returns (y, checkpoint f32 [B, ceil(L /
+    256), N, I]), y in u's dtype with the D skip given D, else f32 before
+    it. Both repeat bit for bit on a second call."""
+    fwd = functools.partial(grouped_fwd, functools.partial(batch_chunked, _launch_fwd))
+    return padded_fwd(fwd, *_kernel_inputs(u, delta, A, B, C, D))
+
+
+def _bwd_launches(u, delta, A, B, C, dy, ckpt):
+    return sum_dA(*batch_chunked(_launch_bwd, u, delta, A, B, C, dy, ckpt))
 
 
 def selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt):
-    """Launch the backward kernel, once per group of 16 states; returns
-    (du, ddelta, dA, dB, dC) f32 of y before the D skip. dA comes from the
-    kernel as one partial per batch element and dB, dC as one partial per
-    80-channel tile; they are summed here, so two runs give identical
-    results. I is zero-padded to a multiple of 8 for the kernel's tensor
-    maps where it is not one (exact: a zero channel adds nothing)."""
-    u, delta, A, B, C = _kernel_inputs(u, delta, A, B, C)
+    """Launch the backward kernel, once per group of 16 states and chunk of
+    at most 65,535 batch elements; returns (du, ddelta, dA, dB, dC) f32 of y
+    before the D skip. dA comes from the kernel as one partial per batch
+    element and dB, dC as one partial per 80-channel tile; they are summed
+    here, so two runs give identical results."""
+    u, delta, A, B, C, _ = _kernel_inputs(u, delta, A, B, C)
     bsz, L, I = u.shape
     N = A.shape[1]
     if dy.shape != u.shape or dy.device != u.device:
         raise ValueError(f"dy must be [B, L, I] on {u.device}, got {tuple(dy.shape)} on {dy.device}")
     if ckpt.shape != (bsz, _n_chunks(L), N, I) or ckpt.device != u.device:
         raise ValueError(f"checkpoint must be [B, ceil(L / {SCAN_CHUNK}), N, I] on {u.device}, got {tuple(ckpt.shape)}")
-    dy, ckpt = _aligned(dy.float()), _aligned(ckpt.float())
-    pad = -I % BWD_CHANNEL_MULTIPLE
-    if pad:
-        u, delta, dy, ckpt = (F.pad(t, (0, pad)) for t in (u, delta, dy, ckpt))
-        A = F.pad(A, (0, 0, 0, pad))
-    du, ddelta, dA, dB, dC = grouped_bwd(_launch_bwd, u, delta, A, B, C, dy, ckpt)
-    if pad:
-        du, ddelta, dA = du[..., :I], ddelta[..., :I], dA[:I]
-    return du, ddelta, dA, dB, dC
+    bwd = functools.partial(grouped_bwd, _bwd_launches)
+    return padded_bwd(bwd, u, delta, A, B, C, _aligned(dy.float()), _aligned(ckpt.float()))
 
 
-def _fwd(u, delta, A, B, C):
+def _fwd(u, delta, A, B, C, D=None):
     if u.device.type == "cuda":
-        return selective_scan_fwd_cuda(u, delta, A, B, C)
+        return selective_scan_fwd_cuda(u, delta, A, B, C, D)
     if u.device.type == "cpu":
-        return selective_scan_fwd_reference(u, delta, A, B, C)
+        return selective_scan_fwd_reference(u, delta, A, B, C, D)
     raise ValueError(f"selective scan has no kernel for device {u.device}")
 
 
@@ -325,9 +403,9 @@ class SelectiveScanFused(torch.autograd.Function):
 
     @staticmethod
     def forward(ctx, u, delta, A, B, C, D):
-        y, ckpt = _fwd(u, delta, A, B, C)
+        y, ckpt = _fwd(u, delta, A, B, C, D)  # the skip and the cast inside the forward
         ctx.save_for_backward(u, delta, A, B, C, D, ckpt)
-        return (y + D.float() * u.float()).to(u.dtype)
+        return y
 
     @staticmethod
     def backward(ctx, g):

@@ -36,15 +36,21 @@ summation order (1e-6). Batches of more than 65,535 batch-heads launch in
 chunks, one launch counted each.
 
 Selective scan (f32 or bf16 u/delta/B/C, both sides computing in f32 and
-differing only in summation order and in the kernels' fast exp): y within
-1e-4 of its norm, the checkpoint and the five gradients within 1e-3 (dA and
-dB sum thousands of terms). The backward kernel sums its partials outside
-the kernel with no atomics, so two runs repeat bit for bit. The kernels run
-16 states a launch: other d_states (1, 8, 12, 24, 64 here) go in
-zero-padded groups of 16. The backward is also held at its tile edges (L
-around its 8-step groups and 256-step chunks, I around its 80-channel tiles
-and not a multiple of 8). The fused backward at head dim 256 takes any
-scale (0.07, and 200^-0.5 at D=200 padded to 256).
+differing only in summation order and in the kernels' fast exp): y before
+the D skip within 1e-4 of its norm, the checkpoint and the five gradients
+within 1e-3 (dA and dB sum thousands of terms). y with the skip, in u's
+dtype, keeps 1e-4 in f32; in bf16 both sides round to bf16 values that
+differ by that f32 error, so an element may land one bf16 ulp (2^-8
+relative) apart: one bf16 rounding, 4e-3 of the norm. Neither kernel has
+atomics (the backward sums its partials outside the kernel), so two runs
+repeat bit for bit, forward and backward. The kernels run 16 states a
+launch: other d_states (1, 8, 12, 24, 64 here) go in zero-padded groups of
+16. Both are held at their tile edges: L around the backward's 8-step and
+the forward's 64-step groups and 192-step ring, and the 256-step chunks; I
+around both kernels' 80-channel tiles and not a multiple of 8.
+Batches above 65,535 launch in chunks, one launch counted each. The fused
+backward at head dim 256 takes any scale (0.07, and 200^-0.5 at D=200
+padded to 256).
 """
 
 import pytest
@@ -56,6 +62,7 @@ from multimodal_llm_pretraining_tpu_torch.ops import selective_scan_fused as ssf
 NORM_REL = 1e-2
 LSE_ABS = 1e-3
 SCAN_Y_NORM_REL = 1e-4
+SCAN_Y_BF16_NORM_REL = 4e-3  # y with the skip in bf16: one bf16 rounding
 SCAN_GRAD_NORM_REL = 1e-3
 
 
@@ -696,17 +703,28 @@ def test_scan_wrappers_refuse_what_the_kernels_do_not_take():
         ssf.selective_scan_fwd_cuda(u, delta.to(torch.bfloat16), A, B, C)
 
 
-def _check_scan(u, delta, A, B, C, dy):
-    """Both scan kernels against their plain versions (y to SCAN_Y_NORM_REL,
-    the checkpoint and gradients to SCAN_GRAD_NORM_REL of their norms, a
-    gradient that is exactly 0 in the plain version exactly 0) and the
-    backward bit for bit on a second run."""
+def _check_scan(u, delta, A, B, C, dy, D=None):
+    """Both scan kernels against their plain versions (y before the skip to
+    SCAN_Y_NORM_REL; y with the skip of D, random if not given, in u's dtype
+    to SCAN_Y_NORM_REL in f32 and SCAN_Y_BF16_NORM_REL in bf16; the
+    checkpoint and gradients to SCAN_GRAD_NORM_REL of their norms, a
+    gradient that is exactly 0 in the plain version exactly 0), and the
+    forward (y and the checkpoint) and the backward bit for bit on a second
+    run."""
+    if D is None:
+        D = torch.randn(u.shape[-1], generator=torch.Generator(device="cuda").manual_seed(7), device="cuda")
     y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
     y_ref, ckpt_ref = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
     _close(y, y_ref, SCAN_Y_NORM_REL)
     assert ckpt.shape == ckpt_ref.shape
     if ckpt.shape[1] > 1:
         _close(ckpt[:, 1:], ckpt_ref[:, 1:], SCAN_GRAD_NORM_REL)
+    ys, ckpt_s = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
+    ys_ref, _ = ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)
+    assert ys.dtype == u.dtype and ys.shape == ys_ref.shape and torch.equal(ckpt_s, ckpt)
+    _close(ys, ys_ref, SCAN_Y_BF16_NORM_REL if u.dtype == torch.bfloat16 else SCAN_Y_NORM_REL)
+    again = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
+    assert torch.equal(again[0], ys) and torch.equal(again[1], ckpt_s)
     grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref)
     for got, want in zip(grads, ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt_ref)):
         assert got.dtype == torch.float32 and got.shape == want.shape
@@ -726,7 +744,7 @@ def test_scan_kernels_at_any_d_state(N):
     ssf.reset_launch_counts()
     _check_scan(*_scan_inputs(2, 300, 96, N=N, seed=N, dtype=torch.bfloat16))
     groups = -(-N // 16)
-    assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES) == (groups, 2 * groups)
+    assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES) == (3 * groups, 2 * groups)
 
 
 # the backward's tile edges: 8-step groups, 256-step chunks, 80-channel
@@ -749,3 +767,39 @@ def test_scan_backward_at_step_edges(L, dtype):
 def test_scan_backward_at_channel_edges(I, dtype):
     _needs_cuda()
     _check_scan(*_scan_inputs(2, 257, I, seed=I, dtype=dtype))
+
+
+# the forward's own edges: its 64-step groups (one and two of them), its ring
+# of 3 such stages (192 steps) and two 256-step chunks; its 80-channel tile
+# (two of them) +- 1 and I not a multiple of 8
+SCAN_FWD_EDGE_L = (63, 64, 65, 127, 128, 129, 191, 192, 193, 511, 512, 513)
+SCAN_FWD_EDGE_I = (5, 8, 159, 160, 161, 163)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("L", SCAN_FWD_EDGE_L)
+def test_scan_forward_at_step_edges(L, dtype):
+    _needs_cuda()
+    _check_scan(*_scan_inputs(2, L, 81, seed=1000 + L, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("I", SCAN_FWD_EDGE_I)
+def test_scan_forward_at_channel_edges(I, dtype):
+    _needs_cuda()
+    _check_scan(*_scan_inputs(2, 129, I, seed=1000 + I, dtype=dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_kernels_take_batches_above_the_grid_limit(dtype):
+    """65,536 batch elements, one more than a launch grid's y holds: each
+    wrapper call launches twice, and both kernels keep their plain
+    versions' values and repeat bit for bit."""
+    _needs_cuda()
+    ssf.reset_launch_counts()
+    _check_scan(*_scan_inputs(65536, 3, 8, seed=65536, dtype=dtype))
+    # _check_scan: 3 forward calls (before the skip, with it, once more) and 2 backward calls
+    assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES) == (3 * 2, 2 * 2)

@@ -13,7 +13,17 @@
   equals the unpadded plain version to f32 summation order (1e-6 relative
   to the largest value), and both equal JAX's Pallas scan (interpret mode,
   N zero-padded to a multiple of 8 there) to 1e-5 for y and the checkpoint
-  and the JAX suite's 2e-4 for the gradients.
+  and the JAX suite's 2e-4 for the gradients. Off d_state 16 the groups run
+  without the D skip, which ``grouped_fwd`` adds to their sum.
+- Any batch: a scan launch takes at most 65,535 batch elements (the grid's
+  y), and the wrappers launch larger batches in contiguous chunks
+  (``batch_chunked``). On the plain versions, at a limit of 3, chunked
+  equals whole bit for bit: the forward, and the backward with dA per batch
+  element (``selective_scan_bwd_by_batch_reference``) and summed after.
+- Any I: the kernels' tensor maps take I a multiple of 8, and the wrappers
+  zero-pad it (``padded_fwd``, ``padded_bwd``); on the plain versions pad ->
+  plain version -> slice equals the plain version bit for bit (dA, a sum
+  over the steps vectorised across the channels, to f32 summation order).
 """
 
 import jax
@@ -164,3 +174,64 @@ def test_d_state_16_is_one_group_of_the_inputs_themselves():
     ((gA, gB, gC),) = ssf.state_groups(A, B, C)
     assert gA is A and gB is B and gC is C
     assert [ssf.padded_d_state(n) for n in (1, 15, 16, 17, 64)] == [16, 16, 16, 32, 64]
+
+
+@pytest.mark.parametrize("N", [8, 24])
+def test_grouped_forward_adds_the_skip_like_jax_pallas(N):
+    """Off d_state 16 the groups run without D and ``grouped_fwd`` skips
+    their f32 sum: JAX's Pallas forward with D (interpret mode) to 1e-5, and
+    exactly the plain forward with D to f32 summation order."""
+    u, delta, A, B, C, _ = _scan_inputs(2, 300, 8, N, seed=60 + N)
+    D = np.random.default_rng(70 + N).normal(size=(8,)).astype(np.float32)
+    y_j, ck_j = selective_scan_pallas_fwd(*(jnp.asarray(a) for a in (u, delta, A, B, C, D)), block_i=8,
+                                          with_checkpoints=True)
+    args = [torch.from_numpy(a) for a in (u, delta, A, B, C, D)]
+    y, ckpt = ssf.grouped_fwd(ssf.selective_scan_fwd_reference, *args)
+    np.testing.assert_allclose(y.numpy(), np.asarray(y_j), rtol=SCAN_FWD_TOL, atol=SCAN_FWD_TOL)
+    np.testing.assert_allclose(ckpt.numpy(), np.asarray(ck_j)[:, :, :N], rtol=SCAN_FWD_TOL, atol=SCAN_FWD_TOL)
+    y_ref, _ = ssf.selective_scan_fwd_reference(*args)
+    torch.testing.assert_close(y, y_ref, rtol=0, atol=GROUPED_REL * y_ref.abs().max().item())
+
+
+@pytest.mark.parametrize("with_skip", [False, True])
+def test_batch_chunks_are_exact_in_the_plain_versions(with_skip):
+    """7 batch elements in chunks of at most 3 (3, 3, 1): the plain forward
+    (y with or without the skip, the checkpoint) and the plain backward by
+    batch element (du, ddelta, dA per element, dB, dC) equal the whole
+    batch's bit for bit, and so does dA summed over the batch after."""
+    u, delta, A, B, C, dy = (torch.from_numpy(a) for a in _scan_inputs(7, 300, 8, 16, seed=80))
+    D = torch.from_numpy(np.random.default_rng(81).normal(size=(8,)).astype(np.float32)) if with_skip else None
+    assert ssf.bh_chunks(7, 3) == [(0, 3), (3, 6), (6, 7)]
+    whole = ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)
+    chunked = ssf.batch_chunked(ssf.selective_scan_fwd_reference, u, delta, A, B, C, D, limit=3)
+    assert all(torch.equal(a, b) for a, b in zip(chunked, whole))
+    ckpt = whole[1]
+    whole = ssf.selective_scan_bwd_by_batch_reference(u, delta, A, B, C, dy, ckpt)
+    chunked = ssf.batch_chunked(ssf.selective_scan_bwd_by_batch_reference, u, delta, A, B, C, dy, ckpt, limit=3)
+    assert whole[2].shape == (7, 8, 16)
+    assert all(torch.equal(a, b) for a, b in zip(chunked, whole))
+    summed = ssf.sum_dA(*chunked)
+    assert all(torch.equal(a, b) for a, b in zip(summed, ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)))
+    # at or under the limit the function runs once, on the arguments as given
+    assert ssf.batch_chunked(lambda *a: a, u, delta, A, B, C, D, limit=7)[0] is u
+
+
+@pytest.mark.parametrize("I", [1, 5, 13])
+def test_channel_padding_is_exact_in_the_plain_versions(I):
+    """I zero-padded to a multiple of 8 (u, delta, A's rows, D, dy, the
+    checkpoint), plain version, outputs sliced back: the unpadded plain
+    version's values bit for bit, forward with and without the skip, and
+    the backward's du, ddelta, dB and dC; dA, a sum over the steps that
+    PyTorch vectorises across the channels, to f32 summation order."""
+    u, delta, A, B, C, dy = (torch.from_numpy(a) for a in _scan_inputs(2, 270, I, 16, seed=90 + I))
+    D = torch.from_numpy(np.random.default_rng(91).normal(size=(I,)).astype(np.float32))
+    for d in (None, D):
+        want = ssf.selective_scan_fwd_reference(u, delta, A, B, C, d)
+        got = ssf.padded_fwd(ssf.selective_scan_fwd_reference, u, delta, A, B, C, d)
+        assert all(g.shape == w.shape and torch.equal(g, w) for g, w in zip(got, want))
+    ckpt = want[1]
+    want = ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)
+    got = ssf.padded_bwd(ssf.selective_scan_bwd_reference, u, delta, A, B, C, dy, ckpt)
+    assert all(g.shape == w.shape for g, w in zip(got, want))
+    assert all(torch.equal(got[k], want[k]) for k in (0, 1, 3, 4))
+    torch.testing.assert_close(got[2], want[2], rtol=0, atol=GROUPED_REL * want[2].abs().max().item())

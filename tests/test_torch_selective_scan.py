@@ -159,6 +159,42 @@ def test_bf16_inputs_cast_like_jax():
     np.testing.assert_allclose(y.float().numpy(), want, rtol=2**-7, atol=2**-7)
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_plain_forward_with_skip_matches_pallas_forward(dtype):
+    """``selective_scan_fwd_reference(..., D)`` against JAX's
+    ``selective_scan_pallas_fwd(..., D, with_checkpoints=True)`` (interpret
+    mode, three I-blocks): y with the skip in u's dtype and the checkpoint.
+    f32 to 1e-5; bf16 u, delta, B, C within 2 bf16 ulps (both sides round
+    an f32 y that differs in summation order), the checkpoint (f32 on both
+    sides) to 1e-5."""
+    u, delta, A, B, C, D, _ = _inputs(2, 100, 24, 16, seed=8)
+    jdt, tdt = (jnp.float32, torch.float32) if dtype == "float32" else (jnp.bfloat16, torch.bfloat16)
+    y_j, ck_j = selective_scan_pallas_fwd(*[jnp.asarray(a, jdt) for a in (u, delta)], jnp.asarray(A),
+                                          *[jnp.asarray(a, jdt) for a in (B, C)], jnp.asarray(D),
+                                          block_i=8, with_checkpoints=True)
+    tu, td, tB, tC = (torch.from_numpy(a).to(tdt) for a in (u, delta, B, C))
+    y, ckpt = ssf.selective_scan_fwd_reference(tu, td, torch.from_numpy(A), tB, tC, torch.from_numpy(D))
+    assert y.dtype == tdt and ckpt.dtype == torch.float32
+    tol = 1e-5 if dtype == "float32" else 2**-7
+    np.testing.assert_allclose(y.float().numpy(), np.asarray(y_j.astype(jnp.float32)), rtol=tol, atol=tol)
+    np.testing.assert_allclose(ckpt.numpy(), np.asarray(ck_j), rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_plain_forward_skip_is_the_functions_expression(dtype):
+    """With D the plain forward returns exactly ``(y + D * u)`` in f32 cast
+    to u's dtype, the expression ``SelectiveScanFused`` applied to the
+    pre-skip y: the CPU results of the Function are bitwise those of y
+    before the skip plus that expression."""
+    u, delta, A, B, C, D, _ = _inputs(2, 60, 8, 16, seed=9)
+    tu, td, tB, tC = (torch.from_numpy(a).to(dtype) for a in (u, delta, B, C))
+    tA, tD = torch.from_numpy(A), torch.from_numpy(D)
+    y_pre, ckpt_pre = ssf.selective_scan_fwd_reference(tu, td, tA, tB, tC)
+    y, ckpt = ssf.selective_scan_fwd_reference(tu, td, tA, tB, tC, tD)
+    assert torch.equal(y, (y_pre + tD.float() * tu.float()).to(dtype)) and torch.equal(ckpt, ckpt_pre)
+    assert torch.equal(ssf.SelectiveScanFused.apply(tu, td, tA, tB, tC, tD), y)
+
+
 def test_causal_conv1d_matches_jax():
     rng = np.random.default_rng(7)
     x = rng.normal(size=(2, 13, 6)).astype(np.float32)
