@@ -92,6 +92,15 @@
 // rows at and past kv_len are exactly 0 (every P^T and dS^T entry there is
 // 0), and a k block no query sees stores zeros.
 //
+// The split backward's dk/dv kernel (replacing _bwd_dkv_kernel,
+// flash_attention.py:293, launched at :589) is this kernel with the template
+// flag DQ off: no dQ products, no atomics, the q/dO stage released once dV
+// and dK are done; it computes the same dk and dv, and with the same stats
+// the same bits. It needs no unscaled k, so where the scale is not a power
+// of two the wrapper hands it bf16(k*scale) (rounded once from the input)
+// and no k*scale tile is made: every head dim runs the two-stage ring.
+// mlpt_flash_bwd_prep is the prep launch alone, the split pair's first.
+//
 // Varlen: a nullable int32 kv_lens [BH] on the device gives each batch-head
 // its key count; keys at or past it are invisible to every query row, padded
 // rows included, and the per-head offsets keep the tensor's kv_seq.
@@ -176,7 +185,7 @@ __global__ void __launch_bounds__(PREP_THREADS)
 
 // ---------------------------------------------------------------- the kernel
 
-template <int D, typename OutT, int STAGES, bool KS>
+template <int D, typename OutT, int STAGES, bool KS, bool DQ = true>
 __global__ void __launch_bounds__(BwdTile<D, STAGES, KS>::THREADS, BwdTile<D, STAGES, KS>::MIN_BLOCKS)
     flash_bwd_kernel(const __grid_constant__ CUtensorMap tm_q, const __grid_constant__ CUtensorMap tm_k,
                      const __grid_constant__ CUtensorMap tm_v, const __grid_constant__ CUtensorMap tm_do,
@@ -255,11 +264,15 @@ __global__ void __launch_bounds__(BwdTile<D, STAGES, KS>::THREADS, BwdTile<D, ST
     for (int i = 0; i < QCOLS / 2; ++i) acc_s[i] = acc_dp[i] = 0.f;
 
     // the scores' operand and their factor to log2 units: k*scale from its
-    // own tile, or k with the (power-of-two) scale applied to the f32 scores
+    // own tile, or k with the (power-of-two) scale applied to the f32 scores;
+    // without dQ the unscaled k is not needed, and scale_k says that the k
+    // tile already holds bf16(k*scale)
     bool use_ks = false;
     if constexpr (L::KS) use_ks = scale_k != 0;
+    bool prescaled = false;
+    if constexpr (!DQ) prescaled = scale_k != 0;
     const uint32_t kx_tile = base + (use_ks ? L::ks : L::k);
-    const float s_mul = use_ks ? LOG2E : sm_scale * LOG2E;
+    const float s_mul = use_ks || prescaled ? LOG2E : sm_scale * LOG2E;
 
     if (n_iter > 0) {
       mbar_wait(bar_kv, 0);
@@ -371,6 +384,16 @@ __global__ void __launch_bounds__(BwdTile<D, STAGES, KS>::THREADS, BwdTile<D, ST
       }
       wgmma_commit();
 
+      if constexpr (!DQ) {
+        // dV and dK are done with this stage's q and dO: release it
+        wgmma_wait_all();
+        fence_regs<DREG * 32>(acc_dv);
+        fence_regs<DREG * 32>(acc_dk);
+        __syncwarp();
+        if (lane == 0) mbar_arrive(bar_empty + 8 * s);
+        continue;
+      }
+
       // dQ = dS . k, one 64-column region at a time: A = the dS^T tile read
       // MN-major (queries contiguous), B = the unscaled k tile MN-major
 #pragma unroll
@@ -436,36 +459,51 @@ bool power_of_two(float x) {
   return x > 0.f && frexpf(x, &e) == 0.5f;
 }
 
-template <int D, typename OutT, int STAGES = 2, bool KS = D != 256>
-int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* o_in, const void* do_in,
-               const float* lse_in, float* lse, float* delta, const int* kv_lens, float* dq, void* dk, void* dv,
-               int bh, int q_seq, int kv_seq, int causal, float sm_scale, cudaStream_t stream) {
+// The prep launch: delta and the padded lse rows, [bh, cdiv(q_seq, 64) * 64].
+template <typename T>
+int launch_prep(const void* o_in, const void* do_in, const float* lse_in, float* lse, float* delta, int bh, int q_seq,
+                int d, cudaStream_t stream) {
+  constexpr int ROWS = PREP_THREADS / PREP_LANES;
+  const int stats_stride = cdiv(q_seq, BwdTile<64>::BQ) * BwdTile<64>::BQ;
+  const long rows = (long)bh * stats_stride;
+  flash_bwd_prep_kernel<T><<<(unsigned)((rows + ROWS - 1) / ROWS), PREP_THREADS, 0, stream>>>(
+      static_cast<const T*>(o_in), static_cast<const T*>(do_in), lse_in, lse, delta, bh, q_seq, stats_stride, d);
+  return (int)cudaGetLastError();
+}
+
+// flash_bwd_kernel on stats the prep launch wrote: with DQ, dq, dk and dv;
+// without, dk and dv alone (scale_k: k holds bf16(k*scale) already).
+template <int D, typename OutT, int STAGES, bool KS, bool DQ>
+int launch_bwd_kernel(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                      const float* delta, const int* kv_lens, float* dq, void* dk, void* dv, int bh, int q_seq,
+                      int kv_seq, int causal, float sm_scale, int scale_k, cudaStream_t stream) {
   using L = BwdTile<D, STAGES, KS>;
   static_assert(L::launch_bytes <= 232448, "backward tile set exceeds the 227 KB a block may use");
-  const int scale_k = power_of_two(sm_scale) ? 0 : 1;
-  const int stats_stride = cdiv(q_seq, L::BQ) * L::BQ;
-  const long rows = (long)bh * stats_stride;
-  flash_bwd_prep_kernel<OutT><<<(unsigned)((rows + PREP_THREADS / PREP_LANES - 1) / (PREP_THREADS / PREP_LANES)),
-                                PREP_THREADS, 0, stream>>>(static_cast<const OutT*>(o_in),
-                                                           static_cast<const OutT*>(do_in), lse_in, lse, delta, bh,
-                                                           q_seq, stats_stride, D);
-  cudaError_t prep = cudaGetLastError();
-  if (prep != cudaSuccess) return (int)prep;
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
   CUtensorMap tq, tk, tv, tdo;
   if (!encode_rows(fn, &tq, q, bh, q_seq, D, L::BQ) || !encode_rows(fn, &tdo, dout, bh, q_seq, D, L::BQ) ||
       !encode_rows(fn, &tk, k, bh, kv_seq, D, L::BK) || !encode_rows(fn, &tv, v, bh, kv_seq, D, L::BK))
     return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(flash_bwd_kernel<D, OutT, STAGES, KS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-                           L::launch_bytes);
+  cudaError_t err = cudaFuncSetAttribute(flash_bwd_kernel<D, OutT, STAGES, KS, DQ>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, L::launch_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(cdiv(kv_seq, L::BK), bh);
-  flash_bwd_kernel<D, OutT, STAGES, KS><<<grid, L::THREADS, L::launch_bytes, stream>>>(
+  flash_bwd_kernel<D, OutT, STAGES, KS, DQ><<<grid, L::THREADS, L::launch_bytes, stream>>>(
       tq, tk, tv, tdo, lse, delta, kv_lens, dq, static_cast<OutT*>(dk), static_cast<OutT*>(dv), q_seq, kv_seq,
       causal, sm_scale, scale_k);
   return (int)cudaGetLastError();
+}
+
+template <int D, typename OutT, int STAGES = 2, bool KS = D != 256>
+int launch_bwd(const void* q, const void* k, const void* v, const void* dout, const void* o_in, const void* do_in,
+               const float* lse_in, float* lse, float* delta, const int* kv_lens, float* dq, void* dk, void* dv,
+               int bh, int q_seq, int kv_seq, int causal, float sm_scale, cudaStream_t stream) {
+  const int prep = launch_prep<OutT>(o_in, do_in, lse_in, lse, delta, bh, q_seq, D, stream);
+  if (prep != 0) return prep;
+  return launch_bwd_kernel<D, OutT, STAGES, KS, true>(q, k, v, dout, lse, delta, kv_lens, dq, dk, dv, bh, q_seq,
+                                                      kv_seq, causal, sm_scale, power_of_two(sm_scale) ? 0 : 1,
+                                                      stream);
 }
 
 }  // namespace
@@ -507,5 +545,45 @@ extern "C" int mlpt_flash_bwd(const void* q, const void* k, const void* v, const
   }
 #undef MLPT_BWD
 #undef MLPT_BWD_256_SCALED
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split backward's first launch: the fused backward's prep alone. o_in,
+// do_in: out and dO [bh, q_seq, d] in the input type (dtype as above), d a
+// multiple of 64; lse_in f32 [bh, q_seq]; lse, delta: f32 [bh, cdiv(q_seq,
+// 64) * 64], lse +inf and delta 0 past q_seq.
+extern "C" int mlpt_flash_bwd_prep(const void* o_in, const void* do_in, const float* lse_in, float* lse,
+                                   float* delta, int bh, int q_seq, int head_dim, int dtype, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  (void)cudaGetLastError();
+  if (head_dim % 64 != 0) return (int)cudaErrorInvalidValue;
+  if (dtype == 0) return launch_prep<bf16>(o_in, do_in, lse_in, lse, delta, bh, q_seq, head_dim, s);
+  if (dtype == 1) return launch_prep<float>(o_in, do_in, lse_in, lse, delta, bh, q_seq, head_dim, s);
+  return (int)cudaErrorInvalidValue;
+}
+
+// The split backward's dk/dv: flash_bwd_kernel without dQ, on the prep
+// launch's lse and delta. q, v, dout: bf16 [bh, S, D]; k: bf16 [bh, kv_seq,
+// D], holding bf16(k*scale) where k_scaled is 1 (the wrapper does so where
+// the scale is not a power of two); dk, dv [bh, kv_seq, D] in dtype.
+extern "C" int mlpt_flash_bwd_dkv(const void* q, const void* k, const void* v, const void* dout, const float* lse,
+                                  const float* delta, const int* kv_lens, void* dk, void* dv, int bh, int q_seq,
+                                  int kv_seq, int head_dim, int dtype, int causal, float sm_scale, int k_scaled,
+                                  void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  (void)cudaGetLastError();
+#define MLPT_DKV(D, T)                                                                                          \
+  return launch_bwd_kernel<D, T, 2, false, false>(q, k, v, dout, lse, delta, kv_lens, nullptr, dk, dv, bh, q_seq, \
+                                                  kv_seq, causal, sm_scale, k_scaled, s)
+  if (dtype == 0) {
+    if (head_dim == 64) MLPT_DKV(64, bf16);
+    if (head_dim == 128) MLPT_DKV(128, bf16);
+    if (head_dim == 256) MLPT_DKV(256, bf16);
+  } else if (dtype == 1) {
+    if (head_dim == 64) MLPT_DKV(64, float);
+    if (head_dim == 128) MLPT_DKV(128, float);
+    if (head_dim == 256) MLPT_DKV(256, float);
+  }
+#undef MLPT_DKV
   return (int)cudaErrorInvalidValue;
 }

@@ -350,3 +350,6 @@ extern "C" int mlpt_flash_fwd(const void* q, const void* k, const void* v, void*
 #undef MLPT_FWD
   return (int)cudaErrorInvalidValue;
 }
+
+// The message of a cudaError_t that one of the library's entry points returned.
+extern "C" const char* mlpt_error_string(int err) { return cudaGetErrorString(static_cast<cudaError_t>(err)); }

@@ -12,6 +12,7 @@ CPU-only tests can import every module.
 import ctypes
 import hashlib
 import os
+import re
 import shutil
 import subprocess
 import tempfile
@@ -24,7 +25,7 @@ from ..utils import get_logger
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_attention.cu", "selective_scan.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dq.cu", "selective_scan.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -45,6 +46,29 @@ def find_nvcc() -> str:
         if cand and os.path.isfile(cand) and os.access(cand, os.X_OK):
             return cand
     raise RuntimeError("nvcc not found (set CUDA_HOME or put the CUDA toolkit's bin/ on PATH)")
+
+
+def entry_registers(report: str, kernel: str = "") -> list[tuple[str, str]]:
+    """(mangled name, registers and spills) of each entry function of an
+    ``nvcc -Xptxas -v`` report whose name holds ``kernel``."""
+    lines = report.splitlines()
+    return [(line.split("'")[1], f"{lines[i + 3].split(': ')[-1]}, {lines[i + 2].strip()}")
+            for i, line in enumerate(lines) if "Compiling entry" in line and kernel in line]
+
+
+def demangled(names: list[str]) -> list[str]:
+    """``names`` demangled by ``cu++filt`` beside ``nvcc`` (or ``c++filt``),
+    without namespace or parameter list; as given where no demangler is."""
+    filt = os.path.join(os.path.dirname(find_nvcc()), "cu++filt")
+    filt = filt if os.path.exists(filt) else shutil.which("c++filt")
+    if not filt or not names:
+        return names
+    out = subprocess.run([filt], input="\n".join(names), capture_output=True, text=True).stdout.splitlines()
+    if len(out) != len(names):
+        return names
+    # cu++filt writes a template's integer and bool arguments as (int)256 and (bool)1
+    return [re.sub(r"\(anonymous namespace\)::|<unnamed>::|\((?:int|bool)\)", "", n).split("(")[0].removeprefix("void ")
+            for n in out]
 
 
 def _source_hash() -> str:
@@ -83,7 +107,9 @@ def build(verbose: bool = False) -> Path:
         errs = [p.communicate()[1] for p in procs]  # waits for each compile
         if verbose:
             for src, err in zip(SOURCES, errs):
-                print(f"{src}:\n{err[-8000:]}", flush=True)
+                found = entry_registers(err)
+                for name, (_, regs) in zip(demangled([n for n, _ in found]), found):
+                    print(f"[ptxas] {src}: {name}: {regs}", flush=True)
         failed = [f"{src} ({p.returncode}):\n{err[-8000:]}" for src, p, err in zip(SOURCES, procs, errs) if p.returncode]
         if failed:
             raise RuntimeError("nvcc failed:\n" + "\n".join(failed))
@@ -108,9 +134,11 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.mlpt_flash_fwd.restype = i32
             lib.mlpt_flash_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [f32, ptr]
             lib.mlpt_flash_bwd.restype = i32
-            lib.mlpt_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 6 + [f32, ptr]
+            lib.mlpt_flash_bwd_prep.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+            lib.mlpt_flash_bwd_prep.restype = i32
+            lib.mlpt_flash_bwd_dq.argtypes = [ptr] * 8 + [i32] * 6 + [f32, f32, ptr]
             lib.mlpt_flash_bwd_dq.restype = i32
-            lib.mlpt_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 6 + [f32, ptr]
+            lib.mlpt_flash_bwd_dkv.argtypes = [ptr] * 9 + [i32] * 6 + [f32, i32, ptr]
             lib.mlpt_flash_bwd_dkv.restype = i32
             lib.mlpt_scan_fwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
             lib.mlpt_scan_fwd.restype = i32

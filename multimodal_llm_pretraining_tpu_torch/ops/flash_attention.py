@@ -9,8 +9,11 @@ kernel replacing ``_bwd_dkv_kernel`` (``:293``). Each runs in its plain and
 its varlen (padded-batch, ``:622-652``) mode. The forward lives in
 ``csrc/flash_fwd.cu`` (TMA loads, ``wgmma`` products, softmax and output in
 registers), the fused backward in ``csrc/flash_bwd.cu`` (TMA loads, ``wgmma``
-products, dk and dv in registers), the split pair in
-``csrc/flash_attention.cu``; all are built on first use (``ops/_build.py``).
+products, dk and dv in registers). The split pair's dk/dv kernel is that
+same kernel compiled without dq (``csrc/flash_bwd.cu``), its dq kernel is
+``csrc/flash_bwd_dq.cu`` (the forward's structure with dQ in place of O);
+both read the lse and delta rows of one prep launch per backward. All are
+built on first use (``ops/_build.py``).
 
 The kernels are instantiated at head dims 64, 128 and 256. The wrappers take
 any head dim up to 256 and zero-pad it to the next of these in the copy they
@@ -39,9 +42,9 @@ There is no fallback from the kernel to the plain version.
 
 Numerics mirror the TPU kernels: the scale folds into q for the forward
 scores and the dq kernel's, into k for the other backward scores; products
-take bf16 operands with f32 accumulation (f32 inputs are rounded to bf16,
-by the forward's and the fused backward's wrappers and by the split
-kernels as they load),
+take bf16 operands with f32 accumulation (f32 inputs are rounded to bf16
+by the wrappers, once per call: the split pair's two kernels share one set
+of copies, ``split_operands``),
 probabilities are recomputed from the saved f32 logsumexp, ds = p * (dp -
 delta) * scale, and a query row with no visible key gives 0.
 
@@ -51,7 +54,9 @@ and dk, dv are exactly 0 there. ``flash_attention(..., kv_len_mask=m)``
 reduces a [B, Sk] keep-mask to lens as the JAX package does (``:694-697``).
 """
 
+import math
 import os
+from typing import NamedTuple
 
 import torch
 
@@ -60,7 +65,7 @@ from . import _build
 NEG_INF = -1e30
 KERNEL_HEAD_DIMS = (64, 128, 256)  # instantiated; other head dims up to the last are zero-padded to the next
 MAX_GRID_Y = 65535  # batch-heads of one launch: the launch grid's y dimension
-STATS_ROWS = 64  # the fused backward reads lse and delta in rows of this many queries
+STATS_ROWS = 64  # the backward kernels read lse and delta padded to rows of this many queries
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # The fused backward (default) or the split dq + dk/dv kernels; see above.
@@ -170,6 +175,14 @@ def flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal: bool, sm_scale: f
     return dk.to(k.dtype), dv.to(v.dtype)
 
 
+def flash_bwd_split_reference(q, k, v, out, lse, dout, causal: bool, sm_scale: float, kv_lens=None):
+    """Plain version of the split backward: delta once, then the dq and the
+    dk/dv plain versions; (dq, dk, dv) in the input dtypes."""
+    delta = bwd_delta(out, dout)
+    dq = flash_bwd_dq_reference(q, k, v, dout, lse, delta, causal, sm_scale, kv_lens)
+    return (dq, *flash_bwd_dkv_reference(q, k, v, dout, lse, delta, causal, sm_scale, kv_lens))
+
+
 # ---------------------------------------------------------------- kernel wrappers
 
 
@@ -212,6 +225,18 @@ def _check_kernel_inputs(tensors, head_dim: int) -> None:
             raise ValueError("flash attention kernel inputs must share one device and dtype")
         if t.ndim != 3 or t.shape[-1] != head_dim:
             raise ValueError(f"flash attention kernels take [BH, S, D] tensors, got {tuple(t.shape)}")
+
+
+def _check_backward_inputs(q, k, v, out, lse, dout) -> None:
+    """The backward wrappers' checks: [BH, S, D] tensors as the kernels take
+    them, out and dO shaped as q, lse [BH, Sq] on q's device."""
+    bh, q_seq, d = q.shape
+    _check_kernel_inputs((q, k, v, out, dout), d)
+    if (out.shape != q.shape or dout.shape != q.shape or k.shape != v.shape or k.shape[0] != bh or lse.shape != (bh, q_seq)
+            or q_seq == 0 or k.shape[1] == 0):
+        raise ValueError("flash attention backward shapes disagree")
+    if lse.device != q.device:
+        raise ValueError(f"lse lies on {lse.device}, the other inputs on {q.device}")
 
 
 def _kernel_ready(t: torch.Tensor, head_dim: int | None = None) -> torch.Tensor:
@@ -299,13 +324,8 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, sm_scale: float, kv_le
     variant, which has room for a k*scale tile."""
     global BWD_LAUNCHES, VARLEN_BWD_LAUNCHES
     bh, q_seq, d = q.shape
-    _check_kernel_inputs((q, k, v, out, dout), d)
     kv_seq = k.shape[1]
-    if (out.shape != q.shape or dout.shape != q.shape or k.shape != v.shape or k.shape[0] != bh or lse.shape != (bh, q_seq)
-            or q_seq == 0 or kv_seq == 0):
-        raise ValueError("flash attention backward shapes disagree")
-    if lse.device != q.device:
-        raise ValueError(f"lse lies on {lse.device}, the other inputs on {q.device}")
+    _check_backward_inputs(q, k, v, out, lse, dout)
     dp = kernel_head_dim(d)
     kv_lens = _checked_lens(kv_lens, bh, q.device)
     out, dout = (_kernel_ready(t, dp) for t in (out, dout))
@@ -335,72 +355,132 @@ def flash_bwd_cuda(q, k, v, out, lse, dout, causal: bool, sm_scale: float, kv_le
     return dq[..., :d].to(q.dtype), dk[..., :d], dv[..., :d]
 
 
-def _split_inputs(q, k, v, dout, lse, delta, kv_lens):
-    """The split kernels' common checks: contiguous 16-byte aligned tensors
-    with the head dim padded to the kernel's, f32 lse and delta [BH, Sq] on
-    q's device, and the lens."""
+def _power_of_two(x: float) -> bool:
+    return x > 0 and math.frexp(x)[0] == 0.5
+
+
+def _scaled_bf16(t: torch.Tensor, scale: float) -> torch.Tensor:
+    """bf16(t * scale), the product taken in f32 and rounded once, as the
+    plain versions and the kernels round q*scale and k*scale."""
+    return torch.mul(t, scale, out=torch.empty(t.shape, dtype=torch.bfloat16, device=t.device))
+
+
+class SplitOperands(NamedTuple):
+    """What the split pair's two kernels read, made once per backward by
+    ``split_operands``: bf16 [BH, S, Dp] operands (Dp the kernel's head dim),
+    the prep launch's padded lse and delta rows, the lens, the scale, the
+    caller's dtype and head dim."""
+
+    q: torch.Tensor  # q, for dk = ds^T . q
+    q_dq: torch.Tensor  # the dq kernel's q: q itself (the kernel rounds q*scale once), or q*scale rounded from f32
+    q_scale: float  # the scale the dq kernel applies to q_dq: sm_scale, or 1.0 where q_dq is q*scale
+    k: torch.Tensor  # k, for dq = ds . k
+    k_dkv: torch.Tensor  # the dk/dv kernel's k: k itself (a power-of-two scale, applied to the f32 scores), or k*scale
+    k_scaled: bool  # whether k_dkv is k*scale
+    v: torch.Tensor
+    dout: torch.Tensor
+    stats: torch.Tensor  # f32 [2, BH, Sq rounded up to STATS_ROWS]: lse (+inf past Sq) and delta (0 past Sq)
+    kv_lens: torch.Tensor | None
+    sm_scale: float
+    dtype: torch.dtype  # of the inputs and of dq, dk, dv
+    head_dim: int  # the caller's, before padding
+
+
+def split_operands(q, k, v, out, lse, dout, sm_scale: float, kv_lens=None) -> SplitOperands:
+    """The split backward's shared work on [BH, S, D] CUDA tensors, once per
+    backward: the checks, the head dim padded to the kernel's, bf16 copies
+    of f32 inputs (q*scale or k*scale rounded once from f32 where the
+    kernels cannot form it exactly from the bf16 copy), and the fused
+    backward's prep launch, which writes delta = rowsum(dO * out) from out
+    and dO in the input dtype and the lse rows, both padded to a multiple
+    of STATS_ROWS queries."""
     bh, q_seq, d = q.shape
-    _check_kernel_inputs((q, k, v, dout), d)
-    if dout.shape != q.shape or k.shape != v.shape or k.shape[0] != bh or k.shape[1] == 0 or q_seq == 0:
-        raise ValueError("flash attention backward shapes disagree")
-    for name, t in (("lse", lse), ("delta", delta)):
-        if t.device != q.device or t.shape != (bh, q_seq):
-            raise ValueError(f"{name} must be [{bh}, {q_seq}] on {q.device}, got {tuple(t.shape)} on {t.device}")
-    kv_lens = _checked_lens(kv_lens, bh, q.device)
+    _check_backward_inputs(q, k, v, out, lse, dout)
     dp = kernel_head_dim(d)
-    q, k, v, dout = (_kernel_ready(t, dp) for t in (q, k, v, dout))
-    return q, k, v, dout, _kernel_ready(lse.float()), _kernel_ready(delta.float()), kv_lens
-
-
-def flash_bwd_dq_cuda(q, k, v, dout, lse, delta, causal: bool, sm_scale: float, kv_lens=None):
-    """Launch the split backward's dq kernel; returns dq in q's dtype. No
-    atomics: two runs give the same bits. ``delta`` is ``bwd_delta(out,
-    dout)``; ``kv_lens`` (int32 [BH]) selects the varlen mode."""
-    global DQ_LAUNCHES, VARLEN_DQ_LAUNCHES
-    d = q.shape[-1]
-    q, k, v, dout, lse, delta, kv_lens = _split_inputs(q, k, v, dout, lse, delta, kv_lens)
-    bh, q_seq, dp = q.shape
+    kv_lens = _checked_lens(kv_lens, bh, q.device)
+    q, k, v, out, dout = (_kernel_ready(t, dp) for t in (q, k, v, out, dout))
+    lse = _kernel_ready(lse.float())
+    stats = torch.empty(2, bh, -(-q_seq // STATS_ROWS) * STATS_ROWS, dtype=torch.float32, device=q.device)
     lib = _build.load()
-    dq = torch.empty_like(q)
+    with torch.cuda.device(q.device):
+        err = lib.mlpt_flash_bwd_prep(out.data_ptr(), dout.data_ptr(), lse.data_ptr(), stats[0].data_ptr(),
+                                      stats[1].data_ptr(), bh, q_seq, dp, _DTYPE_CODE[q.dtype],
+                                      torch.cuda.current_stream(q.device).cuda_stream)
+    _build.check(lib, err, "flash attention backward prep kernel")
+    exact = _power_of_two(sm_scale)  # bf16(x) * scale is bf16(x * scale): the kernels scale the bf16 copy
+    qb, kb, vb, dob = (t if t.dtype == torch.bfloat16 else t.to(torch.bfloat16) for t in (q, k, v, dout))
+    q_scaled = q.dtype == torch.float32 and not exact
+    q_dq = _scaled_bf16(q, sm_scale) if q_scaled else qb
+    k_dkv = kb if exact else _scaled_bf16(k, sm_scale)
+    return SplitOperands(qb, q_dq, 1.0 if q_scaled else sm_scale, kb, k_dkv, not exact, vb, dob, stats, kv_lens,
+                         sm_scale, q.dtype, d)
+
+
+def flash_bwd_dq_cuda(ops: SplitOperands, causal: bool) -> torch.Tensor:
+    """Launch the split backward's dq kernel on ``split_operands``; returns
+    dq [BH, Sq, Dp] in the input dtype (padded columns included). No
+    atomics: two runs give the same bits."""
+    global DQ_LAUNCHES, VARLEN_DQ_LAUNCHES
+    bh, q_seq, dp = ops.q.shape
+    lib = _build.load()
+    dq = torch.empty(bh, q_seq, dp, dtype=ops.dtype, device=ops.q.device)
     for b0, b1 in bh_chunks(bh):
-        with torch.cuda.device(q.device):
+        with torch.cuda.device(dq.device):
             err = lib.mlpt_flash_bwd_dq(
-                q[b0].data_ptr(), k[b0].data_ptr(), v[b0].data_ptr(), dout[b0].data_ptr(), lse[b0].data_ptr(),
-                delta[b0].data_ptr(), _chunk_ptr(kv_lens, b0), dq[b0].data_ptr(), b1 - b0, q_seq, k.shape[1], dp,
-                _DTYPE_CODE[q.dtype], int(causal), float(sm_scale), torch.cuda.current_stream(q.device).cuda_stream,
+                ops.q_dq[b0].data_ptr(), ops.k[b0].data_ptr(), ops.v[b0].data_ptr(), ops.dout[b0].data_ptr(),
+                ops.stats[0, b0].data_ptr(), ops.stats[1, b0].data_ptr(), _chunk_ptr(ops.kv_lens, b0),
+                dq[b0].data_ptr(), b1 - b0, q_seq, ops.k.shape[1], dp, _DTYPE_CODE[ops.dtype], int(causal),
+                float(ops.sm_scale), float(ops.q_scale),
+                torch.cuda.current_stream(dq.device).cuda_stream,
             )
         _build.check(lib, err, "flash attention dq kernel")
-        if kv_lens is None:
+        if ops.kv_lens is None:
             DQ_LAUNCHES += 1
         else:
             VARLEN_DQ_LAUNCHES += 1
-    return dq[..., :d]
+    return dq
 
 
-def flash_bwd_dkv_cuda(q, k, v, dout, lse, delta, causal: bool, sm_scale: float, kv_lens=None):
-    """Launch the split backward's dk/dv kernel; returns (dk, dv) in the
-    input dtype, rows at or past each varlen length written as zeros."""
+def flash_bwd_dkv_cuda(ops: SplitOperands, causal: bool) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the split backward's dk/dv kernel (the fused backward's
+    kernel without dq) on ``split_operands``; returns (dk, dv) [BH, Sk, Dp]
+    in the input dtype, rows at or past each varlen length written as
+    zeros. With the same stats they equal the fused kernel's bit for bit
+    (where both form k*scale from the same bf16 k)."""
     global DKV_LAUNCHES, VARLEN_DKV_LAUNCHES
-    d = q.shape[-1]
-    q, k, v, dout, lse, delta, kv_lens = _split_inputs(q, k, v, dout, lse, delta, kv_lens)
-    bh, q_seq, dp = q.shape
+    bh, q_seq, dp = ops.q.shape
+    kv_seq = ops.k.shape[1]
     lib = _build.load()
-    dk = torch.empty_like(k)
-    dv = torch.empty_like(v)
+    dk = torch.empty(bh, kv_seq, dp, dtype=ops.dtype, device=ops.q.device)
+    dv = torch.empty_like(dk)
     for b0, b1 in bh_chunks(bh):
-        with torch.cuda.device(q.device):
+        with torch.cuda.device(dk.device):
             err = lib.mlpt_flash_bwd_dkv(
-                q[b0].data_ptr(), k[b0].data_ptr(), v[b0].data_ptr(), dout[b0].data_ptr(), lse[b0].data_ptr(),
-                delta[b0].data_ptr(), _chunk_ptr(kv_lens, b0), dk[b0].data_ptr(), dv[b0].data_ptr(), b1 - b0, q_seq,
-                k.shape[1], dp, _DTYPE_CODE[q.dtype], int(causal), float(sm_scale),
-                torch.cuda.current_stream(q.device).cuda_stream,
+                ops.q[b0].data_ptr(), ops.k_dkv[b0].data_ptr(), ops.v[b0].data_ptr(), ops.dout[b0].data_ptr(),
+                ops.stats[0, b0].data_ptr(), ops.stats[1, b0].data_ptr(), _chunk_ptr(ops.kv_lens, b0),
+                dk[b0].data_ptr(), dv[b0].data_ptr(), b1 - b0, q_seq, kv_seq, dp, _DTYPE_CODE[ops.dtype],
+                int(causal), float(ops.sm_scale), int(ops.k_scaled),
+                torch.cuda.current_stream(dk.device).cuda_stream,
             )
         _build.check(lib, err, "flash attention dk/dv kernel")
-        if kv_lens is None:
+        if ops.kv_lens is None:
             DKV_LAUNCHES += 1
         else:
             VARLEN_DKV_LAUNCHES += 1
-    return dk[..., :d], dv[..., :d]
+    return dk, dv
+
+
+def flash_bwd_split_cuda(q, k, v, out, lse, dout, causal: bool, sm_scale: float, kv_lens=None):
+    """The split backward as ``FlashAttention.backward`` runs it on CUDA
+    tensors: ``split_operands`` (one prep launch, the casts), then the dq
+    kernel, then the dk/dv kernel; returns (dq, dk, dv) in the input dtype.
+    Nothing is summed across blocks, so all three repeat bit for bit.
+    ``kv_lens`` (int32 [BH]) selects the varlen mode."""
+    ops = split_operands(q, k, v, out, lse, dout, sm_scale, kv_lens)
+    dq = flash_bwd_dq_cuda(ops, causal)
+    dk, dv = flash_bwd_dkv_cuda(ops, causal)
+    d = ops.head_dim
+    return dq[..., :d], dk[..., :d], dv[..., :d]
 
 
 def _on_device(cuda_fn, plain_fn, q, *args):
@@ -416,8 +496,9 @@ class FlashAttention(torch.autograd.Function):
     """[BH, S, D] attention; saves (q, k, v, kv_lens, out, lse) like the JAX
     ``_flash_varlen_fwd_rule`` (``kv_lens`` None in the plain mode, which
     saves what ``_flash_fwd_rule`` does). The backward is the fused kernel,
-    or with ``PREFER_FUSED_BWD`` off the dq kernel and then the dk/dv
-    kernel, both reading one delta."""
+    or with ``PREFER_FUSED_BWD`` off the split pair
+    (``flash_bwd_split_cuda``): one prep launch for delta and the lse rows,
+    then the dq kernel and the dk/dv kernel, both reading them."""
 
     @staticmethod
     def forward(ctx, q, k, v, causal: bool, sm_scale: float, kv_lens=None):
@@ -433,9 +514,7 @@ class FlashAttention(torch.autograd.Function):
         if PREFER_FUSED_BWD:
             dq, dk, dv = _on_device(flash_bwd_cuda, flash_bwd_reference, q, k, v, out, lse, dout, *args)
         else:
-            delta = bwd_delta(out, dout)
-            dq = _on_device(flash_bwd_dq_cuda, flash_bwd_dq_reference, q, k, v, dout, lse, delta, *args)
-            dk, dv = _on_device(flash_bwd_dkv_cuda, flash_bwd_dkv_reference, q, k, v, dout, lse, delta, *args)
+            dq, dk, dv = _on_device(flash_bwd_split_cuda, flash_bwd_split_reference, q, k, v, out, lse, dout, *args)
         return dq, dk, dv, None, None, None
 
 

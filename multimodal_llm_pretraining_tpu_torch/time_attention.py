@@ -1,6 +1,6 @@
-"""Time the flash-attention forward and fused backward on the card at chosen shapes.
+"""Time the flash-attention forward, fused backward and split backward on the card at chosen shapes.
 
-    python -m multimodal_llm_pretraining_tpu_torch.time_attention 16,16,577,64 16,32,1087,64:causal:varlen 128,16,197,64:f32
+    python -m multimodal_llm_pretraining_tpu_torch.time_attention 4,8,2049,256:causal 16,32,1087,64:causal:varlen 128,16,197,64:f32
 
 A shape is B,H,S,D, optionally followed by ``:causal``, ``:varlen`` (every
 length full, in the varlen mode) and ``:f32`` (f32 inputs; bf16 otherwise).
@@ -11,8 +11,19 @@ launches, from ``torch.profiler`` over 10 calls: the forward kernel and, on
 f32 inputs, the wrapper's casts to bf16. Then the same for a call of the
 fused backward ``flash_bwd_cuda`` (5 x 2·D FLOP per visible pair; its
 device time also holds delta, the padded lse and delta rows, dq's zeroing
-and cast, and on f32 inputs the casts to bf16). The card's ``nvidia-smi``
-name and power limit head the output.
+and cast, and on f32 inputs the casts to bf16). Then the split backward
+as ``FlashAttention.backward`` runs it with ``PREFER_FUSED_BWD`` off: its
+shared work alone (``split_operands``: the prep launch and, on f32 inputs,
+the casts), the dq kernel alone and the dk/dv kernel alone on one such set
+of operands (3 and 4 x 2·D FLOP per visible pair), and the pair as a whole
+(``flash_bwd_split_cuda``: the backward's 5 x 2·D FLOP, though the pair
+does 7), each beside the fused backward's time. PyTorch's own backward,
+the pair's yardstick, is timed by ``chip_smoke.py`` (its ``[yardstick]``
+lines), since the package names no library attention. Where this process
+compiles the kernels, the build first prints every kernel's template
+arguments, registers and spills from ``ptxas -v`` (a flash kernel's dynamic
+shared memory is the ``launch_bytes`` of its tile struct in the source).
+The card's ``nvidia-smi`` name and power limit head the output.
 """
 
 import argparse
@@ -22,6 +33,7 @@ import subprocess
 import numpy as np
 import torch
 
+from .ops import _build
 from .ops import flash_attention as fa
 from .utils import require_cuda
 
@@ -77,10 +89,11 @@ def card_line() -> str:
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__, formatter_class=argparse.RawDescriptionHelpFormatter)
-    ap.add_argument("shapes", nargs="+", help="B,H,S,D[:causal][:varlen][:f32]")
+    ap.add_argument("shapes", nargs="*", help="B,H,S,D[:causal][:varlen][:f32]")
     args = ap.parse_args()
     require_cuda()
     print(f"[card] {card_line()}", flush=True)
+    _build.load(verbose=True)
     for spec in args.shapes:
         dims, *flags = spec.split(":")
         b, h, s, d = (int(x) for x in dims.split(","))
@@ -98,12 +111,30 @@ def main() -> int:
         def bwd():
             return fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, d**-0.5, lens)
 
+        def operands():
+            return fa.split_operands(q, k, v, out, lse, do, d**-0.5, lens)
+
+        ops = operands()
+
+        def split():
+            return fa.flash_bwd_split_cuda(q, k, v, out, lse, do, causal, d**-0.5, lens)
+
         pairs = visible_pairs(b * h, s, s, causal, lens)
-        for name, fn, flops in (("forward", fwd, 4 * d * pairs), ("backward", bwd, 10 * d * pairs)):
+        fused_ms = None
+        for name, fn, flops in (
+            ("forward", fwd, 4 * d * pairs),
+            ("backward", bwd, 10 * d * pairs),
+            ("split operands", operands, 0),
+            ("split dq", lambda: fa.flash_bwd_dq_cuda(ops, causal), 6 * d * pairs),
+            ("split dk/dv", lambda: fa.flash_bwd_dkv_cuda(ops, causal), 8 * d * pairs),
+            ("split pair", split, 10 * d * pairs),
+        ):
             ms = ms_per_call(fn)
+            fused_ms = ms if name == "backward" else fused_ms
             kernels = ", ".join(f"{k_name[:60]} {us:.1f} us" for k_name, us in kernel_us(fn).items())
-            print(f"[{name}] {spec}: {ms:.4f} ms a call, {flops / ms / 1e9:.1f} TFLOP/s; device time a call: {kernels}",
-                  flush=True)
+            rate = f", {flops / ms / 1e9:.1f} TFLOP/s" if flops else ""
+            beside = f" ({ms / fused_ms:.3f} of the fused backward's)" if name.startswith("split") else ""
+            print(f"[{name}] {spec}: {ms:.4f} ms a call{rate}{beside}; device time a call: {kernels}", flush=True)
     return 0
 
 

@@ -18,8 +18,8 @@ kernels are first held to their plain versions (y before the skip to 1e-4
 of its norm, y with the skip to 1e-4 in f32 and to one bf16 rounding, 4e-3,
 in bf16, the checkpoint and gradients to 1e-3), and a second forward and a
 second backward must repeat the first bit for bit; any failure exits 1.
-``--ptxas`` prints the build's ``ptxas -v`` report (registers, shared
-memory, spills) first. The card's ``nvidia-smi`` name and power limit head
+``--ptxas`` has the build print one ``ptxas -v`` line per kernel first
+(registers, static shared memory where there is any, spills). The card's ``nvidia-smi`` name and power limit head
 the output.
 """
 

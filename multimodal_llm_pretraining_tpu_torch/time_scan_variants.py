@@ -50,34 +50,43 @@ VARIANTS = {
 }
 
 
-def variant_source(edits) -> str:
-    src = (_build.CSRC_DIR / "selective_scan.cu").read_text()
+def variant_source(source: str, edits) -> str:
+    """``csrc/<source>`` with each (old, new) of ``edits`` replaced."""
+    src = (_build.CSRC_DIR / source).read_text()
     for old, new in edits:
         if src.count(old) != 1:
-            raise ValueError(f"{old!r} is not in selective_scan.cu exactly once")
+            raise ValueError(f"{old!r} is not in {source} exactly once")
         src = src.replace(old, new)
     return src
 
 
 class VariantLib:
-    """A variant's scan entry points beside the package library's error strings."""
+    """The package library's entry points, those named taken from a variant's library."""
 
-    def __init__(self, path: Path, main: ctypes.CDLL):
+    def __init__(self, path: Path, main: ctypes.CDLL, names):
+        self._main = main
         lib = ctypes.CDLL(str(path))
-        for name in ("mlpt_scan_fwd", "mlpt_scan_bwd"):
+        for name in names:
             fn = getattr(lib, name)
             fn.argtypes, fn.restype = getattr(main, name).argtypes, getattr(main, name).restype
             setattr(self, name, fn)
-        self.mlpt_error_string = main.mlpt_error_string
+
+    def __getattr__(self, name):
+        return getattr(self._main, name)
 
 
-def build_variants(main: ctypes.CDLL, out_dir: Path) -> dict[str, VariantLib]:
-    """Compile every variant, all nvcc processes started together."""
+def build_variants(main: ctypes.CDLL, out_dir: Path, source: str, variants: dict, names, kernel: str,
+                   describe) -> dict[str, VariantLib]:
+    """Compile every variant of ``csrc/<source>`` alone into its own library,
+    all nvcc processes started together; print ``describe(entry)`` with its
+    registers and spills for each compiled entry function whose mangled
+    name holds ``kernel``; take the entry points ``names`` from each
+    variant."""
     nvcc = _build.find_nvcc()
     procs = {}
-    for k, (name, edits) in enumerate(VARIANTS.items()):
+    for k, (name, edits) in enumerate(variants.items()):
         src = out_dir / f"v{k}.cu"
-        src.write_text(variant_source(edits))
+        src.write_text(variant_source(source, edits))
         cmd = [nvcc, *_build.NVCC_FLAGS, "-Xptxas", "-v", "-shared", "-I", str(_build.CSRC_DIR),
                "-o", str(out_dir / f"v{k}.so"), str(src)]
         procs[name] = (k, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True))
@@ -86,13 +95,14 @@ def build_variants(main: ctypes.CDLL, out_dir: Path) -> dict[str, VariantLib]:
         err = proc.communicate()[1]
         if proc.returncode:
             raise RuntimeError(f"nvcc failed for variant {name!r}:\n{err[-4000:]}")
-        lines = err.splitlines()
-        regs = [f"{'bf16' if 'bfloat16' in line else 'f32'}{' skip' if 'Lb1' in line else ''}: "
-                f"{lines[i + 3].split(': ')[-1]}, {lines[i + 2].strip()}"
-                for i, line in enumerate(lines) if "Compiling entry" in line and "scan_fwd" in line]
+        regs = [f"{describe(entry)}: {found}" for entry, found in _build.entry_registers(err, kernel)]
         print(f"[ptxas] {name}: " + " | ".join(regs), flush=True)
-        libs[name] = VariantLib(out_dir / f"v{k}.so", main)
+        libs[name] = VariantLib(out_dir / f"v{k}.so", main, names)
     return libs
+
+
+def _describe(entry: str) -> str:
+    return f"{'bf16' if 'bfloat16' in entry else 'f32'}{' skip' if 'Lb1' in entry else ''}"
 
 
 def main() -> int:
@@ -104,7 +114,8 @@ def main() -> int:
     ok = True
     package_lib = _build.load()
     with tempfile.TemporaryDirectory(dir=_build.BUILD_DIR) as tmp:
-        libs = build_variants(package_lib, Path(tmp))
+        libs = build_variants(package_lib, Path(tmp), "selective_scan.cu", VARIANTS, ("mlpt_scan_fwd", "mlpt_scan_bwd"),
+                              "scan_fwd", _describe)
         try:
             for spec in args.shapes:
                 dims, *flags = spec.split(":")

@@ -76,9 +76,7 @@ def _torch_side(q, k, v, do, causal, dtype, mask=None):
     if tfa.PREFER_FUSED_BWD:
         grads = tfa.flash_bwd_reference(tq, tk, tv, out, lse, tdo, causal, d**-0.5, lens)
     else:
-        delta = tfa.bwd_delta(out, tdo)
-        grads = (tfa.flash_bwd_dq_reference(tq, tk, tv, tdo, lse, delta, causal, d**-0.5, lens),
-                 *tfa.flash_bwd_dkv_reference(tq, tk, tv, tdo, lse, delta, causal, d**-0.5, lens))
+        grads = tfa.flash_bwd_split_reference(tq, tk, tv, out, lse, tdo, causal, d**-0.5, lens)
     plain = [out, lse, *grads]
     leaves = [t.clone().requires_grad_() for t in (tq, tk, tv)]
     fout = tfa.flash_attention(*leaves, causal=causal, kv_len_mask=tmask)
@@ -154,6 +152,19 @@ def test_plain_versions_match_pallas_kernels_bf16(fused):
             assert np.linalg.norm(got - want) <= 2e-2 * np.linalg.norm(want), name
     for name, got, want in zip(("out", "dq", "dk", "dv"), fn, [ref[0], *ref[2:]]):
         assert np.linalg.norm(got - want) <= 2e-2 * np.linalg.norm(want), f"Function {name}"
+
+
+@pytest.mark.parametrize("fused", [False], ids=["split"])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("q_seq,kv_seq", [(63, 63), (65, 65), (129, 129), (65, 200), (200, 65)])
+def test_split_plain_versions_match_pallas_split_kernels_at_block_edges(q_seq, kv_seq, causal, fused):
+    """The split pair's plain versions against JAX's ``_bwd_dq_kernel`` and
+    ``_bwd_dkv_kernel`` (interpret mode) at lengths around their 64-row
+    blocks, the split kernels' tile edges too, kv_seq other than q_seq both
+    ways, D=64; the f32 tolerances above."""
+    q, k, v, do = _inputs(1, 2, q_seq, 64, seed=q_seq + 3 * kv_seq + causal, kv_seq=kv_seq)
+    ref = _jax_side(q, k, v, do, causal, 64, jnp.float32)
+    _assert_f32_close(*_torch_side(q, k, v, do, causal, torch.float32), ref)
 
 
 @pytest.mark.parametrize("causal", [False, True])

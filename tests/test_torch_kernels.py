@@ -21,8 +21,14 @@ differ by one bf16 ulp of the larger value per element (plus f32 noise where
 terms cancel); dk and dv are summed in one block each and repeat bit for
 bit. The varlen mode (int32 lens per batch-head) keeps
 these tolerances, and dk and dv at and past each length are exactly 0. The
-split backward keeps them too; it has no atomics, so dq, dk and dv all
-repeat bit for bit, and it lies within 1e-2 of the fused kernel's norm.
+split backward (one prep launch, the dq kernel and the dk/dv kernel, as
+``FlashAttention.backward`` runs them) keeps them too, at the fused
+backward's tile edges and at head dim 256 with any scale; it has no
+atomics, so dq, dk and dv all repeat bit for bit, and it lies within 1e-2
+of the fused kernel's norm. Its dk/dv kernel is the fused kernel without
+dq, so on the same inputs dk and dv equal the fused kernel's bit for bit
+wherever both form k*scale from the same bf16 k (bf16 inputs, or a
+power-of-two scale).
 f32 inputs are rounded to bf16 where they enter the tensor cores and the
 plain versions are not: out and the gradients keep the 1e-2 of their norm (a
 few roundings of 2^-9 each), and each row's lse is held to 1e-3 plus the
@@ -500,9 +506,9 @@ def test_split_wrappers_refuse_cpu_tensors():
     q = torch.randn(2, 16, 64)
     lse = torch.zeros(2, 16)
     with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_bwd_dq_cuda(q, q, q, q, lse, lse, True, 0.125)
+        fa.split_operands(q, q, q, q, lse, q, 0.125)
     with pytest.raises(ValueError, match="CUDA"):
-        fa.flash_bwd_dkv_cuda(q, q, q, q, lse, lse, True, 0.125)
+        fa.flash_bwd_split_cuda(q, q, q, q, lse, q, True, 0.125)
 
 
 def test_split_function_takes_plain_versions_on_cpu_without_launching(monkeypatch):
@@ -518,15 +524,110 @@ def test_split_function_takes_plain_versions_on_cpu_without_launching(monkeypatc
 
 
 def _split(q, k, v, out, lse, do, causal, scale, kv_lens=None):
-    delta = fa.bwd_delta(out, do)
-    dq = fa.flash_bwd_dq_cuda(q, k, v, do, lse, delta, causal, scale, kv_lens)
-    return (dq, *fa.flash_bwd_dkv_cuda(q, k, v, do, lse, delta, causal, scale, kv_lens))
+    """The split pair as ``FlashAttention.backward`` runs it."""
+    return fa.flash_bwd_split_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
 
 
 def _split_reference(q, k, v, out, lse, do, causal, scale, kv_lens=None):
-    delta = fa.bwd_delta(out, do)
-    dq = fa.flash_bwd_dq_reference(q, k, v, do, lse, delta, causal, scale, kv_lens)
-    return (dq, *fa.flash_bwd_dkv_reference(q, k, v, do, lse, delta, causal, scale, kv_lens))
+    return fa.flash_bwd_split_reference(q, k, v, out, lse, do, causal, scale, kv_lens)
+
+
+def _check_split(q, k, v, do, causal, scale, kv_lens=None):
+    """The split pair against its plain versions (dq, dk, dv to NORM_REL of
+    their norm, in the input dtype), all three bit for bit on a second run,
+    dk and dv exactly 0 at and past each length, dq 0 on a row that sees no
+    key."""
+    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    grads = _split(q, k, v, out, lse, do, causal, scale, kv_lens)
+    for got, want in zip(grads, _split_reference(q, k, v, out, lse, do, causal, scale, kv_lens)):
+        assert got.dtype == q.dtype and got.shape == want.shape
+        _close(got, want)
+    for a, b in zip(grads, _split(q, k, v, out, lse, do, causal, scale, kv_lens)):
+        assert torch.equal(a, b)
+    if kv_lens is not None:
+        past = torch.arange(k.shape[1], device="cuda")[None, :] >= kv_lens[:, None]
+        assert not grads[1][past].any() and not grads[2][past].any()
+        assert not grads[0][kv_lens == 0].any()
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("seq", BWD_EDGE_SEQS)
+def test_split_backward_at_tile_edges(seq, head_dim, causal, dtype):
+    """The fused backward's tile-edge cases, through the split pair: q
+    lengths around the dq kernel's 64- and 128-row q blocks and the 64-key
+    blocks of both kernels."""
+    _needs_cuda()
+    q, k, v, do = (_rand(3, seq, head_dim, seed=140 + i, dtype=dtype) for i in range(4))
+    _check_split(q, k, v, do, causal, head_dim**-0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("q_seq,kv_seq,causal", [
+    (1, 129, False), (65, 200, True), (65, 200, False), (200, 65, True), (200, 65, False), (129, 130, True),
+    (2049, 300, True), (300, 2049, False),
+])
+def test_split_backward_with_other_key_count(q_seq, kv_seq, causal, head_dim):
+    _needs_cuda()
+    q, do = (_rand(3, q_seq, head_dim, seed=150 + i) for i in range(2))
+    k, v = (_rand(3, kv_seq, head_dim, seed=152 + i) for i in range(2))
+    _check_split(q, k, v, do, causal, head_dim**-0.5)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
+def test_split_varlen_backward_at_tile_edges(head_dim, causal, dtype):
+    """Lens 0, 1, 63, 64, 65, 127, 128 and full (300) per batch row, 2
+    heads each, through the split pair."""
+    _needs_cuda()
+    kv_lens = _lens([0, 1, 63, 64, 65, 127, 128, 300], 2)
+    q, k, v, do = (_rand(16, 300, head_dim, seed=160 + i, dtype=dtype) for i in range(4))
+    _check_split(q, k, v, do, causal, head_dim**-0.5, kv_lens)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("varlen", [False, True])
+@pytest.mark.parametrize("head_dim,scale,dtype", [
+    (256, 0.07, torch.bfloat16), (200, 200**-0.5, torch.bfloat16), (256, 0.07, torch.float32),
+])
+@pytest.mark.parametrize("causal", [True, False])
+def test_split_backward_at_d256_with_any_scale(head_dim, scale, causal, dtype, varlen):
+    """Head dim 256 (or 200 zero-padded to 256) with a scale that is not a
+    power of two: the dk/dv kernel reads k*scale rounded once by the
+    wrapper, the dq kernel q*scale (formed in the kernel, or by the wrapper
+    from f32), plain and varlen mode."""
+    _needs_cuda()
+    kv_lens = _lens([0, 1, 63, 64, 65, 300], 2) if varlen else None
+    q, k, v, do = (_rand(12, 300, head_dim, seed=170 + i, dtype=dtype) for i in range(4))
+    names = ("VARLEN_DQ_LAUNCHES", "VARLEN_DKV_LAUNCHES") if varlen else ("DQ_LAUNCHES", "DKV_LAUNCHES")
+    before = [getattr(fa, n) for n in names]
+    _check_split(q, k, v, do, causal, scale, kv_lens)
+    assert [getattr(fa, n) for n in names] == [b + 2 for b in before]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("varlen", [False, True])
+@pytest.mark.parametrize("causal", [True, False])
+@pytest.mark.parametrize("head_dim,scale,dtype", [
+    (64, 0.125, torch.bfloat16), (128, 128**-0.5, torch.bfloat16), (256, 0.0625, torch.bfloat16),
+    (256, 0.07, torch.bfloat16), (80, 80**-0.5, torch.bfloat16), (64, 0.125, torch.float32),
+])
+def test_split_dk_dv_equal_the_fused_kernels_bit_for_bit(head_dim, scale, dtype, causal, varlen):
+    """The dk/dv kernel is the fused kernel without dq: on the same inputs
+    it reads the same prep rows and the same k*scale (formed from the same
+    bf16 k: bf16 inputs, or a power-of-two scale) and gives the same bits."""
+    _needs_cuda()
+    kv_lens = _lens([0, 1, 63, 64, 65, 300], 2) if varlen else None
+    q, k, v, do = (_rand(12, 300, head_dim, seed=180 + i, dtype=dtype) for i in range(4))
+    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
+    _, dk, dv = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
+    _, dk_split, dv_split = _split(q, k, v, out, lse, do, causal, scale, kv_lens)
+    assert torch.equal(dk_split, dk) and torch.equal(dv_split, dv)
 
 
 @pytest.mark.cuda
