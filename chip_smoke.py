@@ -67,7 +67,7 @@ Phases, one line (or a few) each; any failure exits non-zero:
     forward, and no tower call on a backward; the frozen parameters stay
     bit for bit and the projector moves.
 12. split kernels: the split backward (``check_split``: one prep launch,
-    the dq kernel, the dk/dv kernel, as ``FlashAttention.backward`` runs
+    the dq kernel, the dk/dv kernel, as ``mlpt::flash_bwd_split`` runs
     it), beside the forward and the fused kernel, against their plain
     versions at pythia's [4, 8, 2049, 256] bf16 causal, ViT's [128, 16,
     197, 64] f32 and bf16 non-causal (the f32 forward and fused backward
@@ -108,6 +108,30 @@ Phases, one line (or a few) each; any failure exits non-zero:
     wrapper's k*scale), plain and varlen; both scan kernels at d_state 8, 24 and
     64 (zero-padded groups of 16 states, one launch each) and at 65,536
     batch elements (two launches a call).
+18. remat: pythia-1b at bench's recipe (micro-batch 4 x accumulation 2,
+    ``bf16_sr``) in one session each without remat, under "dots" and under
+    "flash" (``models/layers.py`` ``checkpoint_block`` on the flash custom
+    ops), 1 warmup + 3 timed steps each. The first loss must be bit for bit
+    the same in all three; every grad after one micro-batch under the split
+    backward (which repeats bit for bit), taken before the steps from the
+    same initial parameters, must equal no remat's bit for bit, or lie
+    within TOL_SLICE_GRAD_NORM_REL with the largest difference printed; the
+    flash launches must be the same in all three (one forward a block and
+    micro-batch: the recompute takes the saved outputs). Each session's
+    median step and peak memory are printed beside the card line.
+19. remat-ViT: ViT-L/16 (f32, dropout on, micro-batch 128 x accumulation 2)
+    without remat and under "flash", 2 steps each under the split
+    backward: equal losses, and the dropout generator in the same state
+    after the steps (the recompute replays the masks and draws nothing of
+    its own).
+20. remat-llava: llava-pretrain (micro-batch 16 x accumulation 2) the same
+    way: equal losses, the frozen leaves bit for bit, and no backward
+    launched for the frozen tower.
+21. harness: ``benchmarking/`` on pythia-1b under "dots": phase times at
+    micro-batch 4 (1 warmup + 3 samples), the step they give at
+    accumulation 32, and ``find_max_mbs_pow2(64)`` with
+    ``subprocess_confirm``, one fresh worker process a candidate, each
+    probe's outcome and time printed; the phase's wall time, then the run's.
 
 Every main path must send no attention call to the xla branch
 (``attention.XLA_BRANCH_CALLS`` stays 0). Main paths 5, 11 and 14 run in
@@ -125,7 +149,7 @@ where the card waits on the host's launch work.
 
 The last three lines are the kernels JSON line, the card line and
 ``{"ok": true, "device": ...}``. A kernel's ``launches`` there is the sum
-over the main paths that run it; ``bound_ms`` is the larger of the bytes the
+over the main paths that run it (phases 18-20 included); ``bound_ms`` is the larger of the bytes the
 function must move over the memory rate and its operations over their
 unit's peak rate, computed from that entry's inputs; ``library_ms`` is the
 time of the PyTorch call that computes the same function (``sdpa_ms``, the
@@ -375,7 +399,7 @@ def lse_limit(q, k, scale: float):
 
 
 def _split(q, k, v, out, lse, do, causal, scale, kv_lens, kernels: bool = True):
-    """The split backward as ``FlashAttention.backward`` runs it: one prep
+    """The split backward as ``mlpt::flash_bwd_split`` runs it: one prep
     launch (delta and the padded lse rows) and the casts, then dq, then
     dk/dv; the kernels, or with ``kernels=False`` their plain versions."""
     fn = fa.flash_bwd_split_cuda if kernels else fa.flash_bwd_split_reference
@@ -757,18 +781,23 @@ AB_WARMUP = 2
 
 def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *, loss_band: tuple[float, float],
                    layout: str = "bf16_sr", names=("FWD_LAUNCHES", "BWD_LAUNCHES"),
-                   tokens_per_sample: int | None = None, split_ab: bool = False, steps: int = 4) -> dict:
+                   tokens_per_sample: int | None = None, split_ab: bool = False, steps: int = 4,
+                   policy: str = "flash", fused: bool = True, on_init=None) -> dict:
     """The training step through the user's entry points with the model's
-    own optimizer and schedule: 1 warmup + ``steps`` - 1 timed steps, or
-    with ``split_ab`` the fused/split schedule ``AB_SCHEDULE`` in one
-    session.
+    own optimizer and schedule: 1 warmup + ``steps`` - 1 timed steps under
+    the fused backward (the split one with ``fused`` False), or with
+    ``split_ab`` the fused/split schedule ``AB_SCHEDULE`` in one session.
+    With ``remat``, under ``policy``. ``on_init(sess, state)`` runs after
+    the state is made, before the counters and the peak memory are reset.
     ``layout`` is one of ``profile_step.make_plan``'s. ``counters`` is the
     kernel module whose launch counts ``names`` are zeroed just before the
     steps and read just after. The first loss must lie in ``loss_band``.
     For a model with a trainable mask, every frozen parameter must come out
     bit for bit and every trainable one must have moved; in the f32 layout
     every parameter and moment must be f32. Returns the module, the number
-    of micro-batches under each backward and the launch counts."""
+    of micro-batches under each backward, the launch counts, the losses,
+    the median step of each backward, the peak memory and the dropout
+    generator's state after the steps."""
     from multimodal_llm_pretraining_tpu_torch.models import get_model_class
     from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
     from multimodal_llm_pretraining_tpu_torch.utils import block_on
@@ -777,10 +806,15 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     sr = layout == "bf16_sr"
     torch.cuda.empty_cache()
     t0 = time.perf_counter()
-    sess = make_plan(mc, mbs, acc, remat, layout).build_session(mc, device="cuda")
+    sess = make_plan(mc, mbs, acc, remat, layout, policy).build_session(mc, device="cuda")
     state = sess.init_state()
     step = sess.train_step_fn()
     block_on("cuda")
+    # the run's name in every line below: the model, and its remat
+    if remat and model_type.startswith("pythia"):
+        model_type = f"{model_type} remat {policy}"
+    elif remat and model_type != "mamba":
+        model_type = f"{model_type} remat"
     say(f"[main] {model_type} session built and initialised in {time.perf_counter() - t0:.1f} s "
         f"({sum(p.numel() for p in state.params.values())} parameters, "
         f"{sum(state.params[n].numel() for n in sess.trainable)} trainable, {_depth(sess.module)})")
@@ -788,7 +822,9 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     # on the host, so that the peak memory below is the steps' own
     before = {n: p.detach().cpu() for n, p in state.params.items()} if masked else {}
 
-    schedule, warmup = (AB_SCHEDULE, AB_WARMUP) if split_ab else ((True,) * steps, 1)
+    if on_init is not None:
+        on_init(sess, state)
+    schedule, warmup = (AB_SCHEDULE, AB_WARMUP) if split_ab else ((fused,) * steps, 1)
     torch.cuda.reset_peak_memory_stats()
     counters.reset_launch_counts()
     attn.XLA_BRANCH_CALLS = 0
@@ -805,7 +841,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
             times.append(time.perf_counter() - t0)
             losses.append(loss)
             say(f"[main] {model_type} step {i}{' (warmup)' if i < warmup else ''}"
-                f"{(' ' + ('fused' if fused else 'split') + ' backward') if split_ab else ''}: "
+                f"{(' ' + ('fused' if fused else 'split') + ' backward') if split_ab or not fused else ''}: "
                 f"loss {loss:.5f}, {times[-1]:.3f} s")
     finally:
         fa.PREFER_FUSED_BWD = True
@@ -842,7 +878,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     for fused in sorted(set(schedule), reverse=True):
         timed = [t for t, f in zip(times[warmup:], schedule[warmup:]) if f == fused]
         medians[fused] = step_s = statistics.median(timed)
-        say(f"[main] {model_type}{(' ' + ('fused' if fused else 'split') + ' backward') if split_ab else ''} "
+        say(f"[main] {model_type}{(' ' + ('fused' if fused else 'split') + ' backward') if split_ab or not fused else ''} "
             f"median step {step_s:.4f} s over {len(timed)} steps, {samples / step_s:.2f} samples/s, "
             f"{tokens / step_s:.1f} tokens/s")
     if split_ab:
@@ -851,7 +887,8 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     say(f"[main] {model_type} peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches "
         + ", ".join(f"{n} {c}" for n, c in launches.items()) + ", xla-branch attention calls 0")
     return {"module": sess.module, "launches": launches,
-            "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)}}
+            "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)},
+            "losses": losses, "medians": medians, "peak": peak, "dropout_state": sess.dropout_generator.get_state()}
 
 
 def flash_launches_expected(names, plain_layers: int, varlen_layers: int, micro_batches: dict,
@@ -885,8 +922,8 @@ FLASH_COUNTERS = ("FWD_LAUNCHES", "BWD_LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES",
 
 
 def phase_main_path() -> dict:
-    """pythia-1b: bench.py's recipe, without remat (pythia's remat policies
-    are not ported yet) at acc 2, under the fused and the split backward;
+    """pythia-1b: bench.py's recipe, without remat (phase 18 runs its remat)
+    at acc 2, under the fused and the split backward;
     every attention call on the plain-mode kernels."""
     run = drive_training("pythia-1b", mbs=4, acc=2, remat=False, counters=fa, loss_band=TEXT_LOSS_BAND,
                          names=FLASH_COUNTERS, split_ab=True)
@@ -1197,7 +1234,7 @@ def time_split(shape, causal: bool, dtype, seed: int, full_lens: bool = False, f
     """CUDA-event medians at a main path's shape: the dq and the dk/dv
     kernel alone (on one ``split_operands``), that shared work alone (the
     prep launch and casts), the split pair as
-    ``FlashAttention.backward`` runs it (the prep launch and casts, dq,
+    ``mlpt::flash_bwd_split`` runs it (the prep launch and casts, dq,
     dk/dv), and their plain versions. ``fused`` holds what an
     earlier phase timed at this shape (``ms`` of the forward and the fused
     kernel and of their plain versions, ``library``: PyTorch's attention);
@@ -1502,7 +1539,172 @@ def phase_repairs() -> None:
         f"launches fwd {got[0]} bwd {got[1]}")
 
 
+# ---------------------------------------------------------------- remat and the harness
+
+
+def _held_to(what: str, got: dict, ref: dict, tol: float, cause: str) -> None:
+    """Each tensor of ``got`` equal bit for bit to ``ref``'s; otherwise say
+    which differs most, and why, and hold every one to ``tol`` of its norm."""
+    differ = {n: _errs(got[n], ref[n]) for n in ref if not torch.equal(got[n], ref[n])}
+    if not differ:
+        say(f"[remat] {what}: all {len(ref)} bit for bit equal to no remat")
+        return
+    name = max(differ, key=lambda n: differ[n][1])
+    say(f"[remat] {what}: {len(differ)} of {len(ref)} differ from no remat, largest {name}: max_abs "
+        f"{differ[name][0]:.3e}, norm_rel {differ[name][1]:.3e} (tolerance {tol}); cause: {cause}")
+    if differ[name][1] > tol:
+        raise AssertionError(f"{what}: {name} norm_rel {differ[name][1]:.3e} > {tol}")
+
+
+def phase_remat(card: str) -> dict:
+    """pythia-1b at full width and depth, micro-batch 4 x accumulation 2,
+    ``bf16_sr``, one session each without remat, under "dots" and under
+    "flash" (1 warmup + 3 timed steps, fused backward). Before its steps,
+    each session takes one micro-batch under the split backward (which
+    repeats bit for bit) from the same initial parameters: every grad with
+    remat must equal the one without, bit for bit, or lie within the slice
+    tolerance with the difference printed. The first step's loss must be
+    bit for bit equal across the three (remat does not touch the forward),
+    and the flash launches equal: one forward and one backward per block
+    and micro-batch under either policy, as without remat."""
+    runs, grads = {}, {}
+    for policy in (None, "dots", "flash"):
+        def first_micro_batch(sess, state, policy=policy):
+            fa.PREFER_FUSED_BWD = False
+            try:
+                sess.accumulate_fn()(state, sess.make_micro_batch(seed=0))
+            finally:
+                fa.PREFER_FUSED_BWD = True
+            grads[policy] = {n: p.grad.detach().cpu() for n, p in state.params.items()}
+            sess.zero_grads()
+
+        runs[policy] = drive_training("pythia-1b", mbs=4, acc=2, remat=policy is not None, policy=policy or "flash",
+                                      counters=fa, loss_band=TEXT_LOSS_BAND, names=FLASH_COUNTERS,
+                                      on_init=first_micro_batch)
+        # drop the module, so that the next session's peak memory is its own
+        layers = len(runs[policy].pop("module").layers)
+    expected = flash_launches_expected(FLASH_COUNTERS, layers, 0, runs[None]["micro_batches"])
+    for policy, run in runs.items():
+        if run["launches"] != expected:
+            raise AssertionError(f"pythia remat {policy}: flash launches {run['launches']}, expected {expected}")
+        if run["losses"][0] != runs[None]["losses"][0]:
+            raise AssertionError(f"pythia remat {policy}: first loss {run['losses'][0]!r} differs from "
+                                 f"{runs[None]['losses'][0]!r} without remat")
+    for policy in ("dots", "flash"):
+        _held_to(f"pythia-1b {policy} grads after one split-backward micro-batch", grads[policy], grads[None],
+                 TOL_SLICE_GRAD_NORM_REL, "the recompute's products and elementwise kernels gave other bits")
+    per_mb = {n: c // (runs[None]["micro_batches"][True]) for n, c in expected.items() if c}
+    say(f"[remat] first loss {runs[None]['losses'][0]!r} in all three sessions; flash launches a micro-batch "
+        f"{per_mb} in all three")
+    for policy, run in runs.items():
+        say(f"[remat] pythia-1b {policy or 'no remat'}: median step {run['medians'][True]:.4f} s, peak memory "
+            f"{run['peak']} bytes ({run['peak'] / 2**30:.2f} GiB) on {card}")
+    base = runs[None]["medians"][True]
+    say(f"[remat] step / no-remat step: dots {runs['dots']['medians'][True] / base:.4f}, "
+        f"flash {runs['flash']['medians'][True] / base:.4f}")
+    launches: dict[str, int] = {}
+    for run in runs.values():
+        for name, n in flash_launch_entries(run["launches"]).items():
+            launches[name] = launches.get(name, 0) + n
+    return launches
+
+
+def _remat_pair(model_type: str, **kw) -> tuple[dict, dict]:
+    """The same session without remat and with it, 2 steps each under the
+    split backward (which repeats bit for bit), from the same seeds; the
+    losses must agree bit for bit, or within the slice tolerance with the
+    difference printed."""
+    runs = {}
+    for remat in (False, True):
+        runs[remat] = drive_training(model_type, remat=remat, counters=fa, names=FLASH_COUNTERS, fused=False, steps=2,
+                                     **kw)
+        if not remat:
+            del runs[remat]["module"]  # so that the next session's peak memory is its own
+    if runs[True]["launches"] != runs[False]["launches"]:
+        raise AssertionError(f"{model_type} remat: launches {runs[True]['launches']}, "
+                             f"without remat {runs[False]['launches']}")
+    for i, (got, ref) in enumerate(zip(runs[True]["losses"], runs[False]["losses"])):
+        if got != ref:
+            say(f"[remat] {model_type} step {i} loss {got!r}, without remat {ref!r}: differs by {abs(got - ref):.3e}")
+            if abs(got - ref) > TOL_SLICE_LOSS:
+                raise AssertionError(f"{model_type} remat: step {i} loss differs by {abs(got - ref):.3e}")
+    say(f"[remat] {model_type}: losses {runs[True]['losses']} with remat, {runs[False]['losses']} without")
+    return runs[False], runs[True]
+
+
+def phase_remat_vit() -> dict:
+    """ViT-L/16 in the f32 layout with dropout on, micro-batch 128 x
+    accumulation 2, without remat and under "flash": equal losses, and the
+    dropout generator in the same state after the steps (the recompute drew
+    no masks of its own)."""
+    plain, remat = _remat_pair("vit", mbs=VIT_SHAPE[0], acc=2, loss_band=VIT_LOSS_BAND, layout="f32",
+                               tokens_per_sample=VIT_TOKENS)
+    if not torch.equal(remat["dropout_state"], plain["dropout_state"]):
+        raise AssertionError("vit remat: the dropout generator's state differs from the run without remat")
+    expected = flash_launches_expected(FLASH_COUNTERS, len(remat["module"].layers), 0, remat["micro_batches"])
+    if remat["launches"] != expected:
+        raise AssertionError(f"vit remat flash launches {remat['launches']}, expected {expected}")
+    say("[remat] vit: dropout generator state after the steps equal to the run without remat")
+    return flash_launch_entries(remat["launches"])
+
+
+def phase_remat_llava() -> dict:
+    """llava-pretrain (its bf16 layout), micro-batch 16 x accumulation 2,
+    without remat and under "flash": equal losses, the frozen leaves bit for
+    bit (``drive_training``), and the frozen tower differentiated by no
+    backward launch."""
+    plain, remat = _remat_pair("llava-pretrain", mbs=16, acc=2, loss_band=LLAVA_LOSS_BAND, layout="bf16",
+                               tokens_per_sample=LLAVA_TOKENS_PER_SAMPLE)
+    mod = remat["module"]
+    expected = flash_launches_expected(FLASH_COUNTERS, len(mod.vision_tower.layers), len(mod.language_model.layers),
+                                       remat["micro_batches"], plain_bwd=False)
+    if remat["launches"] != expected:
+        raise AssertionError(f"llava remat launches {remat['launches']}, expected {expected}")
+    return flash_launch_entries(remat["launches"])
+
+
+def phase_harness(card: str) -> None:
+    """The benchmark harness on pythia-1b under "dots" (``bf16_sr``): phase
+    times at micro-batch 4 (1 warmup + 3 samples), the step they
+    extrapolate to at accumulation 32, then the largest power-of-2
+    micro-batch up to 64, each candidate in a fresh worker process."""
+    from multimodal_llm_pretraining_tpu_torch.benchmarking.max_batch_size import find_max_mbs_pow2, subprocess_confirm
+    from multimodal_llm_pretraining_tpu_torch.benchmarking.step_time import estimate_step_time, measure_phase_times
+    from multimodal_llm_pretraining_tpu_torch.benchmarking.utils import BenchmarkHarness
+    from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+    from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
+
+    t0 = time.perf_counter()
+    mc = get_model_class("pythia-1b")
+    plan = make_plan(mc, 4, 1, True, "bf16_sr", "dots")
+    torch.cuda.empty_cache()
+    harness = BenchmarkHarness(plan, mc)
+    harness.setup()
+    times = measure_phase_times(harness, 4, samples=3)
+    estimate = estimate_step_time(harness, 4, 4 * 32, 3)
+    say(f"[harness] pythia-1b dots mbs 4: accumulate {times.accumulate_s:.4f} s, optimizer {times.optimizer_s:.4f} s "
+        f"(mean of {times.samples}); step at acc 32 from these {times.step_time(32):.4f} s, estimate_step_time "
+        f"(its own 3 samples) {estimate:.4f} s; optimizer state {harness.persistent_state_bytes()} bytes; {card}")
+    del harness
+    torch.cuda.empty_cache()
+
+    confirm = subprocess_confirm(plan, "pythia-1b")
+
+    def probe(mbs: int) -> bool:
+        p0 = time.perf_counter()
+        fits = confirm(mbs)
+        say(f"[harness] probe mbs {mbs}: {'ran' if fits else 'out of memory'} in a fresh worker, "
+            f"{time.perf_counter() - p0:.1f} s")
+        return fits
+
+    best = find_max_mbs_pow2(64, probe)
+    if best < 4:
+        raise AssertionError(f"max micro-batch {best}: below the main path's 4")
+    say(f"[harness] pythia-1b dots max pow2 micro-batch {best} (limit 64); phase {time.perf_counter() - t0:.1f} s")
+
+
 def main() -> int:
+    t_start = time.perf_counter()
     card = phase_env()
     phase_build()
     pythia_times, kernels = phase_kernels()
@@ -1527,8 +1729,13 @@ def main() -> int:
     phase_head_dims()
     phase_many_heads()
     phase_repairs()
+    add(phase_remat(card))
+    add(phase_remat_vit())
+    add(phase_remat_llava())
+    phase_harness(card)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    say(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)
     say(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,1 +1,1 @@
-"""Synthetic data for the training step (the harness itself is not ported yet)."""
+"""Synthetic data, FLOPs, the benchmark harness, its step timers and the max-micro-batch search."""

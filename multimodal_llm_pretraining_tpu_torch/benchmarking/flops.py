@@ -1,0 +1,159 @@
+"""FLOPs accounting (counterpart of ``benchmarking/flops.py:18-145``).
+
+Two counts of one example's forward and backward:
+
+- ``analytic_flops_per_example``: the JAX package's closed forms, copied
+  (dense transformer, LLaVA); Mamba has none (``None``), as in JAX. MFU in
+  ``bench.py`` divides these by the step time.
+- ``count_flops_per_example``: ``torch.utils.flop_counter.FlopCounterMode``
+  over one micro-batch of 1 through the session's accumulate step (the
+  reference's protocol, ``src/benchmarking/flops.py:9-37``). It counts what
+  runs: the products (``mm``, ``addmm``, ``bmm``) and the three flash
+  attention ops, each through the formula registered below; elementwise work
+  counts nothing. The selective-scan kernels have no formula yet (ROADMAP
+  Queue 1 item 6), so Mamba is refused.
+
+The flash formulas count the model's FLOPs for the visible (query, key)
+pairs of the call, causal masking and varlen lengths included: 4·D a pair
+forward (two products) and 8·D backward (the four products of the
+gradient, twice the forward, as the closed form counts a backward). The
+scores the backward kernels compute again are overhead, not model work,
+as remat's recompute is.
+"""
+
+import numpy as np
+import torch
+from torch.utils.flop_counter import FlopCounterMode, register_flop_formula
+
+from ..models import BaseModelClass
+from ..ops import flash_attention  # noqa: F401  (registers the mlpt:: ops the formulas name)
+
+
+def transformer_flops_per_token(
+    num_layers: int,
+    hidden: int,
+    seq_len: int,
+    vocab: int = 0,
+    ffn_mult: float = 4.0,
+    num_extra_proj: int = 0,
+    backward: bool = True,
+    remat: bool = False,
+) -> float:
+    """Dense-transformer FLOPs per token (fwd, or fwd+bwd when backward).
+
+    Per layer per token: QKVO projections 8H^2, FFN 4*ffn_mult*H^2,
+    attention score+value matmuls 4*S*H. LM/class head: 2*H*V.
+    backward = 2x forward; full remat re-runs the block forward (+1x).
+    """
+    per_layer = (8 + 4 * ffn_mult) * hidden * hidden + 4 * seq_len * hidden
+    fwd = num_layers * per_layer + 2 * hidden * vocab + num_extra_proj
+    total = fwd * (3.0 if backward else 1.0)
+    if backward and remat:
+        total += num_layers * per_layer
+    return total
+
+
+def _llama_stack_flops(seq: int, layers: int, hidden: int, ffn: int, kv_frac: float) -> float:
+    """Forward FLOPs of a Llama-style stack (GQA + swiglu) over ``seq``
+    tokens, no head: qkvo (4 + 4*kv_frac)H^2, ffn 6*H*F, attention 4*S*H
+    per token per layer."""
+    per_tok_layer = (4 + 4 * kv_frac) * hidden * hidden + 6.0 * hidden * ffn + 4.0 * seq * hidden
+    return seq * layers * per_tok_layer
+
+
+def llava_flops_per_example(finetune: bool, text_len: int = 512) -> float:
+    """LLaVA fwd+bwd FLOPs per benchmark example (benchmark text seq 512).
+
+    CLIP-L/336 tower (24L, H1024, 577 tokens) -> 2-layer projector ->
+    Llama-3.2-1B over the merged 1087-token sequence. The frozen tower sits
+    upstream of every trainable parameter, so it costs its forward only; a
+    frozen transformer on the gradient path costs about one forward more
+    (activation grads only), a trainable one two.
+
+    - pretrain (projector only trainable): tower fwd + 3x projector +
+      2x (LM stack + LM head)
+    - finetune (projector + LM trainable, tower frozen): tower fwd +
+      3x projector + 3x (LM stack + LM head)
+    """
+    from ..models.llama import FFN, HEADS, HIDDEN, KV_HEADS, LAYERS
+    from ..models.llava import NUM_PATCHES, TOWER_HIDDEN, VOCAB_WITH_IMAGE
+
+    s_tower = NUM_PATCHES + 1  # 577
+    tower_fwd = s_tower * transformer_flops_per_token(24, TOWER_HIDDEN, s_tower, vocab=0, backward=False)
+    projector_fwd = NUM_PATCHES * 2.0 * (TOWER_HIDDEN * HIDDEN + HIDDEN * HIDDEN)
+    s_merged = text_len - 1 + NUM_PATCHES  # 1087
+    lm_fwd = _llama_stack_flops(s_merged, LAYERS, HIDDEN, FFN, KV_HEADS / HEADS)
+    lm_fwd += 2.0 * HIDDEN * VOCAB_WITH_IMAGE * s_merged  # tied lm head
+    lm_mult = 3.0 if finetune else 2.0
+    return tower_fwd + 3.0 * projector_fwd + lm_mult * lm_fwd
+
+
+def analytic_flops_per_example(model_class: BaseModelClass, backward: bool = True, remat: bool = False) -> float | None:
+    """Closed-form fwd(+bwd) FLOPs for one example of the model's benchmark
+    workload, for the ported families that have one (all but Mamba)."""
+    mt = model_class.model_type
+    if mt.startswith("pythia"):
+        from ..models.pythia import PYTHIA_SIZES
+
+        L, H, _ = PYTHIA_SIZES[mt]
+        S = model_class.sequence_length  # type: ignore[attr-defined]
+        return S * transformer_flops_per_token(L, H, S, vocab=model_class.vocab_size, backward=backward, remat=remat)  # type: ignore[attr-defined]
+    if mt == "vit":
+        # 224/16 -> 196 patches + cls
+        S = 197
+        return S * transformer_flops_per_token(24, 1024, S, vocab=21841, backward=backward, remat=remat)
+    if mt.startswith("llava") and backward:
+        return llava_flops_per_example(finetune=(mt == "llava-finetune"))
+    return None
+
+
+# ---------------------------------------------------------------- flash formulas
+
+
+def _visible_pairs(q: torch.Tensor, k: torch.Tensor, causal: bool, kv_lens: torch.Tensor | None) -> int:
+    """(query, key) pairs of a [BH, S, D] call that some query row sees."""
+    bh, q_seq, kv_seq = q.shape[0], q.shape[1], k.shape[1]
+    lens = np.full(bh, kv_seq) if kv_lens is None else np.clip(kv_lens.cpu().numpy(), 0, kv_seq)
+    if not causal:
+        return int(lens.sum()) * q_seq
+    return int(np.minimum(np.arange(1, q_seq + 1)[None, :], lens[:, None]).sum())
+
+
+@register_flop_formula(torch.ops.mlpt.flash_fwd, get_raw=True)
+def _flash_fwd_flops(q, k, v, causal, sm_scale, kv_lens=None, *args, **kwargs) -> int:
+    return 4 * q.shape[-1] * _visible_pairs(q, k, causal, kv_lens)
+
+
+@register_flop_formula([torch.ops.mlpt.flash_bwd, torch.ops.mlpt.flash_bwd_split], get_raw=True)
+def _flash_bwd_flops(q, k, v, out, lse, dout, causal, sm_scale, kv_lens=None, *args, **kwargs) -> int:
+    return 8 * q.shape[-1] * _visible_pairs(q, k, causal, kv_lens)
+
+
+def count_flops_per_example(model_class: BaseModelClass, device: torch.device | str = "cuda") -> float:
+    """FLOPs of one example's forward and backward as they run: one
+    micro-batch of 1 through the session's accumulate step (the model's
+    mixed precision, the kernels on), under ``FlopCounterMode``."""
+    from ..parallel.mesh import MeshConfig
+    from ..train import TrainingPlan
+
+    if model_class.model_type == "mamba":
+        raise NotImplementedError("the selective-scan kernels have no FLOP formula yet: ROADMAP Queue 1 item 6")
+    plan = TrainingPlan(
+        num_training_steps=1,
+        micro_batch_size=1,
+        gradient_accumulation_steps=1,
+        bf16=model_class.mixed_precision is not None,
+        use_custom_kernels=True,
+        optimizer=model_class.optimizer,
+        optimizer_kwargs=model_class.optimizer_kwargs,
+        scheduler_type=model_class.scheduler_type,
+        scheduler_kwargs=model_class.scheduler_kwargs,
+        max_grad_norm=model_class.max_grad_norm,
+        mesh=MeshConfig(num_hosts=1, chips_per_host=1),
+    )
+    sess = plan.build_session(model_class, device=device)
+    state = sess.init_state()
+    batch = sess.make_micro_batch(1)
+    with FlopCounterMode(display=False) as counter:
+        sess.accumulate_fn()(state, batch)
+    return float(counter.get_total_flops())

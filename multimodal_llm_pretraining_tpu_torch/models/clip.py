@@ -9,7 +9,7 @@ layers, 16 heads, intermediate 4096, patch 14, image 336).
 import torch
 from torch import nn
 
-from .layers import Dense, LayerNorm, Mlp, SelfAttention
+from .layers import Dense, LayerNorm, Mlp, SelfAttention, checkpoint_block
 
 
 def quick_gelu(x: torch.Tensor) -> torch.Tensor:
@@ -37,7 +37,8 @@ class CLIPVisionEncoder(nn.Module):
     It holds the blocks of LLaVA's vision feature layer -2: the JAX module
     with ``feature_layer=-2`` builds ``num_layers - 1`` blocks (the last
     one's output is unused), and so does this one, so the two hold the same
-    parameters."""
+    parameters. ``remat_policy`` ("flash", the JAX stack's default) runs
+    every block under ``checkpoint_block``."""
 
     def __init__(
         self,
@@ -49,9 +50,10 @@ class CLIPVisionEncoder(nn.Module):
         image_size: int = 336,
         attn_impl: str = "flash",
         dtype: torch.dtype = torch.float32,
+        remat_policy: str | None = None,
     ):
         super().__init__()
-        self.patch, self.compute_dtype = patch, dtype
+        self.patch, self.compute_dtype, self.remat_policy = patch, dtype, remat_policy
         grid = image_size // patch
         self.patch_embed = Dense(patch * patch * 3, hidden, bias=False, dtype=dtype)
         self.class_embedding = nn.Parameter(torch.empty(1, 1, hidden))
@@ -72,5 +74,5 @@ class CLIPVisionEncoder(nn.Module):
         cls = self.class_embedding.to(dt).expand(b, 1, -1)
         x = self.pre_ln(torch.cat([cls, x], dim=1) + self.position_embeddings.to(dt))
         for block in self.layers:
-            x = block(x)
+            x = checkpoint_block(block, x, policy=self.remat_policy)
         return x

@@ -1,4 +1,4 @@
-"""Shared building blocks (counterpart of ``models/layers.py:30-148``, and
+"""Shared building blocks (counterpart of ``models/layers.py:30-190``, and
 of flax's ``nn.RMSNorm``).
 
 Parameters keep their own dtype (f32, or bf16 under the ``bf16_sr`` layout)
@@ -6,17 +6,22 @@ and are cast to the compute dtype where they are used, the way flax's
 ``dtype=`` works: a Dense with f32 params and bf16 compute multiplies bf16
 operands, and its gradient flows back to the f32 params through the cast.
 
-Not ported yet (ROADMAP Queue 1 item 2): the ``make_stack`` remat policies.
+``checkpoint_block`` is the remat of the JAX ``make_stack``
+(``:151-190``), with its two policies over the ops the dispatcher sees.
 """
 
+import functools
 import math
+import threading
 from typing import Callable
 
 import torch
 import torch.nn.functional as F
 from torch import nn
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
 
 from ..ops.attention import AttnImpl, dot_product_attention
+from ..ops.flash_attention import flash_fwd
 
 # ------------------------------------------------------------------ rotary
 
@@ -90,16 +95,30 @@ def cross_entropy_loss(logits: torch.Tensor, labels: torch.Tensor, ignore_index:
 class Dense(nn.Linear):
     """``nn.Linear`` whose weight and bias are cast to ``dtype`` at use
     (flax ``nn.Dense(dtype=...)``). The weight is [out, in]; JAX kernels are
-    [in, out] (``models/from_jax.py`` transposes)."""
+    [in, out] (``models/from_jax.py`` transposes).
 
-    def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype: torch.dtype = torch.float32):
+    ``feeds_residual`` marks a projection whose output only enters a
+    residual sum (attention's output projection, the MLP's down
+    projection): no backward reads it, so JAX's remat drops it from the
+    residuals, and the "dots" policy of ``checkpoint_block`` does not keep
+    it either."""
+
+    def __init__(self, in_features: int, out_features: int, bias: bool = True, dtype: torch.dtype = torch.float32,
+                 feeds_residual: bool = False):
         super().__init__(in_features, out_features, bias=bias)
         self.compute_dtype = dtype
+        self.feeds_residual = feeds_residual
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         dt = self.compute_dtype
         bias = self.bias.to(dt) if self.bias is not None else None
-        return F.linear(x.to(dt), self.weight.to(dt), bias)
+        if not self.feeds_residual:
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        _RESIDUAL_DOT.active = True
+        try:
+            return F.linear(x.to(dt), self.weight.to(dt), bias)
+        finally:
+            _RESIDUAL_DOT.active = False
 
 
 class LayerNorm(nn.LayerNorm):
@@ -161,7 +180,7 @@ class SelfAttention(nn.Module):
         self.rope_scaling = rope_scaling
         self.attn_impl = attn_impl
         self.qkv = Dense(hidden, (num_heads + 2 * self.num_kv_heads) * head_dim, bias=use_bias, dtype=dtype)
-        self.out = Dense(num_heads * head_dim, hidden, bias=use_bias, dtype=dtype)
+        self.out = Dense(num_heads * head_dim, hidden, bias=use_bias, dtype=dtype, feeds_residual=True)
 
     def forward(self, x: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         """``mask``: [B, S] keep-mask over the keys (1 = attend)."""
@@ -199,7 +218,7 @@ class Mlp(nn.Module):
         self.activation = activation
         self.dropout = dropout
         self.up = Dense(hidden, intermediate, bias=use_bias, dtype=dtype)
-        self.down = Dense(intermediate, hidden, bias=use_bias, dtype=dtype)
+        self.down = Dense(intermediate, hidden, bias=use_bias, dtype=dtype, feeds_residual=True)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
         return dropout(self.down(self.activation(self.up(x))), self.dropout, generator)
@@ -212,8 +231,103 @@ class GatedMlp(nn.Module):
     def __init__(self, hidden: int, intermediate: int, dtype: torch.dtype = torch.float32):
         super().__init__()
         self.gate_up = Dense(hidden, 2 * intermediate, bias=False, dtype=dtype)
-        self.down = Dense(intermediate, hidden, bias=False, dtype=dtype)
+        self.down = Dense(intermediate, hidden, bias=False, dtype=dtype, feeds_residual=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         gate, up = self.gate_up(x).chunk(2, dim=-1)
         return self.down(F.silu(gate) * up)
+
+
+# ------------------------------------------------------------------ remat
+
+REMAT_POLICIES = ("flash", "dots")
+# the matrix products without batch dims: what ``F.linear`` reaches (addmm
+# with a bias, mm without), never the batched bmm/baddbmm
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+class _ResidualDot(threading.local):
+    """Set while a ``Dense(feeds_residual=True)`` computes its product."""
+
+    active = False
+
+
+_RESIDUAL_DOT = _ResidualDot()
+
+
+def check_remat_policy(policy: str) -> str:
+    if policy not in REMAT_POLICIES:
+        raise ValueError(f"checkpoint_policy must be one of {REMAT_POLICIES}, got {policy!r}")
+    return policy
+
+
+def remat_policy_fn(save_dots: bool, ctx, op, *args, **kwargs) -> CheckpointPolicy:
+    """The op-level policy: keep ``mlpt::flash_fwd``'s outputs (out and
+    lse: JAX's ``save_only_these_names("flash_out", "flash_lse")``), and
+    with ``save_dots`` every product without batch dims that a backward
+    reads (``dots_with_no_batch_dims_saveable`` after JAX's dead-code
+    elimination); recompute the rest."""
+    if op is torch.ops.mlpt.flash_fwd.default:
+        return CheckpointPolicy.MUST_SAVE
+    if save_dots and op in _DOTS and not _RESIDUAL_DOT.active:
+        return CheckpointPolicy.MUST_SAVE
+    return CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _needs_grad(block: nn.Module, args) -> bool:
+    return torch.is_grad_enabled() and (
+        any(isinstance(a, torch.Tensor) and a.requires_grad for a in args)
+        or any(p.requires_grad for p in block.parameters())
+    )
+
+
+def _replaying(block: nn.Module, generator: torch.Generator) -> Callable:
+    """``block`` for ``checkpoint``: the first call runs it as it is; the
+    recompute runs it from the generator state it had before the first
+    call, so that it draws the same dropout masks, and then puts back the
+    state the generator had when the recompute began, so that the next
+    micro-batch draws on as it would without remat. ``checkpoint`` restores
+    only the default generators."""
+    state = generator.get_state()
+    calls = 0
+
+    def run(*args, **kwargs):
+        nonlocal calls
+        calls += 1
+        if calls == 1:
+            return block(*args, **kwargs)
+        resumed = generator.get_state()
+        generator.set_state(state)
+        try:
+            return block(*args, **kwargs)
+        finally:
+            generator.set_state(resumed)
+
+    return run
+
+
+def checkpoint_block(block: nn.Module, *args, policy: str | None, generator: torch.Generator | None = None):
+    """``block(*args)`` under the remat ``policy`` of the JAX ``make_stack``
+    (``models/layers.py:151-190``); ``None`` runs the block as it is.
+
+    - "flash" keeps only ``mlpt::flash_fwd``'s outputs and recomputes
+      everything else in the backward; a block without flash attention
+      keeps nothing (whole-block remat), as in JAX.
+    - "dots" also keeps the outputs of the products without batch dims
+      (``Dense``) that a backward reads, so the backward recomputes only
+      elementwise work and the products whose outputs it does not keep.
+
+    The forward kernel runs once per block and micro-batch either way: the
+    recompute takes its saved outputs. ``generator`` (dropout) is handed to
+    the block as its ``generator`` keyword, and the recompute replays its
+    draws (``_replaying``). A block whose inputs and parameters need no
+    gradient runs as it is: nothing to save, no backward to start."""
+    kwargs = {} if generator is None else {"generator": generator}
+    if policy is not None:
+        check_remat_policy(policy)
+    if policy is None or not _needs_grad(block, args):
+        return block(*args, **kwargs)
+    context_fn = functools.partial(create_selective_checkpoint_contexts,
+                                   functools.partial(remat_policy_fn, policy == "dots"))
+    fn = block if generator is None else _replaying(block, generator)
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)

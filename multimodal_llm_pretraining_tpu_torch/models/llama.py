@@ -11,7 +11,7 @@ an optional [B, S] key keep-mask, shared by every layer.
 import torch
 from torch import nn
 
-from .layers import GatedMlp, RMSNorm, SelfAttention, llama3_rope_scaling
+from .layers import GatedMlp, RMSNorm, SelfAttention, checkpoint_block, llama3_rope_scaling
 
 HIDDEN = 2048
 LAYERS = 16
@@ -49,7 +49,9 @@ class LlamaBlock(nn.Module):
 
 
 class LlamaDecoder(nn.Module):
-    """``num_layers`` blocks and the final RMSNorm over input embeddings."""
+    """``num_layers`` blocks and the final RMSNorm over input embeddings.
+    ``remat_policy`` ("flash", the JAX stack's default) runs every block
+    under ``checkpoint_block``."""
 
     def __init__(
         self,
@@ -60,8 +62,10 @@ class LlamaDecoder(nn.Module):
         ffn: int = FFN,
         attn_impl: str = "flash",
         dtype: torch.dtype = torch.float32,
+        remat_policy: str | None = None,
     ):
         super().__init__()
+        self.remat_policy = remat_policy
         self.layers = nn.ModuleList(
             LlamaBlock(hidden, num_heads, num_kv_heads, ffn, attn_impl, dtype) for _ in range(num_layers)
         )
@@ -70,5 +74,5 @@ class LlamaDecoder(nn.Module):
     def forward(self, inputs_embeds: torch.Tensor, mask: torch.Tensor | None = None) -> torch.Tensor:
         x = inputs_embeds
         for block in self.layers:
-            x = block(x, mask)
+            x = checkpoint_block(block, x, mask, policy=self.remat_policy)
         return self.final_norm(x)

@@ -78,17 +78,18 @@ class LlavaModule(nn.Module):
         lm_kwargs: dict | None = None,
         vocab_with_image: int = VOCAB_WITH_IMAGE,
         image_token: int = IMAGE_TOKEN,
+        remat_policy: str | None = None,
     ):
         super().__init__()
         self.compute_dtype, self.image_token = dtype, image_token
         tower = {**TOWER_KWARGS, **(tower_kwargs or {})}
         lm_kwargs = dict(lm_kwargs or {})
         lm_hidden = lm_kwargs.get("hidden", LM_HIDDEN)
-        self.vision_tower = CLIPVisionEncoder(**tower, attn_impl=attn_impl, dtype=dtype)
+        self.vision_tower = CLIPVisionEncoder(**tower, attn_impl=attn_impl, dtype=dtype, remat_policy=remat_policy)
         self.projector_in = Dense(tower["hidden"], lm_hidden, dtype=dtype)
         self.projector_out = Dense(lm_hidden, lm_hidden, dtype=dtype)
         self.language_model_embed_tokens = nn.Parameter(torch.empty(vocab_with_image, lm_hidden))
-        self.language_model = LlamaDecoder(**lm_kwargs, attn_impl=attn_impl, dtype=dtype)
+        self.language_model = LlamaDecoder(**lm_kwargs, attn_impl=attn_impl, dtype=dtype, remat_policy=remat_policy)
 
     @torch.no_grad()
     def reset_parameters(self, generator: torch.Generator) -> None:
@@ -141,14 +142,16 @@ class _LlavaBase(MultimodalModelClass[LlavaT]):
         compute_dtype: torch.dtype | None = None,
         device: torch.device | str = "cuda",
     ) -> ModelBundle:
-        if activation_checkpointing:
-            raise NotImplementedError("activation checkpointing (remat policies) is ROADMAP Queue 1 item 2")
+        """``activation_checkpointing`` remats every tower and decoder block
+        under the "flash" policy, the JAX default for both stacks; the frozen
+        tower, whose blocks need no gradient, runs no backward either way."""
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.mixed_precision else torch.float32
         with torch.device("meta"):
             module = LlavaModule(
                 attn_impl=default_attn_impl(use_custom_kernels), dtype=compute_dtype,
                 tower_kwargs=self.tower_kwargs, lm_kwargs=self.lm_kwargs,
+                remat_policy="flash" if activation_checkpointing else None,
             )
         module = module.to_empty(device=device)
 

@@ -15,7 +15,7 @@ from torch import nn
 from ..ops.attention import default_attn_impl
 from ..ops.xent import lm_head_loss, matmul_f32
 from . import LanguageModelClass, ModelBundle, PythiaT, SchedulerType
-from .layers import LayerNorm, Mlp, SelfAttention
+from .layers import LayerNorm, Mlp, SelfAttention, check_remat_policy, checkpoint_block
 
 # (layers, hidden, heads) per published EleutherAI configs
 PYTHIA_SIZES: dict[str, tuple[int, int, int]] = {
@@ -64,7 +64,10 @@ class GPTNeoXBlock(nn.Module):
 class GPTNeoXLM(nn.Module):
     """Embedding, ``num_layers`` blocks, final LayerNorm and the untied
     output head ``embed_out`` [H, V] (the JAX layout, used as the LM-head
-    kernel as it is)."""
+    kernel as it is). With a ``remat_policy`` ("flash" or "dots") every
+    block runs under ``checkpoint_block``; the final LayerNorm and the
+    chunked head stay outside it, as the JAX model keeps them outside its
+    stack."""
 
     def __init__(
         self,
@@ -74,9 +77,11 @@ class GPTNeoXLM(nn.Module):
         vocab_size: int = VOCAB_SIZE,
         attn_impl: str = "flash",
         dtype: torch.dtype = torch.float32,
+        remat_policy: str | None = None,
     ):
         super().__init__()
         self.compute_dtype = dtype
+        self.remat_policy = remat_policy
         self.embed_in = nn.Embedding(vocab_size, hidden)
         self.layers = nn.ModuleList(GPTNeoXBlock(hidden, num_heads, attn_impl, dtype) for _ in range(num_layers))
         self.final_ln = LayerNorm(hidden, dtype=dtype)
@@ -109,7 +114,7 @@ class GPTNeoXLM(nn.Module):
         chunked vocab projection (full logits never materialise)."""
         x = self.embed_in(input_ids).to(self.compute_dtype)
         for block in self.layers:
-            x = block(x)
+            x = checkpoint_block(block, x, policy=self.remat_policy)
         x = self.final_ln(x)
         kernel = self.embed_out.to(self.compute_dtype)
         if labels is None:
@@ -124,14 +129,17 @@ class PythiaModelClass(LanguageModelClass[PythiaT]):
         activation_checkpointing: bool = False,
         compute_dtype: torch.dtype | None = None,
         device: torch.device | str = "cuda",
+        checkpoint_policy: str = "flash",
     ) -> ModelBundle:
-        if activation_checkpointing:
-            raise NotImplementedError("activation checkpointing (remat policies) is ROADMAP Queue 1 item 2")
+        """``activation_checkpointing`` remats every block under
+        ``checkpoint_policy`` ("flash" or "dots", JAX ``pythia.py:119-133``)."""
+        policy = check_remat_policy(checkpoint_policy) if activation_checkpointing else None
         num_layers, hidden, heads = PYTHIA_SIZES[self.model_type]
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.mixed_precision else torch.float32
         with torch.device("meta"):
-            module = GPTNeoXLM(num_layers, hidden, heads, attn_impl=default_attn_impl(use_custom_kernels), dtype=compute_dtype)
+            module = GPTNeoXLM(num_layers, hidden, heads, attn_impl=default_attn_impl(use_custom_kernels), dtype=compute_dtype,
+                               remat_policy=policy)
         module = module.to_empty(device=device)
 
         def init_fn(mod: GPTNeoXLM, generator: torch.Generator) -> None:

@@ -21,7 +21,7 @@ from torch import nn
 
 from ..ops.attention import default_attn_impl
 from . import ModelBundle, SchedulerType, ViTT, VisionModelClass
-from .layers import Dense, LayerNorm, Mlp, SelfAttention, cross_entropy_loss, dropout
+from .layers import Dense, LayerNorm, Mlp, SelfAttention, checkpoint_block, cross_entropy_loss, dropout
 from .pythia import _lecun_normal_
 
 HIDDEN = 1024
@@ -53,7 +53,9 @@ class ViTClassifier(nn.Module):
     """Patch embedding, class token and positions, ``num_layers`` blocks, the
     final LayerNorm and the classifier, under the JAX module's parameter
     names (``patch_embed``, ``cls_token``, ``position_embeddings``,
-    ``layers.i``, ``final_ln``, ``classifier``)."""
+    ``layers.i``, ``final_ln``, ``classifier``). ``remat_policy`` ("flash",
+    the JAX stack's default) runs every block under ``checkpoint_block``,
+    whose recompute replays the block's dropout draws."""
 
     def __init__(
         self,
@@ -65,9 +67,10 @@ class ViTClassifier(nn.Module):
         ffn: int = FFN,
         attn_impl: str = "flash",
         dtype: torch.dtype = torch.float32,
+        remat_policy: str | None = None,
     ):
         super().__init__()
-        self.compute_dtype = dtype
+        self.compute_dtype, self.remat_policy = dtype, remat_policy
         grid = image_size // PATCH
         self.patch_embed = Dense(PATCH * PATCH * 3, hidden, dtype=dtype)
         self.cls_token = nn.Parameter(torch.empty(1, 1, hidden))
@@ -108,7 +111,7 @@ class ViTClassifier(nn.Module):
         x = torch.cat([self.cls_token.to(dt).expand(b, 1, -1), x], dim=1) + self.position_embeddings.to(dt)
         x = dropout(x, DROPOUT, generator)
         for block in self.layers:
-            x = block(x, generator)
+            x = checkpoint_block(block, x, policy=self.remat_policy, generator=generator)
         return self.classifier(self.final_ln(x)[:, 0])
 
 
@@ -120,14 +123,15 @@ class ViTModelClass(VisionModelClass[ViTT]):
         compute_dtype: torch.dtype | None = None,
         device: torch.device | str = "cuda",
     ) -> ModelBundle:
-        if activation_checkpointing:
-            raise NotImplementedError("activation checkpointing (remat policies) is ROADMAP Queue 1 item 2")
+        """``activation_checkpointing`` remats every block under the "flash"
+        policy (JAX ``vit.py:74-77``)."""
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.mixed_precision else torch.float32
         with torch.device("meta"):
             module = ViTClassifier(
                 self.num_classes, self.image_size, HIDDEN, LAYERS, HEADS, FFN,
                 attn_impl=default_attn_impl(use_custom_kernels), dtype=compute_dtype,
+                remat_policy="flash" if activation_checkpointing else None,
             )
         module = module.to_empty(device=device)
 

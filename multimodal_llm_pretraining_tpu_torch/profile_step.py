@@ -48,8 +48,10 @@ OTHER = "elementwise and other"
 LAYOUTS = ("bf16", "bf16_sr", "f32")
 
 
-def make_plan(mc, mbs: int, acc: int, remat: bool, layout: str) -> TrainingPlan:
-    """The model's own optimizer and schedule in one of three layouts:
+def make_plan(mc, mbs: int, acc: int, remat: bool, layout: str, checkpoint_policy: str = "flash") -> TrainingPlan:
+    """The model's own optimizer and schedule, with remat under
+    ``checkpoint_policy`` (pythia takes "flash" or "dots"; the others remat
+    as their stacks do) when ``remat``, in one of three layouts:
     "bf16_sr" (bf16 compute, ``master_weights="sr"``, bf16 moments and
     accumulators), "bf16" (bf16 compute, f32 params, accumulators and
     moments; a model with a trainable mask stores its frozen leaves in
@@ -63,6 +65,7 @@ def make_plan(mc, mbs: int, acc: int, remat: bool, layout: str) -> TrainingPlan:
         micro_batch_size=mbs,
         gradient_accumulation_steps=acc,
         activation_checkpointing=remat,
+        checkpoint_policy=checkpoint_policy,
         bf16=layout != "f32",
         use_custom_kernels=True,
         matmul_precision="default",
@@ -109,13 +112,14 @@ def main() -> int:
     ap.add_argument("--mbs", type=int, required=True)
     ap.add_argument("--acc", type=int, default=1)
     ap.add_argument("--remat", action="store_true")
+    ap.add_argument("--checkpoint-policy", choices=("flash", "dots"), default="flash", help="remat policy (pythia)")
     ap.add_argument("--layout", choices=LAYOUTS, default="bf16_sr")
     ap.add_argument("--table", help="file for the profiler's key_averages table")
     args = ap.parse_args()
 
     require_cuda()
     mc = get_model_class(args.model)
-    sess = make_plan(mc, args.mbs, args.acc, args.remat, args.layout).build_session(mc, device="cuda")
+    sess = make_plan(mc, args.mbs, args.acc, args.remat, args.layout, args.checkpoint_policy).build_session(mc, device="cuda")
     state = sess.init_state()
     step = sess.train_step_fn()
 

@@ -12,7 +12,7 @@ f32 inputs, the wrapper's casts to bf16. Then the same for a call of the
 fused backward ``flash_bwd_cuda`` (5 x 2·D FLOP per visible pair; its
 device time also holds delta, the padded lse and delta rows, dq's zeroing
 and cast, and on f32 inputs the casts to bf16). Then the split backward
-as ``FlashAttention.backward`` runs it with ``PREFER_FUSED_BWD`` off: its
+as the ``mlpt::flash_bwd_split`` op runs it (``PREFER_FUSED_BWD`` off): its
 shared work alone (``split_operands``: the prep launch and, on f32 inputs,
 the casts), the dq kernel alone and the dk/dv kernel alone on one such set
 of operands (3 and 4 x 2·D FLOP per visible pair), and the pair as a whole

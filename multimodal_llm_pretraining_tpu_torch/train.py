@@ -8,14 +8,18 @@ for one package reads the same in the other. Which fields act here:
   ``torch.backends.cudnn.allow_tf32``; "highest" turns both off.
 - ``master_weights="sr"``, ``opt_state_dtype``, ``grad_accum_dtype``: the
   state layouts of ``training/step.py``.
-- ``activation_checkpointing``: handed to the model's ``build_model``.
-  Mamba remats each whole block (what the JAX default "flash" policy does to
-  a block with no attention); pythia refuses it, since its "flash" and
-  "dots" policies are not ported yet.
+- ``activation_checkpointing`` and ``checkpoint_policy``: handed to the
+  model's ``build_model``. Pythia runs every block under the plan's policy,
+  "flash" (keep the flash-attention outputs, recompute the rest) or "dots"
+  (also keep the products a backward reads); llava's tower and decoder and
+  ViT run theirs under "flash", the JAX default for those stacks; mamba
+  remats each whole block (what "flash" does to a block with no attention).
 - No-ops, kept so plans stay interchangeable: ``compile`` (PyTorch runs
-  eagerly; there is no compilation cache to toggle), ``unroll_layers`` (the
-  blocks are a Python loop, never a scan) and ``checkpoint_policy`` (read
-  only once pythia's remat policies are ported).
+  eagerly; there is no compilation cache to toggle) and ``unroll_layers``
+  (the blocks are a Python loop, never a scan).
+- ``sharding`` and ``offloading`` name a ``ShardingPolicy``
+  (``sharding_policy``), which ``is_valid`` checks as the JAX plan does;
+  the session refuses any but the unsharded one.
 - Refused by the session with the ROADMAP item: ``master_weights``
   True/"device", ``sharding``, ``offloading`` and meshes of more than one
   device.
@@ -28,6 +32,7 @@ import torch
 
 from .models import OptimizerT, SchedulerType
 from .parallel.mesh import MeshConfig
+from .parallel.sharding import ShardingMethodT, ShardingPolicy
 from .training.step import TrainSession
 
 MatmulPrecisionT = Literal["default", "high", "highest"]
@@ -52,7 +57,7 @@ class TrainingPlan:
     scheduler_type: SchedulerType = SchedulerType.LINEAR
     scheduler_kwargs: dict[str, Any] = field(default_factory=dict)
 
-    sharding: str = ""
+    sharding: ShardingMethodT = ""
     offloading: bool = False
     grad_accum_dtype: Literal["bf16", "f32", None] = None
     opt_state_dtype: Literal["bf16", "f32", None] = None
@@ -63,6 +68,27 @@ class TrainingPlan:
     extra_args: dict[str, Any] = field(default_factory=dict)
 
     mesh: MeshConfig = field(default_factory=MeshConfig)
+
+    def is_valid(self) -> bool:
+        """The JAX ``TrainingPlan.is_valid`` (``train.py:99-119``): positive
+        counts, not bf16 and fp16 at once, a known sharding method, hybrid
+        sharding only across hosts, offloading only with sharding. It only
+        classifies; the session refuses what is not single-device."""
+        try:
+            policy = self.sharding_policy()
+        except KeyError:
+            return False
+        return not (
+            self.num_training_steps <= 0
+            or self.micro_batch_size <= 0
+            or self.gradient_accumulation_steps <= 0
+            or (self.bf16 and self.fp16)
+            or (policy.hybrid and self.mesh.num_hosts <= 1)
+            or (self.offloading and self.sharding == "")
+        )
+
+    def sharding_policy(self) -> ShardingPolicy:
+        return ShardingPolicy.from_method(self.sharding, self.offloading)
 
     @property
     def compute_dtype(self) -> torch.dtype:

@@ -33,12 +33,16 @@ model with dropout (ViT) draws its masks from it, the others ignore it. The
 generator is seeded with ``DROPOUT_SEED``, like the SR generator with
 ``SR_SEED``, and draws on from micro-batch to micro-batch.
 
-Activation checkpointing goes to the model's ``build_model``: mamba remats
-each whole block, pythia refuses it with the ROADMAP item. Not ported yet,
-and refused with the ROADMAP item: ``master_weights`` True/"device",
-sharding, offloading, and accumulators of another dtype than the params.
+Activation checkpointing goes to the model's ``build_model``, and so does
+``plan.checkpoint_policy`` where the model takes one (pythia's "flash" and
+"dots"), as the JAX session hands it over (``step.py:60-70``): mamba remats
+each whole block, the others run their blocks under ``checkpoint_block``.
+Not ported yet, and refused with the ROADMAP item: ``master_weights``
+True/"device", sharding, offloading, and accumulators of another dtype
+than the params.
 """
 
+import inspect
 from dataclasses import dataclass
 
 import numpy as np
@@ -89,11 +93,17 @@ class TrainSession:
                 f"gradient accumulators in {grad_dtype} beside {self.param_dtype} params are ROADMAP Queue 1 item 5"
             )
 
+        # the policy goes only to a build_model that takes it; its default
+        # is the plan's, so leaving it out is the same
+        build_kwargs = {}
+        if plan.checkpoint_policy != "flash" and "checkpoint_policy" in inspect.signature(model_class.build_model).parameters:
+            build_kwargs["checkpoint_policy"] = plan.checkpoint_policy
         self.bundle = model_class.build_model(
             use_custom_kernels=plan.use_custom_kernels,
             activation_checkpointing=plan.activation_checkpointing,
             compute_dtype=self.compute_dtype,
             device=self.device,
+            **build_kwargs,
         )
         self.module = self.bundle.module.to(self.param_dtype)
         mask = self.bundle.trainable_mask

@@ -3,8 +3,8 @@
 The JAX side runs its forward kernel and its backward in interpret mode on
 the CPU; the port's side runs its plain versions (``flash_fwd_reference``,
 and ``flash_bwd_reference`` or the split ``flash_bwd_dq_reference`` /
-``flash_bwd_dkv_reference``) and the autograd ``FlashAttention`` (which takes
-the plain versions for CPU tensors). A test's ``fused`` parameter pins
+``flash_bwd_dkv_reference``) and the custom op ``mlpt::flash_fwd`` with its
+autograd (which take the plain versions for CPU tensors). A test's ``fused`` parameter pins
 ``PREFER_FUSED_BWD`` on both sides together: the fused single-pass backward,
 or the split dq and dk/dv kernels. Inputs come from one numpy generator and
 go to both. The varlen cases give both sides the same right-padded [B, S]

@@ -22,7 +22,7 @@ terms cancel); dk and dv are summed in one block each and repeat bit for
 bit. The varlen mode (int32 lens per batch-head) keeps
 these tolerances, and dk and dv at and past each length are exactly 0. The
 split backward (one prep launch, the dq kernel and the dk/dv kernel, as
-``FlashAttention.backward`` runs them) keeps them too, at the fused
+``mlpt::flash_bwd_split`` runs them) keeps them too, at the fused
 backward's tile edges and at head dim 256 with any scale; it has no
 atomics, so dq, dk and dv all repeat bit for bit, and it lies within 1e-2
 of the fused kernel's norm. Its dk/dv kernel is the fused kernel without
@@ -209,7 +209,7 @@ def test_kernels_take_f32_inputs():
 @pytest.mark.cuda
 def test_autograd_function_launches_kernels_on_strided_views():
     """[B, S, H, D] -> [B, H, S, D] transposed views, as ``SelfAttention``
-    makes them, go through the autograd Function: one forward and one
+    makes them, go through the custom op: one forward and one
     backward launch, results equal to the plain versions."""
     _needs_cuda()
     b, s, h, d = 2, 90, 3, 64
@@ -524,7 +524,7 @@ def test_split_function_takes_plain_versions_on_cpu_without_launching(monkeypatc
 
 
 def _split(q, k, v, out, lse, do, causal, scale, kv_lens=None):
-    """The split pair as ``FlashAttention.backward`` runs it."""
+    """The split pair as ``mlpt::flash_bwd_split`` runs it."""
     return fa.flash_bwd_split_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
 
 
@@ -904,3 +904,68 @@ def test_scan_kernels_take_batches_above_the_grid_limit(dtype):
     _check_scan(*_scan_inputs(65536, 3, 8, seed=65536, dtype=dtype))
     # _check_scan: 3 forward calls (before the skip, with it, once more) and 2 backward calls
     assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES) == (3 * 2, 2 * 2)
+
+
+# ---------------------------------------------------------------- the custom ops on the card
+
+# pythia-1b's attention ([4, 8, 2049, 256] causal) and the llava decoder's
+# in varlen mode (2 of its 16 rows, 32 heads of 64, 1087 merged positions)
+OP_SHAPES = {"plain": (32, 2049, 256, None), "varlen": (64, 1087, 64, [1087, 700])}
+
+
+def _op_inputs(mode: str):
+    bh, seq, d, lens = OP_SHAPES[mode]
+    q, k, v, do = (_rand(bh, seq, d, seed=i) for i in range(4))
+    kv_lens = None if lens is None else _lens(lens, bh // len(lens))
+    return q, k, v, do, kv_lens, d**-0.5
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "varlen"])
+def test_custom_ops_launch_the_kernels_and_match_plain_versions(mode):
+    """``mlpt::flash_fwd``, ``mlpt::flash_bwd`` and ``mlpt::flash_bwd_split``
+    on CUDA tensors: each launches its kernels once (the split op a dq and
+    a dk/dv launch) and keeps the tolerances above against its plain
+    version; the forward op's outputs are the wrapper's bit for bit, and
+    the split op's too (it has no atomics)."""
+    _needs_cuda()
+    q, k, v, do, kv_lens, scale = _op_inputs(mode)
+    varlen = kv_lens is not None
+    fa.reset_launch_counts()
+    out, lse = fa.flash_fwd(q, k, v, True, scale, kv_lens)
+    out_ref, lse_ref = fa.flash_fwd_reference(q, k, v, True, scale, kv_lens)
+    _close(out, out_ref)
+    torch.testing.assert_close(lse, lse_ref, atol=LSE_ABS, rtol=0)
+    out_w, lse_w = fa.flash_fwd_cuda(q, k, v, True, scale, kv_lens)
+    assert torch.equal(out, out_w) and torch.equal(lse, lse_w)
+    want = fa.flash_bwd_reference(q, k, v, out_ref, lse_ref, do, True, scale, kv_lens)
+    for op in (fa.flash_bwd, fa.flash_bwd_split):
+        for got, ref in zip(op(q, k, v, out_ref, lse_ref, do, True, scale, kv_lens), want):
+            assert got.dtype == q.dtype
+            _close(got, ref)
+    split = fa.flash_bwd_split(q, k, v, out_ref, lse_ref, do, True, scale, kv_lens)
+    for got, ref in zip(split, fa.flash_bwd_split_cuda(q, k, v, out_ref, lse_ref, do, True, scale, kv_lens)):
+        assert torch.equal(got, ref)
+    launches = (fa.FWD_LAUNCHES, fa.BWD_LAUNCHES, fa.DQ_LAUNCHES, fa.DKV_LAUNCHES)
+    if varlen:
+        launches = (fa.VARLEN_FWD_LAUNCHES, fa.VARLEN_BWD_LAUNCHES, fa.VARLEN_DQ_LAUNCHES, fa.VARLEN_DKV_LAUNCHES)
+    assert launches == (2, 1, 3, 3)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mode", ["plain", "varlen"])
+@pytest.mark.parametrize("op", ["flash_fwd", "flash_bwd", "flash_bwd_split"])
+def test_opcheck_on_the_card(op, mode):
+    """``torch.library.opcheck`` (schema, autograd registration, fake
+    implementation, AOT dispatch) of each op on CUDA tensors, at head dims
+    the kernels take without padding."""
+    _needs_cuda()
+    q, k, v, do, kv_lens, scale = _op_inputs(mode)
+    q, k, v, do = (t[:8, :300].contiguous() for t in (q, k, v, do))
+    kv_lens = None if kv_lens is None else kv_lens[:8].clamp(max=300)
+    if op == "flash_fwd":
+        args = (q.requires_grad_(), k.requires_grad_(), v.requires_grad_(), True, scale, kv_lens)
+    else:
+        out, lse = fa.flash_fwd_cuda(q, k, v, True, scale, kv_lens)
+        args = (q, k, v, out, lse, do, True, scale, kv_lens)
+    torch.library.opcheck(getattr(fa, op), args)

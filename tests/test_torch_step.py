@@ -162,10 +162,28 @@ def test_grads_fn_sums_the_micro_batch_grads(jax_f32_run):
         torch.testing.assert_close(p.grad, summed[n], rtol=0, atol=0)
 
 
+@pytest.mark.parametrize("policy", ["flash", "dots"])
+def test_activation_checkpointing_plan_takes_a_step(jax_f32_run, policy):
+    """The plan with ``activation_checkpointing=True`` (once refused with
+    ROADMAP Queue 1 item 2) builds, hands its ``checkpoint_policy`` to
+    pythia, and takes one CPU step equal bit for bit to the step without
+    remat from the same params and batch."""
+    init, _, _ = jax_f32_run
+    batch = _torch_batch(_batches(1)[0])
+    runs = []
+    for remat in (False, True):
+        sess, state = _torch_session(init, activation_checkpointing=remat, checkpoint_policy=policy)
+        assert sess.module.remat_policy == (policy if remat else None)
+        state, m = sess.train_step_fn()(state, batch)
+        runs.append((m["loss"], state.params))
+    assert torch.isfinite(runs[1][0]) and torch.equal(runs[1][0], runs[0][0])
+    for name, p in runs[0][1].items():
+        assert torch.equal(runs[1][1][name], p), name
+
+
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(activation_checkpointing=True), "Queue 1 item 2"),
         (dict(bf16=True, master_weights="device"), "Queue 1 item 5"),
         (dict(bf16=True, master_weights=True), "Queue 1 item 5"),
         (dict(sharding="zero_2"), "Queue 1 items 7"),

@@ -172,15 +172,15 @@ def test_recipe_matches_jax():
 
 def test_full_size_parameter_count():
     """ViT-L/16 built on the meta device: 325,688,657 parameters, the count
-    of the JAX model's abstract init; 24 blocks; remat refused with the
-    ROADMAP item until the remat policies are ported."""
+    of the JAX model's abstract init; 24 blocks; with remat, every block
+    under the "flash" policy, the JAX stack's default."""
     bundle = get_model_class("vit").build_model(device="meta")
     count = sum(p.numel() for p in bundle.module.parameters())
     shapes = jax.eval_shape(lambda: jvit.ViTClassifier().init(jax.random.key(0), jnp.zeros((1, 224, 224, 3))))["params"]
     assert count == 325_688_657 == sum(int(np.prod(s.shape)) for s in jax.tree.leaves(shapes))
     assert len(bundle.module.layers) == 24 and bundle.module.position_embeddings.shape == (1, 197, 1024)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_class("vit").build_model(activation_checkpointing=True, device="meta")
+    assert bundle.module.remat_policy is None
+    assert get_model_class("vit").build_model(activation_checkpointing=True, device="meta").module.remat_policy == "flash"
 
 
 def test_one_f32_session_step(monkeypatch):
