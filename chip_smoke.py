@@ -127,11 +127,24 @@ Phases, one line (or a few) each; any failure exits non-zero:
 20. remat-llava: llava-pretrain (micro-batch 16 x accumulation 2) the same
     way: equal losses, the frozen leaves bit for bit, and no backward
     launched for the frozen tower.
-21. harness: ``benchmarking/`` on pythia-1b under "dots": phase times at
-    micro-batch 4 (1 warmup + 3 samples), the step they give at
-    accumulation 32, and ``find_max_mbs_pow2(64)`` with
-    ``subprocess_confirm``, one fresh worker process a candidate, each
-    probe's outcome and time printed; the phase's wall time, then the run's.
+21. harness and method search: ``benchmarking/`` on pythia-1b under "dots":
+    phase times at micro-batch 4 (1 warmup + 3 samples) and the step they
+    give at accumulation 32; one ``bf16_master`` session (micro-batch 4 x
+    accumulation 2, no remat) whose first loss must equal phase 18's
+    ``bf16_sr`` one bit for bit and whose bf16 params must equal their f32
+    masters rounded, its peak beside phase 18's; ``CountFlopsExperiment``
+    and ``TrainingTimeAnalytic`` (assumed MFU 1.0) for pythia-1b, mamba,
+    llava-pretrain and ViT-L/16, each count through the flash (plain and
+    varlen) and scan kernels under ``FlopCounterMode``, with mamba's scan
+    share; then, with the parent's reserved memory below 1 GiB, the method
+    search (``experiments/``): the CLI's ``--methods all`` grid for
+    pythia-1b on one card restricted to "dots" remat and the ``bf16_sr``
+    and ``bf16_master`` layouts, two arms, in a workspace of the phase's
+    own: each arm's max micro-batch (``find_max_mbs_pow2`` with one fresh
+    worker a candidate), split and fused step and training days, every
+    worker's op, outcome and time printed; the same sweep again, which
+    must start no worker and take under 5 s; the results table; the
+    phase's wall time, then the run's.
 
 Every main path must send no attention call to the xla branch
 (``attention.XLA_BRANCH_CALLS`` stays 0). Main paths 5, 11 and 14 run in
@@ -149,7 +162,9 @@ where the card waits on the host's launch work.
 
 The last three lines are the kernels JSON line, the card line and
 ``{"ok": true, "device": ...}``. A kernel's ``launches`` there is the sum
-over the main paths that run it (phases 18-20 included); ``bound_ms`` is the larger of the bytes the
+over the main paths that run it (phases 18-21 included: phase 21's
+``bf16_master`` session and counts, not its workers, which are other
+processes); ``bound_ms`` is the larger of the bytes the
 function must move over the memory rate and its operations over their
 unit's peak rate, computed from that entry's inputs; ``library_ms`` is the
 time of the PyTorch call that computes the same function (``sdpa_ms``, the
@@ -782,13 +797,14 @@ AB_WARMUP = 2
 def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *, loss_band: tuple[float, float],
                    layout: str = "bf16_sr", names=("FWD_LAUNCHES", "BWD_LAUNCHES"),
                    tokens_per_sample: int | None = None, split_ab: bool = False, steps: int = 4,
-                   policy: str = "flash", fused: bool = True, on_init=None) -> dict:
+                   policy: str = "flash", fused: bool = True, on_init=None, after=None) -> dict:
     """The training step through the user's entry points with the model's
     own optimizer and schedule: 1 warmup + ``steps`` - 1 timed steps under
     the fused backward (the split one with ``fused`` False), or with
     ``split_ab`` the fused/split schedule ``AB_SCHEDULE`` in one session.
     With ``remat``, under ``policy``. ``on_init(sess, state)`` runs after
-    the state is made, before the counters and the peak memory are reset.
+    the state is made, before the counters and the peak memory are reset;
+    ``after(sess, state)`` after the steps and their checks.
     ``layout`` is one of ``profile_step.make_plan``'s. ``counters`` is the
     kernel module whose launch counts ``names`` are zeroed just before the
     steps and read just after. The first loss must lie in ``loss_band``.
@@ -886,6 +902,8 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
             f"(split / fused {medians[False] / medians[True]:.4f})")
     say(f"[main] {model_type} peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches "
         + ", ".join(f"{n} {c}" for n, c in launches.items()) + ", xla-branch attention calls 0")
+    if after is not None:
+        after(sess, state)
     return {"module": sess.module, "launches": launches,
             "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)},
             "losses": losses, "medians": medians, "peak": peak, "dropout_state": sess.dropout_generator.get_state()}
@@ -971,7 +989,7 @@ def check_scan_at(shape, dtype, seed: int = 0, d_state: int = 16) -> dict:
     grads_ref = ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt_ref)
     leaves = [t.clone().requires_grad_() for t in (u, delta, A, B, C, D)]
     g = dy.to(dtype)
-    ssf.SelectiveScanFused.apply(*leaves).backward(g)
+    ssf.selective_scan_fused(*leaves).backward(g)
     dD_ref = (g.float() * u.float()).sum((0, 1))
     torch.cuda.synchronize()
     got = {"y": (y, y_ref), "y+skip": (ys, ys_ref), "ckpt": (ckpt, ckpt_ref), "dD": (leaves[5].grad, dD_ref)}
@@ -1002,7 +1020,7 @@ def phase_scan_kernels() -> list[dict]:
 
     u, delta, A, B, C, D, dy = _scan_inputs(SCAN_SHAPE, torch.bfloat16, 12)
     _, ckpt = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
-    t = {  # the forward with D, as SelectiveScanFused runs it
+    t = {  # the forward with D, as selective_scan_fused runs it
         "fwd": cuda_ms(lambda: ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)),
         "fwd_plain": cuda_ms(lambda: ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)),
         "bwd": cuda_ms(lambda: ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)),
@@ -1556,7 +1574,7 @@ def _held_to(what: str, got: dict, ref: dict, tol: float, cause: str) -> None:
         raise AssertionError(f"{what}: {name} norm_rel {differ[name][1]:.3e} > {tol}")
 
 
-def phase_remat(card: str) -> dict:
+def phase_remat(card: str) -> tuple[dict, dict]:
     """pythia-1b at full width and depth, micro-batch 4 x accumulation 2,
     ``bf16_sr``, one session each without remat, under "dots" and under
     "flash" (1 warmup + 3 timed steps, fused backward). Before its steps,
@@ -1566,7 +1584,9 @@ def phase_remat(card: str) -> dict:
     tolerance with the difference printed. The first step's loss must be
     bit for bit equal across the three (remat does not touch the forward),
     and the flash launches equal: one forward and one backward per block
-    and micro-batch under either policy, as without remat."""
+    and micro-batch under either policy, as without remat. Returns the
+    launches, and the first loss and peak memory of the session without
+    remat."""
     runs, grads = {}, {}
     for policy in (None, "dots", "flash"):
         def first_micro_batch(sess, state, policy=policy):
@@ -1606,7 +1626,7 @@ def phase_remat(card: str) -> dict:
     for run in runs.values():
         for name, n in flash_launch_entries(run["launches"]).items():
             launches[name] = launches.get(name, 0) + n
-    return launches
+    return launches, {"loss": runs[None]["losses"][0], "peak": runs[None]["peak"]}
 
 
 def _remat_pair(model_type: str, **kw) -> tuple[dict, dict]:
@@ -1663,44 +1683,216 @@ def phase_remat_llava() -> dict:
     return flash_launch_entries(remat["launches"])
 
 
-def phase_harness(card: str) -> None:
-    """The benchmark harness on pythia-1b under "dots" (``bf16_sr``): phase
-    times at micro-batch 4 (1 warmup + 3 samples), the step they
-    extrapolate to at accumulation 32, then the largest power-of-2
-    micro-batch up to 64, each candidate in a fresh worker process."""
-    from multimodal_llm_pretraining_tpu_torch.benchmarking.max_batch_size import find_max_mbs_pow2, subprocess_confirm
+SEARCH_MODEL = "pythia-1b"
+SEARCH_LAYOUTS = ("bf16_sr", "bf16_master")
+# each count's launches: one forward and one backward an attention layer
+# (llava's frozen tower none backward) or mamba block, no remat
+COUNT_LAUNCHES = {
+    "pythia-1b": {"FWD_LAUNCHES": 16, "BWD_LAUNCHES": 16},
+    "mamba": {"scan fwd": 64, "scan bwd": 64},
+    "llava-pretrain": {"FWD_LAUNCHES": 23, "VARLEN_FWD_LAUNCHES": 16, "VARLEN_BWD_LAUNCHES": 16},
+    "vit": {"FWD_LAUNCHES": 24, "BWD_LAUNCHES": 24},
+}
+CACHED_SWEEP_LIMIT_S = 5.0
+PARENT_RESERVED_LIMIT = 2**30
+
+
+def _harness_phase_times(card: str) -> None:
+    """pythia-1b under "dots" (``bf16_sr``) in this process: phase times at
+    micro-batch 4 (1 warmup + 3 samples) and the step they extrapolate to
+    at accumulation 32."""
     from multimodal_llm_pretraining_tpu_torch.benchmarking.step_time import estimate_step_time, measure_phase_times
     from multimodal_llm_pretraining_tpu_torch.benchmarking.utils import BenchmarkHarness
     from multimodal_llm_pretraining_tpu_torch.models import get_model_class
     from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
 
-    t0 = time.perf_counter()
-    mc = get_model_class("pythia-1b")
-    plan = make_plan(mc, 4, 1, True, "bf16_sr", "dots")
+    mc = get_model_class(SEARCH_MODEL)
     torch.cuda.empty_cache()
-    harness = BenchmarkHarness(plan, mc)
+    harness = BenchmarkHarness(make_plan(mc, 4, 1, True, "bf16_sr", "dots"), mc)
     harness.setup()
     times = measure_phase_times(harness, 4, samples=3)
     estimate = estimate_step_time(harness, 4, 4 * 32, 3)
     say(f"[harness] pythia-1b dots mbs 4: accumulate {times.accumulate_s:.4f} s, optimizer {times.optimizer_s:.4f} s "
         f"(mean of {times.samples}); step at acc 32 from these {times.step_time(32):.4f} s, estimate_step_time "
         f"(its own 3 samples) {estimate:.4f} s; optimizer state {harness.persistent_state_bytes()} bytes; {card}")
-    del harness
+
+
+def _bf16_master_session(card: str, bf16_sr_run: dict) -> dict:
+    """pythia-1b in ``bf16_master`` at micro-batch 4 x accumulation 2, no
+    remat: the first loss bit for bit phase 18's ``bf16_sr`` one (the same
+    bf16 params and batch), every live param its f32 master rounded once
+    after the steps; its peak beside the ``bf16_sr`` session's."""
+    checked = {}
+
+    def after(sess, state):
+        master = state.opt_state.master
+        if master is None or any(m.dtype != torch.float32 for m in master):
+            raise AssertionError("bf16_master: no f32 master in the optimizer state")
+        differ = [n for n, m in zip(sess.trainable, master) if not torch.equal(state.params[n], m.to(torch.bfloat16))]
+        if differ:
+            raise AssertionError(f"bf16_master: {len(differ)} params differ from their masters rounded, e.g. {differ[0]}")
+        checked["params"] = len(master)
+
+    run = drive_training(SEARCH_MODEL, mbs=4, acc=2, remat=False, counters=fa, loss_band=TEXT_LOSS_BAND,
+                         layout="bf16_master", names=FLASH_COUNTERS, after=after)
+    if run["losses"][0] != bf16_sr_run["loss"]:
+        raise AssertionError(f"bf16_master first loss {run['losses'][0]!r}, bf16_sr's {bf16_sr_run['loss']!r}")
+    say(f"[search] bf16_master session: first loss {run['losses'][0]!r} equal to bf16_sr's; all {checked['params']} "
+        f"bf16 params equal to their f32 masters rounded; peak {run['peak']} bytes ({run['peak'] / 2**30:.2f} GiB) "
+        f"vs bf16_sr's {bf16_sr_run['peak']} ({bf16_sr_run['peak'] / 2**30:.2f} GiB), median step "
+        f"{run['medians'][True]:.4f} s; {card}")
+    del run["module"]
+    return flash_launch_entries(run["launches"])
+
+
+def _counts_and_analytic_days() -> dict:
+    """``CountFlopsExperiment`` and ``TrainingTimeAnalytic`` (free lunch,
+    ``assumed_mfu`` 1.0) for four models on the card, each count one
+    example's forward and backward under ``FlopCounterMode`` through the
+    flash (plain and varlen) and scan kernels, whose launches are counted.
+    mamba's scan share is its scan ops' formulas over its counted total."""
+    from multimodal_llm_pretraining_tpu_torch.experiments.config import BaseConfig, TrainingConfig
+    from multimodal_llm_pretraining_tpu_torch.experiments.count_flops import CountFlopsExperiment
+    from multimodal_llm_pretraining_tpu_torch.experiments.training_time_analytic import TrainingTimeAnalytic
+    from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+    from multimodal_llm_pretraining_tpu_torch.models import mamba as tmamba
+
+    launches: dict[str, int] = {}
+    for model, expected in COUNT_LAUNCHES.items():
+        base = BaseConfig(num_hosts=1, chips_per_host=1, gpu_type="h100-sxm", model=model)
+        t0 = time.perf_counter()
+        torch.cuda.empty_cache()
+        fa.reset_launch_counts()
+        ssf.reset_launch_counts()
+        count = CountFlopsExperiment(config=base)
+        count.run()
+        counts = {n: getattr(fa, n) for n in FLASH_COUNTERS}
+        for name, n in {**flash_launch_entries(counts), "scan_fwd": ssf.FWD_LAUNCHES,
+                        "scan_bwd": ssf.BWD_LAUNCHES}.items():
+            launches[name] = launches.get(name, 0) + n
+        analytic = TrainingTimeAnalytic(config=TrainingConfig(**vars(base), free_lunch=True), assumed_mfu=1.0)
+        analytic.run()
+        res, mc = count.results(), get_model_class(model)
+        if not (math.isfinite(res["training_flops"]) and res["training_flops"] > 0):
+            raise AssertionError(f"{model}: training FLOPs {res['training_flops']}")
+        per_example = res["training_flops"] / res["training_examples"]
+        shown = {k: v for k, v in {**counts, "scan fwd": ssf.FWD_LAUNCHES, "scan bwd": ssf.BWD_LAUNCHES}.items() if v}
+        if shown != expected:
+            raise AssertionError(f"{model} count: launches {shown}, expected {expected}")
+        say(f"[count] {model}: {per_example:.6e} FLOPs an example ({res['training_flops']:.6e} in {mc.training_steps} "
+            f"steps of {mc.batch_size}); analytic days at MFU 1.0 {analytic.results()['training_days']:.4f}; "
+            f"launches {shown}; {time.perf_counter() - t0:.1f} s")
+        if model == "mamba":
+            seq, layers = mc.sequence_length, tmamba.N_LAYER
+            scan = 3 * layers * (9 * seq * tmamba.D_INNER * tmamba.D_STATE + seq * tmamba.D_INNER)
+            say(f"[count] mamba scan FLOPs an example {scan:.6e}, {scan / per_example:.4f} of its count")
+        torch.cuda.empty_cache()
+    return launches
+
+
+def phase_harness(card: str, bf16_sr_run: dict) -> dict:
+    """The method search on pythia-1b at full width and depth. First, in
+    this process: the harness's phase times at micro-batch 4, one
+    ``bf16_master`` session (``_bf16_master_session``), and the count and
+    analytic experiments for four models (``_counts_and_analytic_days``).
+    Then the parent frees its cached blocks and must hold under 1 GiB
+    before any worker starts. The sweep is the CLI's ``--methods all`` grid
+    restricted to "dots" remat and the ``bf16_sr`` and ``bf16_master``
+    layouts (two arms), in a workspace of the phase's own: each arm's
+    largest micro-batch (one fresh worker a candidate), split and fused step
+    times (one worker each) and training days, every worker's op, outcome
+    and time printed. The same sweep again must come from the cache: no
+    worker, under ``CACHED_SWEEP_LIMIT_S``. Then the results table and the
+    phase's wall time. Returns the in-process launches."""
+    import shutil
+    import tempfile
+
+    from multimodal_llm_pretraining_tpu_torch.experiments import cache
+    from multimodal_llm_pretraining_tpu_torch.experiments.base_classes import format_table
+
+    t0 = time.perf_counter()
+    _harness_phase_times(card)
+    launches = _bf16_master_session(card, bf16_sr_run)
+    workspace = tempfile.mkdtemp(prefix="mlpt_search_")
+    cache.set_workspace(cache.Workspace(os.path.join(workspace, cache.WORKSPACE_SUBDIR)))
+    try:
+        for name, n in _counts_and_analytic_days().items():
+            launches[name] = launches.get(name, 0) + n
+        rows, target = _search(card)
+    finally:
+        cache.set_workspace(cache.MemoryWorkspace())
+        shutil.rmtree(workspace, ignore_errors=True)
+    for row in rows:
+        if "failure" in row:
+            raise AssertionError(f"{row['state_layout']}: {row['failure']}")
+        if not (row["max_micro_batch_size"] >= 4 and row["step_time_fused"] is not None
+                and math.isfinite(row["step_time"]) and row["training_days"] > 0):
+            raise AssertionError(f"{row['state_layout']}: {row}")
+        say(f"[search] {row['state_layout']}: max micro-batch {row['max_micro_batch_size']}, split step "
+            f"{row['step_time_split']:.4f} s (mbs {row['micro_batch_size_split']}), fused step "
+            f"{row['step_time_fused']:.4f} s (mbs {row['micro_batch_size']}, acc "
+            f"{target // row['micro_batch_size']}), {row['training_days']:.3f} training days on one card; {card}")
+    keep = ("state_layout", "max_micro_batch_size", "micro_batch_size", "micro_batch_size_split", "step_time",
+            "step_time_split", "step_time_fused", "training_days")
+    for line in format_table([{k: row[k] for k in keep} for row in rows]).splitlines():
+        say(f"[search] {line}")
+    say(f"[harness] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
+def _search(card: str) -> tuple[list[dict], int]:
+    """The two-arm sweep, twice (see ``phase_harness``), in the workspace
+    set; its result rows and the arms' target micro-batch."""
+    import gc
+
+    from multimodal_llm_pretraining_tpu_torch import benchmark as cli
+    from multimodal_llm_pretraining_tpu_torch.benchmarking import max_batch_size
+    from multimodal_llm_pretraining_tpu_torch.experiments import training_time_empirical as tte
+
+    gc.collect()
     torch.cuda.empty_cache()
+    reserved = torch.cuda.memory_reserved()
+    say(f"[search] parent's reserved memory before the first worker: {reserved} bytes ({reserved / 2**30:.3f} GiB)")
+    if reserved >= PARENT_RESERVED_LIMIT:
+        raise AssertionError(f"the parent holds {reserved} bytes reserved; the workers would lose them")
+    sweep = cli.method_sweep(1, 1, "h100-sxm", SEARCH_MODEL, "all")
+    sweep.search_space.update(activation_checkpointing=[True], checkpoint_policy=["dots"],
+                              state_layout=list(SEARCH_LAYOUTS))
 
-    confirm = subprocess_confirm(plan, "pythia-1b")
+    def logged(spec: dict) -> dict:
+        w0 = time.perf_counter()
+        result = max_batch_size.run_probe_worker(spec)
+        outcome = "out of memory" if result.get("oom") else "ran"
+        times = {k: round(result[k], 4) for k in ("accumulate_s", "optimizer_s", "step_time_fused") if k in result}
+        layout = {"sr": "bf16_sr", "device": "bf16_master"}[spec["plan"]["master_weights"]]
+        say(f"[search] {layout} {spec['op']} mbs {spec['micro_batch_size']}"
+            + (f" acc {spec['accumulation_steps']}" if "accumulation_steps" in spec else "")
+            + f": {outcome} in a fresh worker, {time.perf_counter() - w0:.1f} s"
+            + (f", {times}" if times else "")
+            + (f", peak {result['peak_bytes'] / 2**30:.2f} GiB" if result.get("peak_bytes") else ""))
+        return result
 
-    def probe(mbs: int) -> bool:
-        p0 = time.perf_counter()
-        fits = confirm(mbs)
-        say(f"[harness] probe mbs {mbs}: {'ran' if fits else 'out of memory'} in a fresh worker, "
-            f"{time.perf_counter() - p0:.1f} s")
-        return fits
-
-    best = find_max_mbs_pow2(64, probe)
-    if best < 4:
-        raise AssertionError(f"max micro-batch {best}: below the main path's 4")
-    say(f"[harness] pythia-1b dots max pow2 micro-batch {best} (limit 64); phase {time.perf_counter() - t0:.1f} s")
+    tte.run_probe_worker = logged
+    try:
+        arms = sweep.experiments()
+        if [a.config.state_layout for a in arms] != list(SEARCH_LAYOUTS):
+            raise AssertionError(f"the restricted grid holds {[a.to_dict() for a in arms]}")
+        s0 = time.perf_counter()
+        sweep.sweep()
+        say(f"[search] sweep of {len(arms)} arms: {time.perf_counter() - s0:.1f} s, "
+            f"{max_batch_size.WORKER_STARTS} workers; {card}")
+        starts = max_batch_size.WORKER_STARTS
+        s0 = time.perf_counter()
+        sweep.sweep()
+        again = time.perf_counter() - s0
+        done = sweep.count()
+        say(f"[search] the same sweep again: {again:.2f} s, {max_batch_size.WORKER_STARTS - starts} workers, "
+            f"{done[0]} / {done[1]} cached")
+        if max_batch_size.WORKER_STARTS != starts or again >= CACHED_SWEEP_LIMIT_S or done != (2, 2):
+            raise AssertionError("the second sweep did not come whole from the cache")
+        return sweep.results(), arms[0].target_micro_batch_size
+    finally:
+        tte.run_probe_worker = max_batch_size.run_probe_worker
 
 
 def main() -> int:
@@ -1729,10 +1921,11 @@ def main() -> int:
     phase_head_dims()
     phase_many_heads()
     phase_repairs()
-    add(phase_remat(card))
+    remat_launches, bf16_sr_run = phase_remat(card)
+    add(remat_launches)
     add(phase_remat_vit())
     add(phase_remat_llava())
-    phase_harness(card)
+    add(phase_harness(card, bf16_sr_run))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     say(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")

@@ -8,10 +8,10 @@ Two counts of one example's forward and backward:
 - ``count_flops_per_example``: ``torch.utils.flop_counter.FlopCounterMode``
   over one micro-batch of 1 through the session's accumulate step (the
   reference's protocol, ``src/benchmarking/flops.py:9-37``). It counts what
-  runs: the products (``mm``, ``addmm``, ``bmm``) and the three flash
-  attention ops, each through the formula registered below; elementwise work
-  counts nothing. The selective-scan kernels have no formula yet (ROADMAP
-  Queue 1 item 6), so Mamba is refused.
+  runs: the products (``mm``, ``addmm``, ``bmm``, convolutions, the
+  backward's through ``_conv_backward_flops``), the three flash attention
+  ops and the two selective-scan ops, each through the formula registered
+  below; elementwise work counts nothing.
 
 The flash formulas count the model's FLOPs for the visible (query, key)
 pairs of the call, causal masking and varlen lengths included: 4·D a pair
@@ -19,14 +19,32 @@ forward (two products) and 8·D backward (the four products of the
 gradient, twice the forward, as the closed form counts a backward). The
 scores the backward kernels compute again are overhead, not model work,
 as remat's recompute is.
+
+The scan formulas take mamba_ssm's reference estimate for the selective
+scan (``flops_selective_scan_ref``): 9·B·L·I·N forward, plus B·L·I for the
+D skip when the op applies it, and twice that backward, as the closed forms
+count a backward. The plain version does, a state and a step, 6 operations
+and an exp forward (delta·A, its exp, (delta·u)·B, the recurrence's
+multiply and add, C·h and its sum over the states): 7 against the
+estimate's 9. Backward it recomputes the states (4 and the exp) and does
+15 more (C·dy, the reverse recurrence's 2, the 2 of the common term, and a
+product and a sum each for dA, the sums behind ddelta and du, dB and dC):
+20 against the 18 counted, the recompute being overhead as the flash
+backward's is. The backward op's count includes the skip's backward (du +=
+D·dy and dD's product), which runs beside it in the autograd rule. The JAX
+package counts mamba with XLA's cost analysis of every HLO op (elementwise
+ones included), so the two packages' mamba totals differ by the
+elementwise work.
 """
+
+import math
 
 import numpy as np
 import torch
 from torch.utils.flop_counter import FlopCounterMode, register_flop_formula
 
 from ..models import BaseModelClass
-from ..ops import flash_attention  # noqa: F401  (registers the mlpt:: ops the formulas name)
+from ..ops import flash_attention, selective_scan_fused  # noqa: F401  (register the mlpt:: ops the formulas name)
 
 
 def transformer_flops_per_token(
@@ -129,6 +147,31 @@ def _flash_bwd_flops(q, k, v, out, lse, dout, causal, sm_scale, kv_lens=None, *a
     return 8 * q.shape[-1] * _visible_pairs(q, k, causal, kv_lens)
 
 
+@register_flop_formula(torch.ops.mlpt.scan_fwd, get_raw=True)
+def _scan_fwd_flops(u, delta, A, B, C, D=None, *args, **kwargs) -> int:
+    bsz, L, I = u.shape
+    return 9 * bsz * L * I * A.shape[-1] + (bsz * L * I if D is not None else 0)
+
+
+@register_flop_formula(torch.ops.mlpt.scan_bwd, get_raw=True)
+def _scan_bwd_flops(u, delta, A, B, C, dy, ckpt, *args, **kwargs) -> int:
+    bsz, L, I = u.shape
+    return 2 * (9 * bsz * L * I * A.shape[-1] + bsz * L * I)
+
+
+def _conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride, _padding, _dilation, transposed,
+                         _output_padding, _groups, output_mask, out_shape, **kwargs) -> int:
+    """A convolution's backward: the forward's count for each gradient it
+    computes (input and weight), 2 x (outputs, or inputs when transposed) x
+    the weight's elements a channel, ``groups`` included. PyTorch's own
+    formula counts the weight gradient of a grouped convolution as if
+    ungrouped, ``groups`` times too much: for mamba's depthwise conv that is
+    d_inner (5,120) times its true count, which would double mamba-2.8b's
+    total."""
+    per_grad = 2 * math.prod(x_shape if transposed else grad_out_shape) * math.prod(w_shape[1:])
+    return per_grad * (int(bool(output_mask[0])) + int(bool(output_mask[1])))
+
+
 def count_flops_per_example(model_class: BaseModelClass, device: torch.device | str = "cuda") -> float:
     """FLOPs of one example's forward and backward as they run: one
     micro-batch of 1 through the session's accumulate step (the model's
@@ -136,8 +179,6 @@ def count_flops_per_example(model_class: BaseModelClass, device: torch.device | 
     from ..parallel.mesh import MeshConfig
     from ..train import TrainingPlan
 
-    if model_class.model_type == "mamba":
-        raise NotImplementedError("the selective-scan kernels have no FLOP formula yet: ROADMAP Queue 1 item 6")
     plan = TrainingPlan(
         num_training_steps=1,
         micro_batch_size=1,
@@ -152,8 +193,11 @@ def count_flops_per_example(model_class: BaseModelClass, device: torch.device | 
         mesh=MeshConfig(num_hosts=1, chips_per_host=1),
     )
     sess = plan.build_session(model_class, device=device)
-    state = sess.init_state()
+    # the parameters only: the optimizer state plays no part, and leaving it
+    # out keeps mamba-2.8b's unremat step within one card
+    sess.bundle.init_fn(sess.module, torch.Generator(device=sess.device).manual_seed(0))
     batch = sess.make_micro_batch(1)
-    with FlopCounterMode(display=False) as counter:
-        sess.accumulate_fn()(state, batch)
+    with FlopCounterMode(display=False, custom_mapping={torch.ops.aten.convolution_backward: _conv_backward_flops}) as counter:
+        sess.accumulate_fn()(None, batch)
+    sess.zero_grads()
     return float(counter.get_total_flops())

@@ -24,6 +24,8 @@ from .utils import BenchmarkHarness, OutOfMemory
 logger = get_logger()
 
 RESULT_PREFIX = "MLPT_RESULT:"
+# probe worker processes started in this process (``run_probe_worker``)
+WORKER_STARTS = 0
 _REPO_ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 
 
@@ -41,28 +43,46 @@ def find_max_mbs_pow2(limit: int, confirm: Callable[[int], bool]) -> int:
     return best
 
 
-def subprocess_confirm(plan, model_type: str, device: str = "cuda", timeout: float = 900.0) -> Callable[[int], bool]:
+def run_probe_worker(spec: dict, timeout: float = 900.0) -> dict:
+    """Run ``spec`` (see ``probe_worker.py``) in a fresh ``probe_worker``
+    process and return its result line: ``{"ok": true, ...}`` or ``{"oom":
+    true, ...}``. Anything else (a crash, a kernel error, a refused plan, a
+    worker past ``timeout`` seconds, which is killed) raises, with the end of
+    the worker's standard error. Counts every worker it starts in
+    ``WORKER_STARTS``."""
+    global WORKER_STARTS
+    env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [_REPO_ROOT, os.environ.get("PYTHONPATH")]))}
+    WORKER_STARTS += 1
+    proc = subprocess.run(
+        [sys.executable, "-m", "multimodal_llm_pretraining_tpu_torch.benchmarking.probe_worker"],
+        input=json.dumps(spec), capture_output=True, text=True, timeout=timeout, cwd=_REPO_ROOT, env=env,
+    )
+    lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(RESULT_PREFIX)]
+    result = json.loads(lines[-1][len(RESULT_PREFIX):]) if lines else {}
+    if proc.returncode == 0 and (result.get("oom") or result.get("ok")):
+        return result
+    raise RuntimeError(f"probe worker at mbs={spec.get('micro_batch_size')} failed ({spec.get('op', 'confirm')}, "
+                       f"exit code {proc.returncode}, result {result!r}):\n{proc.stderr[-4000:]}")
+
+
+def worker_spec(op: str, plan, model_type: str, micro_batch_size: int, device: str = "cuda", **extra) -> dict:
+    """The JSON spec of one ``probe_worker`` op."""
+    return {"op": op, "model_type": model_type, "plan": dataclasses.asdict(plan),
+            "micro_batch_size": micro_batch_size, "device": device, **extra}
+
+
+def subprocess_confirm(plan, model_type: str, device: str = "cuda", timeout: float = 900.0,
+                       run_worker: Callable[[dict], dict] | None = None) -> Callable[[int], bool]:
     """``confirm(mbs)`` for ``find_max_mbs_pow2``: one accumulate and one
     optimizer step of ``model_type`` under ``plan`` at micro-batch ``mbs``
-    in a fresh ``probe_worker`` process. True when the step ran, False when
-    it ran out of memory; anything else (a crash, a kernel error, a worker
-    past ``timeout`` seconds, which is killed) raises."""
+    in a fresh ``probe_worker`` process (or through ``run_worker(spec)``,
+    which tests inject). True when the step ran, False when it ran out of
+    memory; anything else raises."""
 
     def confirm(mbs: int) -> bool:
-        spec = {"model_type": model_type, "plan": dataclasses.asdict(plan), "micro_batch_size": mbs, "device": device}
-        env = {**os.environ, "PYTHONPATH": os.pathsep.join(filter(None, [_REPO_ROOT, os.environ.get("PYTHONPATH")]))}
-        proc = subprocess.run(
-            [sys.executable, "-m", "multimodal_llm_pretraining_tpu_torch.benchmarking.probe_worker"],
-            input=json.dumps(spec), capture_output=True, text=True, timeout=timeout, cwd=_REPO_ROOT, env=env,
-        )
-        lines = [ln for ln in proc.stdout.splitlines() if ln.startswith(RESULT_PREFIX)]
-        result = json.loads(lines[-1][len(RESULT_PREFIX):]) if lines else {}
-        if proc.returncode == 0 and result.get("oom"):
-            return False
-        if proc.returncode == 0 and result.get("ok"):
-            return True
-        raise RuntimeError(f"probe worker at mbs={mbs} failed (exit code {proc.returncode}, result {result!r}):\n"
-                           f"{proc.stderr[-4000:]}")
+        spec = worker_spec("confirm", plan, model_type, mbs, device)
+        result = run_worker(spec) if run_worker is not None else run_probe_worker(spec, timeout)
+        return not result.get("oom")
 
     return confirm
 

@@ -64,10 +64,18 @@ class BenchmarkHarness:
             raise
 
     def persistent_state_bytes(self) -> int:
-        """Device bytes of the optimizer state (the moments), which lives
-        beside the parameters at every micro-batch size."""
+        """Device bytes of the optimizer state (the moments and the master
+        layout's f32 master) and of the accumulators a ``grad_accum_dtype``
+        other than the params' keeps, which live beside the parameters at
+        every micro-batch size."""
         opt_state = self._live_state().opt_state
-        return sum(t.numel() * t.element_size() for t in (*opt_state.mu, *opt_state.nu))
+        sess = self.session
+        state = [*opt_state.mu, *opt_state.nu, *(opt_state.master or [])]
+        nbytes = sum(t.numel() * t.element_size() for t in state)
+        if sess.grad_dtype != sess.param_dtype:
+            params = dict(sess.module.named_parameters())
+            nbytes += sum(params[n].numel() for n in sess.trainable) * sess.grad_dtype.itemsize
+        return nbytes
 
     def reset(self) -> None:
         """Drop the gradients, the state and the allocator's cache after an

@@ -62,6 +62,23 @@ def peak_tflops(gpu: GpuT, dtype: Literal["bf16", "tf32", "fp32"]) -> float:
     raise ValueError(f"unknown dtype {dtype}")
 
 
+def supports_bf16(gpu: GpuT) -> bool:
+    """Whether ``gpu`` computes bf16 on its tensor cores (Ampere and newer,
+    the reference's ``ampere_or_newer_gpu``): every card in the registry."""
+    gpu_spec(gpu)
+    return True
+
+
+def analytic_peak_tflops(gpu: GpuT, mixed_precision: Literal[None, "bf16", "fp16"], free_lunch: bool) -> float:
+    """The peak the analytic experiment divides by (the reference's
+    ``training_time_analytic.py`` choice): bf16 for models in bf16 or fp16,
+    TF32 for f32 models under the free lunch (which turns TF32 on), f32
+    outside the tensor cores otherwise."""
+    if mixed_precision in ("bf16", "fp16"):
+        return peak_tflops(gpu, "bf16")
+    return peak_tflops(gpu, "tf32" if free_lunch else "fp32")
+
+
 def detect_local_gpu() -> GpuT | None:
     """The registry's name for card 0, or None when no card is visible or
     the card is not in the registry (its rates are then unknown: no guess)."""

@@ -9,7 +9,7 @@ so far.
 import enum
 from abc import ABC, abstractmethod
 from dataclasses import dataclass
-from typing import Any, Callable, Generic, Literal, TypeVar
+from typing import Any, Callable, Generic, Literal, TypeVar, get_args
 
 import torch
 
@@ -40,6 +40,10 @@ LlavaT = Literal["llava-pretrain", "llava-finetune"]
 ViTT = Literal["vit"]
 
 ModelT = str
+
+# the model types the port builds (the JAX package's MODEL_TYPES, less the
+# families ``_NOT_PORTED`` names)
+MODEL_TYPES: tuple[str, ...] = (*get_args(PythiaT), *get_args(MambaT), *get_args(LlavaT), *get_args(ViTT))
 
 
 class SchedulerType(str, enum.Enum):
@@ -257,6 +261,7 @@ def get_model_class(model_type: ModelT) -> BaseModelClass:
 
 __all__ = [
     "ModelT",
+    "MODEL_TYPES",
     "PythiaT",
     "MambaT",
     "LlavaT",

@@ -4,9 +4,9 @@
 - ``causal_conv1d``: left pad, then a grouped ``F.conv1d`` (XLA in the JAX
   package too, not a Pallas kernel).
 - ``selective_scan``: the dispatcher. With ``use_custom_kernels=True`` the
-  scan runs through ``SelectiveScanFused``: the hand-written CUDA kernels
-  for CUDA tensors, at every sequence length, and their plain versions for
-  CPU tensors. ``use_custom_kernels=False`` is the plain chunked scan
+  scan runs through ``selective_scan_fused`` (the ``mlpt::scan_fwd`` op):
+  the hand-written CUDA kernels for CUDA tensors, at every sequence length,
+  and their plain versions for CPU tensors. ``use_custom_kernels=False`` is the plain chunked scan
   (``selective_scan_reference``) under autograd, anywhere: the JAX package's
   slow-path parity branch.
 
@@ -22,7 +22,7 @@ partial chunk.
 import torch
 import torch.nn.functional as F
 
-from .selective_scan_fused import SelectiveScanFused, chunked_scan, skip
+from .selective_scan_fused import chunked_scan, selective_scan_fused, skip
 
 
 def causal_conv1d(x: torch.Tensor, weight: torch.Tensor, bias: torch.Tensor | None = None) -> torch.Tensor:
@@ -57,5 +57,5 @@ def selective_scan(
     ``chunk_size`` is the plain scan's chunk; the kernels checkpoint every
     256 steps whatever it is."""
     if use_custom_kernels:
-        return SelectiveScanFused.apply(u, delta, A, B, C, D)
+        return selective_scan_fused(u, delta, A, B, C, D)
     return selective_scan_reference(u, delta, A, B, C, D, chunk_size=chunk_size)

@@ -14,8 +14,8 @@ default ``block_l``). Given D, y is ``selective_scan_pallas_fwd``'s: the scan
 plus the skip D * u, in f32, rounded to u's dtype (``:154-155``; the kernel
 computes it in its epilogue); without D, y is f32 before the skip. The
 backward returns (du, ddelta, dA, dB, dC) of y before the D skip, all f32;
-the skip's ``du += D * g`` term and ``dD`` stay in ``SelectiveScanFused``,
-in f32, as in the JAX custom VJP.
+the skip's ``du += D * g`` term and ``dD`` stay in the autograd rule, in
+f32, as in the JAX custom VJP.
 
 The kernels run 16 states a launch. Any other d_state N is zero-padded to a
 multiple of 16, as the JAX kernels pad it to a multiple of 8
@@ -28,12 +28,18 @@ wrappers zero-pad it and slice the outputs back (``padded_fwd``,
 y): larger batches launch in contiguous chunks, one counted launch each, and
 their outputs are joined in order (``batch_chunked``). All three are exact.
 
-Which version runs is decided by where the tensors lie, and nothing else:
-CPU tensors take the plain versions, CUDA tensors launch the kernels or
-raise. There is no fallback from a kernel to its plain version.
+The forward and the backward are ``torch.library`` custom ops,
+``mlpt::scan_fwd`` (y and the checkpoint) and ``mlpt::scan_bwd``, so that
+the dispatcher sees them: the FLOP counter counts both
+(``benchmarking/flops.py``), and ``selective_scan_fused`` is the forward op
+with its autograd rule. Which version an op runs is decided by where the
+tensors lie, and nothing else: CPU tensors take the plain versions, CUDA
+tensors launch the kernels or raise. There is no fallback from a kernel to
+its plain version.
 """
 
 import functools
+from typing import Optional
 
 import torch
 import torch.nn.functional as F
@@ -379,40 +385,79 @@ def selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt):
     return padded_bwd(bwd, u, delta, A, B, C, _aligned(dy.float()), _aligned(ckpt.float()))
 
 
-def _fwd(u, delta, A, B, C, D=None):
-    if u.device.type == "cuda":
-        return selective_scan_fwd_cuda(u, delta, A, B, C, D)
-    if u.device.type == "cpu":
-        return selective_scan_fwd_reference(u, delta, A, B, C, D)
+# ---------------------------------------------------------------- custom ops
+#
+# Each op's CUDA implementation launches the kernels, its CPU implementation
+# is the plain version: the only place where the choice is made.
+
+
+def _no_kernel(u: torch.Tensor, *args) -> None:
     raise ValueError(f"selective scan has no kernel for device {u.device}")
 
 
-def _bwd(u, delta, A, B, C, dy, ckpt):
-    if u.device.type == "cuda":
-        return selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)
-    if u.device.type == "cpu":
-        return selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)
-    raise ValueError(f"selective scan has no kernel for device {u.device}")
+@torch.library.custom_op("mlpt::scan_fwd", mutates_args=())
+def scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+             D: Optional[torch.Tensor] = None) -> tuple[torch.Tensor, torch.Tensor]:
+    """The scan forward: (y, checkpoint f32 [B, ceil(L / 256), N, I]); y in
+    u's dtype with the D skip given D, else f32 before it."""
+    _no_kernel(u)
 
 
-class SelectiveScanFused(torch.autograd.Function):
-    """y = scan(u, delta, A, B, C) + D * u in u's dtype, the custom VJP of
-    ``selective_scan_fused`` (``selective_scan_pallas.py:330-349``). Saves the
-    inputs in their own dtype plus the f32 chunk checkpoint, never f32 copies
-    of the [B, L, I] inputs."""
+@torch.library.custom_op("mlpt::scan_bwd", mutates_args=())
+def scan_bwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
+             dy: torch.Tensor, ckpt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
+                                                             torch.Tensor]:
+    """The scan backward: (du, ddelta, dA, dB, dC) f32 of y before the D skip."""
+    _no_kernel(u)
 
-    @staticmethod
-    def forward(ctx, u, delta, A, B, C, D):
-        y, ckpt = _fwd(u, delta, A, B, C, D)  # the skip and the cast inside the forward
-        ctx.save_for_backward(u, delta, A, B, C, D, ckpt)
-        return y
 
-    @staticmethod
-    def backward(ctx, g):
-        u, delta, A, B, C, D, ckpt = ctx.saved_tensors
-        g32 = g.float()
-        du, ddelta, dA, dB, dC = _bwd(u, delta, A, B, C, g32, ckpt)
-        # y = scan(...) + D * u: the skip adds D * g to du and carries dD
+scan_fwd.register_kernel("cuda")(selective_scan_fwd_cuda)
+scan_fwd.register_kernel("cpu")(selective_scan_fwd_reference)
+scan_bwd.register_kernel("cuda")(selective_scan_bwd_cuda)
+scan_bwd.register_kernel("cpu")(selective_scan_bwd_reference)
+
+
+@scan_fwd.register_fake
+def _(u, delta, A, B, C, D=None):
+    bsz, L, I = u.shape
+    y = u.new_empty(u.shape, dtype=torch.float32 if D is None else u.dtype)
+    return y, u.new_empty((bsz, _n_chunks(L), A.shape[-1], I), dtype=torch.float32)
+
+
+@scan_bwd.register_fake
+def _(u, delta, A, B, C, dy, ckpt):
+    f32 = dict(dtype=torch.float32)
+    return (u.new_empty(u.shape, **f32), u.new_empty(u.shape, **f32), A.new_empty(A.shape, **f32),
+            B.new_empty(B.shape, **f32), C.new_empty(C.shape, **f32))
+
+
+def _scan_setup_context(ctx, inputs, output) -> None:
+    """Save the inputs in their own dtype plus the f32 chunk checkpoint,
+    never f32 copies of the [B, L, I] inputs; the checkpoint is a residual,
+    not a result that takes a gradient."""
+    u, delta, A, B, C, D = inputs
+    _y, ckpt = output
+    ctx.save_for_backward(u, delta, A, B, C, D, ckpt)
+    ctx.mark_non_differentiable(ckpt)
+
+
+def _scan_backward(ctx, g, _dckpt):
+    """The backward op, then the D skip's terms in f32, as in the JAX
+    custom VJP: y = scan(...) + D * u adds D * g to du and carries dD."""
+    u, delta, A, B, C, D, ckpt = ctx.saved_tensors
+    g32 = g.float()
+    du, ddelta, dA, dB, dC = scan_bwd(u, delta, A, B, C, g32, ckpt)
+    dD = None
+    if D is not None:
         du = du + D.float() * g32
-        dD = (g32 * u.float()).sum((0, 1))
-        return du.to(u.dtype), ddelta.to(delta.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype), dD.to(D.dtype)
+        dD = (g32 * u.float()).sum((0, 1)).to(D.dtype)
+    return du.to(u.dtype), ddelta.to(delta.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype), dD
+
+
+scan_fwd.register_autograd(_scan_backward, setup_context=_scan_setup_context)
+
+
+def selective_scan_fused(u, delta, A, B, C, D) -> torch.Tensor:
+    """y = scan(u, delta, A, B, C) + D * u in u's dtype, with the custom VJP
+    of ``selective_scan_fused`` (``selective_scan_pallas.py:330-349``)."""
+    return scan_fwd(u, delta, A, B, C, D)[0]

@@ -45,21 +45,23 @@ KINDS = (
 OTHER = "elementwise and other"
 
 
-LAYOUTS = ("bf16", "bf16_sr", "f32")
+LAYOUTS = ("bf16", "bf16_sr", "bf16_master", "f32")
 
 
 def make_plan(mc, mbs: int, acc: int, remat: bool, layout: str, checkpoint_policy: str = "flash") -> TrainingPlan:
     """The model's own optimizer and schedule, with remat under
     ``checkpoint_policy`` (pythia takes "flash" or "dots"; the others remat
-    as their stacks do) when ``remat``, in one of three layouts:
+    as their stacks do) when ``remat``, in one of four layouts:
     "bf16_sr" (bf16 compute, ``master_weights="sr"``, bf16 moments and
-    accumulators), "bf16" (bf16 compute, f32 params, accumulators and
-    moments; a model with a trainable mask stores its frozen leaves in
-    bf16) or "f32" (f32 compute, params, accumulators and moments; the f32
-    products run in TF32, as ``matmul_precision="default"`` maps them)."""
+    accumulators), "bf16_master" (the same with an f32 master in place of
+    SR, ``master_weights="device"``), "bf16" (bf16 compute, f32 params,
+    accumulators and moments; a model with a trainable mask stores its
+    frozen leaves in bf16) or "f32" (f32 compute, params, accumulators and
+    moments; the f32 products run in TF32, as ``matmul_precision="default"``
+    maps them)."""
     if layout not in LAYOUTS:
         raise ValueError(f"layout must be one of {LAYOUTS}, got {layout!r}")
-    sr = layout == "bf16_sr"
+    lowp = layout in ("bf16_sr", "bf16_master")
     return TrainingPlan(
         num_training_steps=8,
         micro_batch_size=mbs,
@@ -73,9 +75,9 @@ def make_plan(mc, mbs: int, acc: int, remat: bool, layout: str, checkpoint_polic
         optimizer_kwargs=mc.optimizer_kwargs,
         scheduler_type=mc.scheduler_type,
         scheduler_kwargs=mc.scheduler_kwargs,
-        grad_accum_dtype="bf16" if sr else None,
-        opt_state_dtype="bf16" if sr else None,
-        master_weights="sr" if sr else False,
+        grad_accum_dtype="bf16" if lowp else None,
+        opt_state_dtype="bf16" if lowp else None,
+        master_weights={"bf16_sr": "sr", "bf16_master": "device"}.get(layout, False),
         max_grad_norm=mc.max_grad_norm,
         mesh=MeshConfig(num_hosts=1, chips_per_host=1),
     )

@@ -5,7 +5,7 @@
 A shape is B,L,I or B,L,I,N (d_state, 16 if left out), optionally followed
 by ``:f32`` (f32 u, delta, B, C; bf16 otherwise). For each shape: the
 milliseconds a call of ``selective_scan_fwd_cuda`` with D (the skip and the
-cast in its epilogue, as ``SelectiveScanFused`` runs it) and of
+cast in its epilogue, as ``selective_scan_fused`` runs it) and of
 ``selective_scan_bwd_cuda`` takes in a run of 10 launches back to back (the
 median of 3 runs), each one's bound and its share of it, and the device
 time of each kernel a call launches (``torch.profiler``): the backward's

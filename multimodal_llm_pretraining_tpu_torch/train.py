@@ -6,8 +6,8 @@ for one package reads the same in the other. Which fields act here:
 - ``bf16`` / ``fp16``: bf16 compute (fp16 runs as bf16, as in JAX).
 - ``matmul_precision``: sets ``torch.backends.cuda.matmul.allow_tf32`` and
   ``torch.backends.cudnn.allow_tf32``; "highest" turns both off.
-- ``master_weights="sr"``, ``opt_state_dtype``, ``grad_accum_dtype``: the
-  state layouts of ``training/step.py``.
+- ``master_weights`` ("sr", True or "device"), ``opt_state_dtype``,
+  ``grad_accum_dtype``: the state layouts of ``training/step.py``.
 - ``activation_checkpointing`` and ``checkpoint_policy``: handed to the
   model's ``build_model``. Pythia runs every block under the plan's policy,
   "flash" (keep the flash-attention outputs, recompute the rest) or "dots"
@@ -20,9 +20,8 @@ for one package reads the same in the other. Which fields act here:
 - ``sharding`` and ``offloading`` name a ``ShardingPolicy``
   (``sharding_policy``), which ``is_valid`` checks as the JAX plan does;
   the session refuses any but the unsharded one.
-- Refused by the session with the ROADMAP item: ``master_weights``
-  True/"device", ``sharding``, ``offloading`` and meshes of more than one
-  device.
+- Refused by the session with the ROADMAP item: ``sharding``,
+  ``offloading`` and meshes of more than one device.
 """
 
 from dataclasses import dataclass, field

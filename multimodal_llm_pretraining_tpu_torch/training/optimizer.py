@@ -166,6 +166,9 @@ class AdamState:
     count: int
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
+    # the master layout's f32 copy of each trainable parameter (the session
+    # sets it; JAX's {"master", "inner"} opt state), else None
+    master: list[torch.Tensor] | None = None
 
 
 class AdamChain:

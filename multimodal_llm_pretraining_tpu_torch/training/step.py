@@ -10,13 +10,32 @@ Where the JAX step donates its buffers and returns new ones
 moments and the gradient accumulators (the parameters' ``.grad``) are
 overwritten, and ``TrainState`` holds the live tensors.
 
-Two state layouts work, chosen by the plan as in JAX:
+Three state layouts, chosen by the plan as in JAX (``step.py:140-146``):
 
 - f32: f32 params (compute in f32 or bf16; with bf16 compute the layers
-  cast weights at use) and the optax-chain Adam.
+  cast weights at use) and the optax-chain Adam. ``master_weights`` with
+  f32 compute is this layout too.
 - ``bf16_sr`` (``bf16=True, master_weights="sr"``): bf16 params, grads and
   accumulators, bf16 moments (``opt_state_dtype="bf16"``), updates applied
   with stochastic rounding and no f32 master.
+- master (``bf16=True, master_weights=True`` or ``"device"``; the grid's
+  ``bf16_master``): bf16 params and an f32 master of every trainable one
+  in the optimizer state (``AdamState.master``, made from the bf16 params
+  as JAX's ``opt_init`` makes it, ``:301-305``). Adam (either kind) updates
+  against the master, so weight decay reads it; the master takes the
+  update, and the live bf16 copy is re-derived by one round-to-nearest
+  cast (``:461-468``).
+
+Gradient accumulators take the params' dtype unless ``grad_accum_dtype``
+names another (``:204-231``). PyTorch keeps ``.grad`` in the param's
+dtype, so such a layout keeps accumulators of its own: a post-accumulate
+hook on each trainable parameter adds its ``.grad`` into its accumulator
+after every backward, rounding once per micro-batch as JAX's
+``(a + g).astype(a.dtype)`` does (``:437-441``; ``add_`` sums in the
+wider dtype and rounds into the accumulator's), then drops the ``.grad``.
+The optimizer reads the accumulators. A fused step of one micro-batch
+uses its gradient as it comes, unrounded, as the JAX step does at
+``acc == 1`` (``:503-509``).
 
 A model with a trainable mask (LLaVA) freezes the rest: frozen parameters
 get ``requires_grad_(False)``, so autograd records nothing for them (JAX's
@@ -37,11 +56,11 @@ Activation checkpointing goes to the model's ``build_model``, and so does
 ``plan.checkpoint_policy`` where the model takes one (pythia's "flash" and
 "dots"), as the JAX session hands it over (``step.py:60-70``): mamba remats
 each whole block, the others run their blocks under ``checkpoint_block``.
-Not ported yet, and refused with the ROADMAP item: ``master_weights``
-True/"device", sharding, offloading, and accumulators of another dtype
-than the params.
+Not ported yet, and refused with the ROADMAP item: sharding, offloading
+and more than one device.
 """
 
+import functools
 import inspect
 from dataclasses import dataclass
 
@@ -79,19 +98,14 @@ class TrainSession:
         plan.mesh_config().require_single_device()
         if plan.sharding or plan.offloading:
             raise NotImplementedError("sharding and offloading are ROADMAP Queue 1 items 7 and 8")
-        mw = plan.master_weights
-        if mw is True or mw == "device":
-            raise NotImplementedError('master_weights True/"device" (f32 master in the optimizer state) is ROADMAP Queue 1 item 5')
         plan.apply_matmul_precision()
 
         self.compute_dtype = plan.compute_dtype
-        self.sr_params = mw == "sr" and self.compute_dtype == torch.bfloat16
-        self.param_dtype = torch.bfloat16 if self.sr_params else torch.float32
-        grad_dtype = {"bf16": torch.bfloat16, "f32": torch.float32, None: self.param_dtype}[plan.grad_accum_dtype]
-        if grad_dtype != self.param_dtype:
-            raise NotImplementedError(
-                f"gradient accumulators in {grad_dtype} beside {self.param_dtype} params are ROADMAP Queue 1 item 5"
-            )
+        mw, bf16 = plan.master_weights, self.compute_dtype == torch.bfloat16
+        self.sr_params = mw == "sr" and bf16
+        self.master_params = bool(mw) and not self.sr_params and bf16
+        self.param_dtype = torch.bfloat16 if self.sr_params or self.master_params else torch.float32
+        self.grad_dtype = {"bf16": torch.bfloat16, "f32": torch.float32, None: self.param_dtype}[plan.grad_accum_dtype]
 
         # the policy goes only to a build_model that takes it; its default
         # is the plan's, so leaving it out is the same
@@ -114,6 +128,14 @@ class TrainSession:
                 if not mask[name]:
                     p.requires_grad_(False)
                     p.data = p.data.to(self.compute_dtype)
+        # the accumulators of a grad_accum_dtype other than the params', by
+        # parameter name; empty until a backward fills them
+        self.accumulators: dict[str, torch.Tensor] = {}
+        self._route_grads = self.grad_dtype != self.param_dtype
+        if self._route_grads:
+            params = dict(self.module.named_parameters())
+            for name in self.trainable:
+                params[name].register_post_accumulate_grad_hook(functools.partial(self._into_accumulator, name))
         self.dataset = model_class.load_dummy_dataset()
         self.tx = build_optimizer(
             plan.optimizer,
@@ -166,12 +188,29 @@ class TrainSession:
                     p.copy_(state_dict[name])
         self.zero_grads()
         params = dict(self.module.named_parameters())
-        return TrainState(step=0, params=params, opt_state=self.tx.init([params[n] for n in self.trainable]))
+        trainable = [params[n] for n in self.trainable]
+        if not self.master_params:
+            return TrainState(step=0, params=params, opt_state=self.tx.init(trainable))
+        master = [p.detach().float() for p in trainable]
+        opt_state = self.tx.init(master)
+        opt_state.master = master
+        return TrainState(step=0, params=params, opt_state=opt_state)
 
     def zero_grads(self) -> None:
         """Drop the accumulators: the next backward writes its gradient into
-        fresh ``.grad`` buffers (exactly 0 + g)."""
+        fresh ``.grad`` buffers (exactly 0 + g), or into fresh accumulators."""
         self.module.zero_grad(set_to_none=True)
+        self.accumulators = {}
+
+    @torch.no_grad()
+    def _into_accumulator(self, name: str, p: torch.nn.Parameter) -> None:
+        """Post-accumulate hook: move ``p.grad`` into ``name``'s accumulator,
+        rounded into its dtype once."""
+        if not self._route_grads:
+            return
+        acc = self.accumulators.get(name)
+        self.accumulators[name] = p.grad.to(self.grad_dtype) if acc is None else acc.add_(p.grad)
+        p.grad = None
 
     # ----------------------------------------------------------- steps
 
@@ -183,22 +222,35 @@ class TrainSession:
         return loss.detach()
 
     def _compute_grads(self, state: TrainState, batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
-        for i in range(self.plan.gradient_accumulation_steps):
-            loss_sum = loss_sum + self._accumulate(state, {k: v[i] for k, v in batch.items()})
+        acc = self.plan.gradient_accumulation_steps
+        route = self._route_grads
+        # one micro-batch: its gradient goes to the update unrounded, in .grad
+        self._route_grads = route and acc > 1
+        try:
+            loss_sum = torch.zeros((), dtype=torch.float32, device=self.device)
+            for i in range(acc):
+                loss_sum = loss_sum + self._accumulate(state, {k: v[i] for k, v in batch.items()})
+        finally:
+            self._route_grads = route
         return loss_sum
 
     @torch.no_grad()
     def _optimizer_update(self, state: TrainState, acc_steps: float) -> None:
         params = [state.params[n] for n in self.trainable]
-        grads = [p.grad for p in params]
+        grads = [self.accumulators.get(n, p.grad) for n, p in zip(self.trainable, params)]
         if any(g is None for g in grads):
             raise RuntimeError("optimizer update without gradients for every trainable parameter")
         for g in grads:
             g.div_(acc_steps)
-        updates = self.tx.update(grads, state.opt_state, params)
-        for p, d in zip(params, updates):
-            if self.sr_params:
+        master = state.opt_state.master
+        updates = self.tx.update(grads, state.opt_state, params if master is None else master)
+        for i, (p, d) in enumerate(zip(params, updates)):
+            if master is not None:
+                # the f32 master takes the update; the live bf16 copy is the
+                # new master rounded once, to nearest
+                master[i].add_(d)
+                p.copy_(master[i])
+            elif self.sr_params:
                 # masterless bf16 params: unbiased stochastic rounding of p + d,
                 # the draws coming from the session's generator leaf by leaf
                 p.copy_(stochastic_round_to(p.float() + d, p.dtype, generator=self.sr_generator))
@@ -218,13 +270,15 @@ class TrainSession:
 
     def accumulate_fn(self):
         """``acc(state, micro_batch) -> loss``: one micro-batch forward and
-        backward, its gradient added into the accumulators (``.grad``)."""
+        backward, its gradient added into the accumulators (``.grad``, or
+        ``accumulators`` for another dtype than the params')."""
         return self._accumulate
 
     def grads_fn(self):
         """``grads(state, batch) -> loss_sum``: the whole accumulation pass
         over the batch's leading dim, into the current accumulators (call
-        ``zero_grads()`` first for a fresh sum)."""
+        ``zero_grads()`` first for a fresh sum); with one micro-batch, its
+        gradient unrounded in ``.grad``."""
         return self._compute_grads
 
     def optimizer_update_fn(self):

@@ -1,7 +1,8 @@
 """The port's benchmark harness on the CPU, at pythia-14m and sequence 33:
 the plan's ``is_valid`` and ``sharding_policy`` against the JAX plan's, the
 closed-form FLOPs against the JAX package's, the FLOP counter against the
-closed form, the max-micro-batch search (in process with an out-of-memory
+closed form (pythia, and a narrowed mamba through the scan ops' formulas),
+the max-micro-batch search (in process with an out-of-memory
 error faked past a threshold, and through the worker process), the phase and
 fused step timers, and the GPU registry.
 
@@ -122,9 +123,46 @@ def test_flash_formulas_count_the_visible_pairs(causal, lens):
     assert counter.get_total_flops() == 8 * 16 * pairs
 
 
-def test_count_refuses_mamba():
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tflops.count_flops_per_example(get_model_class("mamba"), device="cpu")
+MAMBA_NARROW = dict(N_LAYER=2, D_MODEL=64, D_INNER=128, DT_RANK=4, D_STATE=16, VOCAB=256)
+
+
+def test_counted_mamba_flops_equal_the_closed_form():
+    """mamba narrowed to 2 layers, d_model 64, d_inner 128, dt_rank 4,
+    d_state 16, vocab 256, at sequence 300 (the scan crosses its 256-step
+    chunk): the count equals, exactly, three times (forward and backward)
+    each layer's products (in_proj, x_proj, dt_proj, out_proj: 2·S·in·out),
+    its depthwise conv (2·S·I·K) and its scan through the ``mlpt::`` ops'
+    formulas (9·S·I·N + S·I for the skip), plus the chunked head's 4·2·H·V
+    a token over the S − 1 shifted tokens (the pythia count's head term)."""
+    from multimodal_llm_pretraining_tpu_torch.models import mamba as tmamba
+
+    S, H, I, N, R, K, V, L = 300, 64, 128, 16, 4, 4, 256, 2
+    with pytest.MonkeyPatch.context() as mp:
+        for name, value in MAMBA_NARROW.items():
+            mp.setattr(tmamba, name, value)
+        mp.setattr(tmamba.MambaModelClass, "vocab_size", property(lambda self: V))
+        mp.setattr(tmamba.MambaModelClass, "sequence_length", property(lambda self: S))
+        counted = tflops.count_flops_per_example(get_model_class("mamba"), device="cpu")
+    per_layer = 2 * S * (H * 2 * I + I * (R + 2 * N) + R * I + I * H) + 2 * S * I * K + 9 * S * I * N + S * I
+    assert counted == 3 * L * per_layer + 8 * H * V * (S - 1)
+
+
+def test_scan_formulas_and_the_grouped_conv_backward():
+    """The scan ops' formulas: 9·B·L·I·N (+ B·L·I with D) forward, twice
+    that backward; the convolution backward counts each gradient it takes
+    as its forward, ``groups`` included."""
+    u = torch.randn(2, 40, 24)
+    A, B = -torch.rand(24, 16), torch.randn(2, 40, 16)
+    fwd = 9 * 2 * 40 * 24 * 16
+    assert tflops._scan_fwd_flops(u, u, A, B, B) == fwd
+    assert tflops._scan_fwd_flops(u, u, A, B, B, torch.ones(24)) == fwd + 2 * 40 * 24
+    assert tflops._scan_bwd_flops(u, u, A, B, B, u, None) == 2 * (fwd + 2 * 40 * 24)
+    x = torch.randn(2, 24, 43, requires_grad=True)
+    w = torch.randn(24, 1, 4, requires_grad=True)
+    with torch.utils.flop_counter.FlopCounterMode(
+            display=False, custom_mapping={torch.ops.aten.convolution_backward: tflops._conv_backward_flops}) as c:
+        torch.nn.functional.conv1d(x, w, groups=24).sum().backward()
+    assert c.get_total_flops() == 3 * 2 * (2 * 24 * 40) * 4
 
 
 # ---------------------------------------------------------------- max micro-batch

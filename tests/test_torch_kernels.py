@@ -728,7 +728,7 @@ def test_scan_function_takes_plain_versions_on_cpu_without_launching():
     before = (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES)
     u, delta, A, B, C, _ = _scan_inputs(1, 9, 4, device="cpu")
     u.requires_grad_()
-    ssf.SelectiveScanFused.apply(u, delta, A, B, C, torch.ones(4)).sum().backward()
+    ssf.selective_scan_fused(u, delta, A, B, C, torch.ones(4)).sum().backward()
     assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES) == before
     assert u.grad is not None
 
@@ -766,9 +766,10 @@ def test_scan_backward_repeats_bit_for_bit():
 
 @pytest.mark.cuda
 def test_scan_function_launches_kernels_and_adds_the_skip():
-    """One forward and one backward launch through the autograd Function, on
-    strided views of one projection as the Mamba block makes them; the six
-    gradients, dD included, equal the plain versions'."""
+    """One forward and one backward launch through the ``mlpt::scan_fwd``
+    op's autograd rule, on strided views of one projection as the Mamba
+    block makes them; the six gradients, dD included, equal the plain
+    versions'."""
     _needs_cuda()
     u, delta, A, B, C, dy = _scan_inputs(2, 300, 64, seed=5)
     D = torch.randn(64, device="cuda")
@@ -776,7 +777,7 @@ def test_scan_function_launches_kernels_and_adds_the_skip():
     leaves = [t.clone().requires_grad_() for t in (u, delta, A, x_dbc, D)]
     lu, ld, lA, lx, lD = leaves
     ssf.reset_launch_counts()
-    y = ssf.SelectiveScanFused.apply(lu, ld, lA, lx[..., :16], lx[..., 16:], lD)
+    y = ssf.selective_scan_fused(lu, ld, lA, lx[..., :16], lx[..., 16:], lD)
     y.backward(dy)
     assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES) == (1, 1)
     y_ref, ckpt = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
@@ -785,6 +786,26 @@ def test_scan_function_launches_kernels_and_adds_the_skip():
     for got, want in zip((lu.grad, ld.grad, lA.grad, lx.grad, lD.grad),
                          (du + D * dy, dd, dA, torch.cat([dB, dC], -1), (dy * u).sum((0, 1)))):
         _close(got, want, SCAN_GRAD_NORM_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("with_d", [True, False])
+def test_scan_ops_pass_opcheck_on_the_card(with_d):
+    """``torch.library.opcheck`` of ``mlpt::scan_fwd`` (with the skip and
+    without) and ``mlpt::scan_bwd`` on CUDA tensors; each op's outputs are
+    its wrapper's bit for bit."""
+    _needs_cuda()
+    u, delta, A, B, C, dy = _scan_inputs(2, 300, 64, seed=6)
+    D = torch.randn(64, device="cuda") if with_d else None
+    y, ckpt = ssf.scan_fwd(u, delta, A, B, C, D)
+    y_w, ckpt_w = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
+    assert torch.equal(y, y_w) and torch.equal(ckpt, ckpt_w)
+    for got, want in zip(ssf.scan_bwd(u, delta, A, B, C, dy, ckpt),
+                         ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)):
+        assert torch.equal(got, want)
+    leaves = [t.clone().requires_grad_() for t in (u, delta)]
+    torch.library.opcheck(ssf.scan_fwd, (*leaves, A, B, C, None if D is None else D.clone().requires_grad_()))
+    torch.library.opcheck(ssf.scan_bwd, (u, delta, A, B, C, dy, ckpt))
 
 
 @pytest.mark.cuda

@@ -1,5 +1,7 @@
 """The port and ``chip_smoke.py`` run where JAX is not installed: importing
-them pulls in no JAX, flax, optax or JAX-package module, and the package
+them pulls in no JAX, flax, optax or JAX-package module; they import with
+pandas, dill and tango absent (the card's machine has none of them; PyTorch
+itself loads dill when it can) and name none of them; and the package
 holds no library attention. ``chip_smoke.py`` names PyTorch's fused
 attention in one function only, ``sdpa_ms``, the yardstick it times beside
 the kernels, which the port never calls."""
@@ -17,6 +19,8 @@ PACKAGE = ROOT / "multimodal_llm_pretraining_tpu_torch"
 
 _PROBE = """
 import importlib, pkgutil, sys
+for absent in ("pandas", "dill", "tango"):
+    sys.modules[absent] = None  # an import of it raises ImportError, as where it is not installed
 import multimodal_llm_pretraining_tpu_torch as pkg
 names = [m.name for m in pkgutil.walk_packages(pkg.__path__, pkg.__name__ + ".")]
 for name in names:
@@ -52,6 +56,7 @@ def _chip_smoke(outside_yardstick: bool) -> str:
 @pytest.mark.parametrize(
     "pattern",
     [r"^\s*(import|from)\s+(jax|jaxlib|flax|optax)\b", r"^\s*(import|from)\s+multimodal_llm_pretraining_tpu\b",
+     r"^\s*(import|from)\s+(pandas|dill|tango)\b",
      SDPA, r"torch\.compile", r"cudnn_attention|_efficient_attention|_flash_attention_forward"],
 )
 def test_package_source_has_none_of(pattern):

@@ -45,7 +45,8 @@ def test_device_breakdown_unions_overlaps(tmp_path):
                             "memcpy/memset, cat": [pytest.approx(2e-6), 1]}
 
 
-@pytest.mark.parametrize("layout, master, moments", [("bf16_sr", "sr", "bf16"), ("bf16", False, None)])
+@pytest.mark.parametrize("layout, master, moments",
+                         [("bf16_sr", "sr", "bf16"), ("bf16_master", "device", "bf16"), ("bf16", False, None)])
 def test_make_plan_layouts(layout, master, moments):
     mc = get_model_class("llava-pretrain")
     plan = make_plan(mc, 16, 2, False, layout)

@@ -118,7 +118,7 @@ def test_plain_backward_matches_autograd_through_plain_forward():
 
 
 def test_fused_function_matches_jax_selective_scan_fused():
-    """``SelectiveScanFused`` on CPU tensors against JAX
+    """``selective_scan_fused`` on CPU tensors against JAX
     ``selective_scan_fused`` (Pallas forward and backward, interpret mode):
     y and all six gradients, dD included, through a weighted sum."""
     u, delta, A, B, C, D, w = _inputs(2, 100, 12, 16, seed=4)
@@ -128,7 +128,7 @@ def test_fused_function_matches_jax_selective_scan_fused():
 
     want = jax.grad(jloss, argnums=tuple(range(6)))(*[jnp.asarray(a) for a in (u, delta, A, B, C, D)])
     leaves = [t.requires_grad_() for t in _t(u, delta, A, B, C, D)]
-    (ssf.SelectiveScanFused.apply(*leaves) * torch.from_numpy(w)).sum().backward()
+    (ssf.selective_scan_fused(*leaves) * torch.from_numpy(w)).sum().backward()
     for name, t, g in zip(("u", "delta", "A", "B", "C", "D"), leaves, want):
         np.testing.assert_allclose(t.grad.numpy(), np.asarray(g), rtol=GRAD_TOL, atol=GRAD_TOL, err_msg=name)
 
@@ -183,8 +183,8 @@ def test_plain_forward_with_skip_matches_pallas_forward(dtype):
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_plain_forward_skip_is_the_functions_expression(dtype):
     """With D the plain forward returns exactly ``(y + D * u)`` in f32 cast
-    to u's dtype, the expression ``SelectiveScanFused`` applied to the
-    pre-skip y: the CPU results of the Function are bitwise those of y
+    to u's dtype, the expression ``selective_scan_fused`` applied to the
+    pre-skip y: the CPU results of the op are bitwise those of y
     before the skip plus that expression."""
     u, delta, A, B, C, D, _ = _inputs(2, 60, 8, 16, seed=9)
     tu, td, tB, tC = (torch.from_numpy(a).to(dtype) for a in (u, delta, B, C))
@@ -192,7 +192,7 @@ def test_plain_forward_skip_is_the_functions_expression(dtype):
     y_pre, ckpt_pre = ssf.selective_scan_fwd_reference(tu, td, tA, tB, tC)
     y, ckpt = ssf.selective_scan_fwd_reference(tu, td, tA, tB, tC, tD)
     assert torch.equal(y, (y_pre + tD.float() * tu.float()).to(dtype)) and torch.equal(ckpt, ckpt_pre)
-    assert torch.equal(ssf.SelectiveScanFused.apply(tu, td, tA, tB, tC, tD), y)
+    assert torch.equal(ssf.selective_scan_fused(tu, td, tA, tB, tC, tD), y)
 
 
 def test_causal_conv1d_matches_jax():
@@ -210,3 +210,22 @@ def test_causal_conv1d_matches_jax():
     out = causal_conv1d(imp, torch.from_numpy(w))
     assert torch.equal(out[0, :4], torch.zeros(4, 6))
     torch.testing.assert_close(out[0, 4], torch.from_numpy(w[-1]))
+
+
+@pytest.mark.parametrize("with_d", [True, False])
+def test_scan_ops_pass_opcheck_on_the_cpu(with_d):
+    """``mlpt::scan_fwd`` (with the skip and without) and ``mlpt::scan_bwd``
+    under ``torch.library.opcheck`` on CPU tensors, where they run the plain
+    versions: schema, fakes and the forward's autograd registration; each
+    op's outputs equal its plain version's."""
+    u, delta, A, B, C, D, dy = _t(*_inputs(2, 300, 24, 16, seed=11))
+    D = D if with_d else None
+    y, ckpt = ssf.scan_fwd(u, delta, A, B, C, D)
+    y_ref, ckpt_ref = ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)
+    assert torch.equal(y, y_ref) and torch.equal(ckpt, ckpt_ref)
+    grads = ssf.scan_bwd(u, delta, A, B, C, dy, ckpt)
+    for got, want in zip(grads, ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)):
+        assert torch.equal(got, want)
+    leaves = [t.clone().requires_grad_() for t in (u, delta)]
+    torch.library.opcheck(ssf.scan_fwd, (*leaves, A, B, C, None if D is None else D.clone().requires_grad_()))
+    torch.library.opcheck(ssf.scan_bwd, (u, delta, A, B, C, dy, ckpt))

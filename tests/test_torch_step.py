@@ -184,10 +184,7 @@ def test_activation_checkpointing_plan_takes_a_step(jax_f32_run, policy):
 @pytest.mark.parametrize(
     "kw,item",
     [
-        (dict(bf16=True, master_weights="device"), "Queue 1 item 5"),
-        (dict(bf16=True, master_weights=True), "Queue 1 item 5"),
         (dict(sharding="zero_2"), "Queue 1 items 7"),
-        (dict(bf16=True, master_weights="sr", grad_accum_dtype="f32"), "Queue 1 item 5"),
         (dict(mesh=MeshConfig(1, 4)), "Queue 1 item 7"),
     ],
 )
