@@ -144,10 +144,33 @@ Phases, one line (or a few) each; any failure exits non-zero:
     worker a candidate), split and fused step and training days, every
     worker's op, outcome and time printed; the same sweep again, which
     must start no worker and take under 5 s; the results table; the
-    phase's wall time, then the run's.
+    phase's wall time. The counts also take vilt-pretrain (120 forwards and
+    120 backwards: three trunk passes), roberta (24 + 24) and
+    convnext-large-1k (no kernel).
+22. ViLT slice: the narrow ViLT of ``tests/test_torch_vilt.py`` (2 trunk
+    layers, 2 heads of 88 zero-padded to 128, f32, MLM + ITM + WPA, ragged
+    ITM text masks) on the card: loss and every grad with the kernels under
+    the fused and the split backward against the plain f32 attention.
+23. ViLT main paths: the forward and fused backward against their plain
+    versions and timed at vilt-pretrain's [4, 16, 769, 88] f32 shape; then
+    vilt-pretrain at full width and depth (CLIP-g/14 trunk, 40 blocks,
+    1,464,333,826 parameters) in the f32 layout, micro-batch 4 x
+    accumulation 2, under the A/B schedule: 120 forwards and 120 backwards
+    a micro-batch (three trunk passes); then 2 steps of
+    vilt-original-pretrain (ViLT-B/32, micro-batch 32 x accumulation 2).
+24. RoBERTa: the kernels at its [32, 16, 512, 64] bf16 shape; a 2-layer
+    bf16 slice against the plain attention under both backwards; the main
+    path (RoBERTa-large, dropout on, bf16 compute over f32 params,
+    micro-batch 32 x accumulation 2, A/B schedule: 24 + 24 a micro-batch);
+    then without remat and under "flash", 2 split steps each: equal losses
+    and the dropout generator in the same state after the steps.
+25. ConvNeXt main path: convnext-large-1k at full width and depth in the
+    f32 layout, micro-batch 64 x accumulation 2, 1 warmup + 3 timed steps,
+    no kernel launched. Then the run's wall time.
 
 Every main path must send no attention call to the xla branch
-(``attention.XLA_BRANCH_CALLS`` stays 0). Main paths 5, 11 and 14 run in
+(``attention.XLA_BRANCH_CALLS`` stays 0). Main paths 5, 11, 14, 23
+(vilt-pretrain) and 24 (roberta) run in
 one session each 1 warmup step under each
 backward (``fa.PREFER_FUSED_BWD``), then 3 timed steps under each,
 interleaved fused, split, split, fused, fused, split; the median of each is
@@ -171,6 +194,11 @@ time of the PyTorch call that computes the same function (``sdpa_ms``, the
 yardstick, which the port never calls), or null where there is none. The
 split kernels' ``library_ms`` is PyTorch's backward, which computes what the
 pair computes together, and their ``pair_ms`` the pair's own time beside it.
+The entries ``flash_fwd_vilt``, ``flash_bwd_fused_vilt``,
+``flash_fwd_roberta`` and ``flash_bwd_fused_roberta`` are the same two
+kernels at vilt-pretrain's and RoBERTa-large's shapes, their ``launches``
+those of the main paths at that shape (counted in ``flash_fwd`` and
+``flash_bwd_fused`` too).
 """
 
 import json
@@ -785,6 +813,10 @@ def phase_slice() -> None:
 def _depth(module) -> str:
     if hasattr(module, "layers"):
         return f"{len(module.layers)} layers"
+    if hasattr(module, "vilt"):
+        return f"{len(module.vilt.layers)} trunk layers, tasks {'+'.join(module.target_tasks)}"
+    if hasattr(module, "depths"):
+        return f"stages of {list(module.depths)} blocks"
     return f"{len(module.vision_tower.layers)} tower + {len(module.language_model.layers)} decoder layers"
 
 
@@ -1352,34 +1384,27 @@ def phase_split_kernels(pythia: dict, decoder: dict) -> list[dict]:
     return entries("", errs, pythia) + entries("_varlen", errs_varlen, llava)
 
 
-def phase_vit_slice() -> None:
-    """Two-layer narrow ViT in f32 (hidden 128, 2 heads of 64, ffn 256) at
-    224 px (197 tokens), 100 classes, 4 images, dropout off: loss and every
-    grad with the kernels, under the fused and under the split backward,
-    against the plain f32 attention ("naive") on the same weights and
-    batch, TF32 off. The kernels round q, k, v, p and ds to bf16 where the
-    plain attention keeps f32, hence the bf16-level tolerances."""
-    from multimodal_llm_pretraining_tpu_torch.models.layers import cross_entropy_loss
-    from multimodal_llm_pretraining_tpu_torch.models.vit import ViTClassifier
-
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    rng = np.random.default_rng(0)
-    pixels = torch.from_numpy(rng.random((4, 224, 224, 3), dtype=np.float32)).to("cuda")
-    labels = torch.from_numpy(rng.integers(0, 100, 4)).to("cuda")
+def _slice_pair(tag: str, build, run, want: dict, tol_split: float = TOL_NORM_REL) -> None:
+    """``build(impl)`` a narrow model on the card from one seed; ``run(model)``
+    its loss. Loss and every grad with the kernels under the fused and
+    under the split backward against the plain f32 attention ("naive") on
+    the same weights, and the split grads against the fused ones within
+    ``tol_split``; the launch counters must read ``want[fused]`` for the
+    kernels and nothing for "naive"."""
     results = {}
     try:
         for impl, fused in (("flash", True), ("flash", False), ("naive", True)):
             fa.PREFER_FUSED_BWD = fused
-            model = ViTClassifier(100, 224, hidden=128, num_layers=2, num_heads=2, ffn=256, attn_impl=impl).to("cuda")
-            model.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+            model = build(impl)
             fa.reset_launch_counts()
-            loss = cross_entropy_loss(model(pixels), labels)
+            loss = run(model)
             loss.backward()
-            launches = tuple(getattr(fa, n) for n in FLASH_COUNTERS)
-            want = (0,) * 8 if impl == "naive" else (2, 2, 0, 0, 0, 0, 0, 0) if fused else (2, 0, 2, 2, 0, 0, 0, 0)
-            if launches != want:
-                raise AssertionError(f"vit slice {impl} fused={fused}: launches {dict(zip(FLASH_COUNTERS, launches))}")
-            results[impl, fused] = (loss.item(), {n: p.grad.float() for n, p in model.named_parameters()})
+            launches = {n: getattr(fa, n) for n in FLASH_COUNTERS if getattr(fa, n)}
+            expected = {} if impl == "naive" else want[fused]
+            if launches != expected:
+                raise AssertionError(f"{tag} {impl} fused={fused}: launches {launches}, expected {expected}")
+            results[impl, fused] = (loss.item(), {n: p.grad.float() for n, p in model.named_parameters()
+                                                  if p.grad is not None})
     finally:
         fa.PREFER_FUSED_BWD = True
     loss_n, g_n = results["naive", True]
@@ -1387,17 +1412,42 @@ def phase_vit_slice() -> None:
         loss_k, g_k = results["flash", fused]
         worst_name = max(g_n, key=lambda n: _errs(g_k[n], g_n[n])[1])
         worst = _errs(g_k[worst_name], g_n[worst_name])[1]
-        say(f"[vit slice] 2-layer f32 {'fused' if fused else 'split'} backward: loss kernels {loss_k:.6f} vs plain "
-            f"{loss_n:.6f}; {len(g_n)} grads, worst norm_rel {worst:.3e} ({worst_name})")
+        say(f"{tag} {'fused' if fused else 'split'} backward: loss kernels {loss_k:.6f} vs plain {loss_n:.6f}; "
+            f"{len(g_n)} grads, worst norm_rel {worst:.3e} ({worst_name}); launches {want[fused]}")
         if not abs(loss_k - loss_n) <= TOL_SLICE_LOSS:
-            raise AssertionError(f"vit slice loss differs by {abs(loss_k - loss_n):.3e} > {TOL_SLICE_LOSS}")
+            raise AssertionError(f"{tag} loss differs by {abs(loss_k - loss_n):.3e} > {TOL_SLICE_LOSS}")
         if not worst <= TOL_SLICE_GRAD_NORM_REL:
-            raise AssertionError(f"vit slice grads differ: norm_rel {worst:.3e} > {TOL_SLICE_GRAD_NORM_REL}")
+            raise AssertionError(f"{tag} grads differ: norm_rel {worst:.3e} > {TOL_SLICE_GRAD_NORM_REL}")
     (_, g_f), (_, g_s) = results["flash", True], results["flash", False]
     worst = max(_errs(g_s[n], g_f[n])[1] for n in g_f)
-    say(f"[vit slice] split vs fused backward: worst grad norm_rel {worst:.3e}")
-    if not worst <= TOL_NORM_REL:
-        raise AssertionError(f"vit slice: split and fused grads differ by {worst:.3e} > {TOL_NORM_REL}")
+    say(f"{tag} split vs fused backward: worst grad norm_rel {worst:.3e}")
+    if not worst <= tol_split:
+        raise AssertionError(f"{tag}: split and fused grads differ by {worst:.3e} > {tol_split}")
+
+
+def phase_vit_slice() -> None:
+    """Two-layer narrow ViT in f32 (hidden 128, 2 heads of 64, ffn 256) at
+    224 px (197 tokens), 100 classes, 4 images, dropout off: loss and every
+    grad with the kernels, under the fused and under the split backward,
+    against the plain f32 attention ("naive") on the same weights and
+    batch, TF32 off (``_slice_pair``). The kernels round q, k, v, p and ds
+    to bf16 where the plain attention keeps f32, hence the bf16-level
+    tolerances."""
+    from multimodal_llm_pretraining_tpu_torch.models.layers import cross_entropy_loss
+    from multimodal_llm_pretraining_tpu_torch.models.vit import ViTClassifier
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    rng = np.random.default_rng(0)
+    pixels = torch.from_numpy(rng.random((4, 224, 224, 3), dtype=np.float32)).to("cuda")
+    labels = torch.from_numpy(rng.integers(0, 100, 4)).to("cuda")
+
+    def build(impl):
+        model = ViTClassifier(100, 224, hidden=128, num_layers=2, num_heads=2, ffn=256, attn_impl=impl).to("cuda")
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+        return model
+
+    want = {True: {"FWD_LAUNCHES": 2, "BWD_LAUNCHES": 2}, False: {"FWD_LAUNCHES": 2, "DQ_LAUNCHES": 2, "DKV_LAUNCHES": 2}}
+    _slice_pair("[vit slice] 2-layer f32", build, lambda m: cross_entropy_loss(m(pixels), labels), want)
 
 
 def phase_vit_main_path() -> dict:
@@ -1692,6 +1742,9 @@ COUNT_LAUNCHES = {
     "mamba": {"scan fwd": 64, "scan bwd": 64},
     "llava-pretrain": {"FWD_LAUNCHES": 23, "VARLEN_FWD_LAUNCHES": 16, "VARLEN_BWD_LAUNCHES": 16},
     "vit": {"FWD_LAUNCHES": 24, "BWD_LAUNCHES": 24},
+    "vilt-pretrain": {"FWD_LAUNCHES": 120, "BWD_LAUNCHES": 120},  # 3 trunk passes of 40 blocks
+    "roberta": {"FWD_LAUNCHES": 24, "BWD_LAUNCHES": 24},
+    "convnext-large-1k": {},  # no attention, no scan
 }
 CACHED_SWEEP_LIMIT_S = 5.0
 PARENT_RESERVED_LIMIT = 2**30
@@ -1747,7 +1800,7 @@ def _bf16_master_session(card: str, bf16_sr_run: dict) -> dict:
 
 def _counts_and_analytic_days() -> dict:
     """``CountFlopsExperiment`` and ``TrainingTimeAnalytic`` (free lunch,
-    ``assumed_mfu`` 1.0) for four models on the card, each count one
+    ``assumed_mfu`` 1.0) for the models of ``COUNT_LAUNCHES`` on the card, each count one
     example's forward and backward under ``FlopCounterMode`` through the
     flash (plain and varlen) and scan kernels, whose launches are counted.
     mamba's scan share is its scan ops' formulas over its counted total."""
@@ -1895,6 +1948,234 @@ def _search(card: str) -> tuple[list[dict], int]:
         tte.run_probe_worker = max_batch_size.run_probe_worker
 
 
+# ---------------------------------------------------------------- the last families: ViLT, RoBERTa, ConvNeXt
+
+# the narrow ViLT of tests/test_torch_vilt.py: 2 trunk layers, 2 heads of 88 (the CLIP-g trunk's head dim)
+VILT_SLICE = dict(hidden=176, num_layers=2, num_heads=2, intermediate=256, patch=14, image_size=28, vocab_size=512,
+                  token_embed_dim=64)
+VILT_SLICE_TEXT = 16
+# vilt-pretrain at the main path's mbs 4: 16 heads of 88, 512 text + 256 patches + CLS = 769 positions, f32
+VILT_SHAPE = (4, 16, 769, 88)
+VILT_POSITIONS = 769
+VILT_ORIGINAL_POSITIONS = 512 + 49 + 1
+# vilt-pretrain's first loss, the sum of its three terms. MLM: mlm_ln1 gives
+# each text row unit variance (square norm 1408) and the decoder's
+# lecun-normal entries have variance 1/1408, so the 128,256 logits are about
+# N(0, 1) and the loss about ln 128256 + 1/2 = 12.26. ITM: the pooler's
+# tanh of an N(0, 1) pre-activation has E[tanh^2] about 0.39, so the two
+# logits differ by about N(0, 0.79) and the loss is about ln 2 + 0.79 / 8 =
+# 0.79, spread over the 8 random labels. WPA: 0.1 x (matched - mismatched
+# OT distances) / B, each distance a cosine distance near 1: within 0.1 of
+# 0. About 13.05; the band is 0.5 below and 0.7 above (ITM's spread)
+VILT_LOSS_BAND = (12.55, 13.75)
+VILT_ORIGINAL_LOSS_BAND = (11.12, 12.32)  # the same with ln 30522 + 1/2 = 10.83 for MLM: about 11.62
+# RoBERTa-large at the main path's mbs 32: 16 heads of 64, 512 positions, bf16
+ROBERTA_SHAPE = (32, 16, 512, 64)
+# RoBERTa's first loss: mlm_ln gives unit rows (square norm 1024) and the
+# tied decoder's rows are N(0, 0.02^2), so each logit is about N(0, 0.41):
+# ln 50265 + 0.41 / 2 = 10.83 + 0.20 = 11.03; 0.5 either side
+ROBERTA_LOSS_BAND = (10.53, 11.53)
+ROBERTA_SLICE = dict(hidden=256, num_layers=2, num_heads=4, ffn=512, vocab_size=1024)  # head_dim 64
+# ConvNeXt's first loss: the head LayerNorm gives unit rows (square norm
+# 1536) and the classifier's lecun-normal kernel variance 1/1536, so the
+# 1,000 logits are about N(0, 1): ln 1000 + 1/2 = 7.41; the mean of the 128
+# labels' logits has a standard deviation of 1/11; 0.3 either side
+CONVNEXT_LOSS_BAND = (7.11, 7.71)
+
+
+def phase_vilt_slice() -> None:
+    """The narrow ViLT of the CPU tests (2 trunk layers, 2 heads of 88
+    zero-padded to 128, ffn 256, 512-token vocab, 16 text tokens, 28-px
+    images at patch 14) in f32 with all three tasks on the card, TF32 off,
+    the ITM text of two rows right-padded (WPA's ragged masks): loss and
+    every grad with the kernels, under the fused and the split backward,
+    against the plain f32 attention on the same weights. Three trunk passes
+    of 2 blocks: 6 forwards and 6 backwards (or 6 dq + 6 dk/dv)."""
+    from multimodal_llm_pretraining_tpu_torch.benchmarking.data import DummyMultimodalLanguageModelingForViltDataset
+    from multimodal_llm_pretraining_tpu_torch.models.vilt import ViltForPretrain
+
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    host = DummyMultimodalLanguageModelingForViltDataset(512, VILT_SLICE_TEXT, 28, mask_token=511).sample_batch(4, 0)
+    host["itm_attention_mask"][1, 9:] = 0
+    host["itm_attention_mask"][2, 4:] = 0
+    batch = {k: torch.from_numpy(v).to("cuda", torch.float32 if v.dtype == np.float32 else torch.long)
+             for k, v in host.items()}
+
+    def build(impl):
+        model = ViltForPretrain(attn_impl=impl, **VILT_SLICE).to("cuda")
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+        return model
+
+    want = {True: {"FWD_LAUNCHES": 6, "BWD_LAUNCHES": 6}, False: {"FWD_LAUNCHES": 6, "DQ_LAUNCHES": 6, "DKV_LAUNCHES": 6}}
+    _slice_pair("[vilt slice] 2-layer f32, head_dim 88, mlm+itm+wpa", build, lambda m: m(batch)[0], want)
+
+
+def kernel_entries_at(shape, causal: bool, dtype, seed: int, suffix: str) -> list[dict]:
+    """The forward and the fused backward against their plain versions at a
+    main path's shape (``check_kernels_at``), then CUDA-event times of both
+    and of their plain versions, PyTorch's call (the flash backend for
+    bf16; for f32 the backend PyTorch picks) and the bounds (from the
+    caller's head dim: the padding is the kernels' cost, not the
+    function's): the kernels JSON line's entries ``flash_fwd{suffix}`` and
+    ``flash_bwd_fused{suffix}``."""
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    errs = check_kernels_at(shape, causal, seed=seed, dtype=dtype)
+    q, k, v, do = _inputs(shape, seed + 1, dtype)
+    scale = shape[-1] ** -0.5
+    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale)
+    t = {
+        "fwd": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal, scale)),
+        "fwd_plain": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, causal, scale)),
+        "bwd": cuda_ms(lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)),
+        "bwd_plain": cuda_ms(lambda: fa.flash_bwd_reference(q, k, v, out, lse, do, causal, scale)),
+    }
+    what = f"{str(dtype).split('.')[-1]} {'causal' if causal else 'non-causal'}"
+    say(f"[kernels] ms a call at {list(shape)} {what}: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
+    lib = sdpa_ms(q, k, v, do, causal, flash_only=dtype == torch.bfloat16)
+    bounds = attention_bounds(q, k, v, do, causal)
+    say_yardstick(shape, what, lib, bounds)
+    say_forward(shape, what, t["fwd"], cuda_ms_alone(lambda: fa.flash_fwd_cuda(q, k, v, causal, scale)),
+                fwd_flops(q, k, causal), bounds["fwd"], lib)
+    say_backward(shape, what, t["bwd"], bwd_flops(q, k, causal), bounds["bwd"], lib)
+    return [
+        {"name": f"flash_fwd{suffix}", "route": "cuda", "source": FWD_SOURCE, "replaces": f"{JAX_FLASH}:91",
+         "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
+         **bounds["fwd"], "library_ms": lib["fwd"]},
+        {"name": f"flash_bwd_fused{suffix}", "route": "cuda", "source": BWD_SOURCE, "replaces": f"{JAX_FLASH}:208",
+         "launches": None, "max_abs_err": max(errs[n][0] for n in ("dq", "dk", "dv")), "ms": t["bwd"],
+         "plain_ms": t["bwd_plain"], **bounds["bwd"], "library_ms": lib["bwd"]},
+    ]
+
+
+def phase_vilt_main_paths() -> tuple[dict, dict, list[dict]]:
+    """The kernels at vilt-pretrain's shape ([4, 16, 769, 88] f32, plain
+    mode, non-causal; ``kernel_entries_at``). Then vilt-pretrain at full
+    width and depth (CLIP-g/14 trunk: 40 blocks, hidden 1408, 16 heads of
+    88, ffn 6144; vocab 128,256) in the f32 layout (TF32 products), no
+    remat, micro-batch 4 x accumulation 2 (the recipe's batch of 128 cut
+    for one card), under the fused/split A/B schedule: three trunk passes
+    a micro-batch, so 120 forwards and 120 fused backwards (or 120 dq + 120
+    dk/dv). Then 2 steps of vilt-original-pretrain (ViLT-B/32: 12 blocks of
+    12 heads of 64, 562 positions), micro-batch 32 x accumulation 2: 36 +
+    36 a micro-batch. Returns the launches of all main-path runs, those at
+    vilt-pretrain's shape, and the kernels line's entries at it."""
+    entries = kernel_entries_at(VILT_SHAPE, False, torch.float32, 80, "_vilt")
+    run = drive_training("vilt-pretrain", mbs=VILT_SHAPE[0], acc=2, remat=False, counters=fa,
+                         loss_band=VILT_LOSS_BAND, layout="f32", names=FLASH_COUNTERS,
+                         tokens_per_sample=VILT_POSITIONS, split_ab=True)
+    mod = run["module"]
+    if (mod.vilt.layers[0].attn.head_dim, mod.vilt.image_position_embeddings.shape[1], mod.mlm_decoder.shape) != (
+            VILT_SHAPE[3], 257, (1408, 128256)):
+        raise AssertionError("vilt-pretrain: not the CLIP-g/14 trunk at 224 px with the 128,256-token decoder")
+    passes = 3 * len(mod.vilt.layers)
+    expected = flash_launches_expected(FLASH_COUNTERS, passes, 0, run["micro_batches"])
+    if run["launches"] != expected:
+        raise AssertionError(f"vilt-pretrain flash launches {run['launches']}, expected {expected}")
+    say(f"[vilt] vilt-pretrain: {passes} forwards and {passes} backwards a micro-batch (3 trunk passes of "
+        f"{len(mod.vilt.layers)} blocks), every attention call on the kernels")
+    at_shape = flash_launch_entries(run["launches"])
+    del run, mod
+    launches = dict(at_shape)
+    original = drive_training("vilt-original-pretrain", mbs=32, acc=2, remat=False, counters=fa,
+                              loss_band=VILT_ORIGINAL_LOSS_BAND, layout="f32", names=FLASH_COUNTERS,
+                              tokens_per_sample=VILT_ORIGINAL_POSITIONS, steps=2)
+    layers = len(original["module"].vilt.layers)
+    expected = flash_launches_expected(FLASH_COUNTERS, 3 * layers, 0, original["micro_batches"])
+    if original["launches"] != expected:
+        raise AssertionError(f"vilt-original-pretrain flash launches {original['launches']}, expected {expected}")
+    for name, n in flash_launch_entries(original["launches"]).items():
+        launches[name] += n
+    return launches, at_shape, entries
+
+
+def phase_roberta(card: str) -> tuple[dict, dict, list[dict]]:
+    """RoBERTa-large: the kernels at its shape ([32, 16, 512, 64] bf16,
+    plain mode, non-causal; ``kernel_entries_at``); a narrow 2-layer slice
+    in bf16 (hidden 256, 4 heads of 64, dropout off) with the kernels under
+    both backwards against the plain f32 attention; then the main path at
+    full width and depth (24 post-LN blocks, vocab 50,265, dropout on) in
+    the recipe's layout ("fp16" as bf16 compute over f32 params and
+    moments), micro-batch 32 x accumulation 2 (the recipe's batch of 8192
+    cut for one card), under the A/B schedule: 24 forwards and 24 backwards
+    a micro-batch; then the same without remat and under "flash", 2 split
+    steps each: equal losses and the dropout generator in the same state
+    after the steps (the recompute replays the masks). Returns the launches
+    of all these runs, those at the shape (the same runs) and the kernels
+    line's entries."""
+    from multimodal_llm_pretraining_tpu_torch.models.roberta import RobertaMLM
+
+    entries = kernel_entries_at(ROBERTA_SHAPE, False, torch.bfloat16, 90, "_roberta")
+    rng = np.random.default_rng(0)
+    ids = torch.from_numpy(rng.integers(0, 1024, (4, 128))).to("cuda")
+    labels = torch.where(torch.from_numpy(rng.random((4, 128)) < 0.15).to("cuda"), ids, -100)
+
+    def build(impl):
+        model = RobertaMLM(**ROBERTA_SLICE, attn_impl=impl, dtype=torch.bfloat16).to("cuda")
+        model.reset_parameters(torch.Generator(device="cuda").manual_seed(0))
+        return model
+
+    want = {True: {"FWD_LAUNCHES": 2, "BWD_LAUNCHES": 2}, False: {"FWD_LAUNCHES": 2, "DQ_LAUNCHES": 2, "DKV_LAUNCHES": 2}}
+    # bf16 compute rounds every activation downstream of the two backwards' dq
+    # (f32 atomics against one sum), so split and fused are held to the slice tolerance
+    _slice_pair("[roberta slice] 2-layer bf16, head_dim 64", build, lambda m: m(ids, labels=labels), want,
+                tol_split=TOL_SLICE_GRAD_NORM_REL)
+
+    run = drive_training("roberta", mbs=ROBERTA_SHAPE[0], acc=2, remat=False, counters=fa,
+                         loss_band=ROBERTA_LOSS_BAND, layout="bf16", names=FLASH_COUNTERS, split_ab=True)
+    mod = run["module"]
+    if (len(mod.layers), mod.word_embeddings.shape, mod.layers[0].attn.head_dim) != (24, (50265, 1024), 64):
+        raise AssertionError("roberta: not RoBERTa-large")
+    expected = flash_launches_expected(FLASH_COUNTERS, len(mod.layers), 0, run["micro_batches"])
+    if run["launches"] != expected:
+        raise AssertionError(f"roberta flash launches {run['launches']}, expected {expected}")
+    launches = flash_launch_entries(run["launches"])
+    del run, mod
+    plain, remat = _remat_pair("roberta", mbs=ROBERTA_SHAPE[0], acc=2, loss_band=ROBERTA_LOSS_BAND, layout="bf16")
+    if not torch.equal(remat["dropout_state"], plain["dropout_state"]):
+        raise AssertionError("roberta remat: the dropout generator's state differs from the run without remat")
+    expected = flash_launches_expected(FLASH_COUNTERS, len(remat["module"].layers), 0, remat["micro_batches"])
+    if remat["launches"] != expected:
+        raise AssertionError(f"roberta remat flash launches {remat['launches']}, expected {expected}")
+    say(f"[remat] roberta: dropout generator state after the steps equal to the run without remat; peak "
+        f"{remat['peak'] / 2**30:.2f} GiB under remat, {plain['peak'] / 2**30:.2f} GiB without; {card}")
+    for counts in (plain["launches"], remat["launches"]):
+        for name, n in flash_launch_entries(counts).items():
+            launches[name] += n
+    return launches, entries
+
+
+def phase_convnext_main_path() -> None:
+    """convnext-large-1k at full width and depth (stages of 3/3/27/3 blocks,
+    192 to 1536 channels, 224 px, 1,000 classes) in the f32 layout (TF32
+    products and convolutions), micro-batch 64 x accumulation 2 (the
+    recipe's batch of 4096 cut for one card), 1 warmup + 3 timed steps. No
+    attention and no scan: no kernel of the port runs, and none may."""
+    run = drive_training("convnext-large-1k", mbs=64, acc=2, remat=False, counters=fa,
+                         loss_band=CONVNEXT_LOSS_BAND, layout="f32", names=FLASH_COUNTERS, tokens_per_sample=1)
+    if any(run["launches"].values()):
+        raise AssertionError(f"convnext: flash launches {run['launches']}")
+    mod = run["module"]
+    if (mod.depths, mod.classifier.weight.shape) != ((3, 3, 27, 3), (1000, 1536)):
+        raise AssertionError("convnext: not convnext-large-1k")
+
+
+def families(card: str, add) -> list[dict]:
+    """Phases 22-25; returns the kernels line's entries at ViLT's and
+    RoBERTa's shapes, each with the launches of the main paths at that
+    shape (which the ``flash_fwd`` and ``flash_bwd_fused`` totals include)."""
+    phase_vilt_slice()
+    vilt_launches, vilt_at_shape, entries = phase_vilt_main_paths()
+    add(vilt_launches)
+    roberta_launches, roberta_entries = phase_roberta(card)
+    add(roberta_launches)
+    phase_convnext_main_path()
+    for entry in entries:
+        entry["launches"] = vilt_at_shape[entry["name"].rsplit("_", 1)[0]]
+    for entry in roberta_entries:
+        entry["launches"] = roberta_launches[entry["name"].rsplit("_", 1)[0]]
+    return entries + roberta_entries
+
+
 def main() -> int:
     t_start = time.perf_counter()
     card = phase_env()
@@ -1926,8 +2207,10 @@ def main() -> int:
     add(phase_remat_vit())
     add(phase_remat_llava())
     add(phase_harness(card, bf16_sr_run))
+    shaped = families(card, add)
     for k in kernels:
         k["launches"] = launches[k["name"]]
+    kernels += shaped
     say(f"[total] chip_smoke wall time {time.perf_counter() - t_start:.1f} s")
     say(json.dumps({"kernels": kernels}))
     say(card)

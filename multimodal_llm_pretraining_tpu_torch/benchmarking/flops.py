@@ -3,7 +3,8 @@
 Two counts of one example's forward and backward:
 
 - ``analytic_flops_per_example``: the JAX package's closed forms, copied
-  (dense transformer, LLaVA); Mamba has none (``None``), as in JAX. MFU in
+  (dense transformer for pythia, roberta and vit; LLaVA; ViLT; ConvNeXt);
+  Mamba has none (``None``), as in JAX. MFU in
   ``bench.py`` divides these by the step time.
 - ``count_flops_per_example``: ``torch.utils.flop_counter.FlopCounterMode``
   over one micro-batch of 1 through the session's accumulate step (the
@@ -71,6 +72,25 @@ def transformer_flops_per_token(
     return total
 
 
+def convnext_flops_per_example(
+    depths: tuple, dims: tuple, num_classes: int, image_size: int = 224, backward: bool = True
+) -> float:
+    """ConvNeXt fwd(+bwd) FLOPs per image: the 4x4/s4 stem conv, stages of
+    (7x7 depthwise + 1x1 C->4C + 1x1 4C->C) blocks with 2x2/s2 downsample
+    convs between stages, the linear classifier. 2 FLOPs per MAC; backward
+    = 2x forward (every parameter trains)."""
+    res = image_size // 4
+    total = 2.0 * (4 * 4 * 3) * dims[0] * res * res  # stem
+    for i, (depth, c) in enumerate(zip(depths, dims)):
+        if i > 0:
+            res //= 2
+            total += 2.0 * (2 * 2 * dims[i - 1]) * c * res * res  # downsample
+        # per block: depthwise 49*C + pointwise C->4C and 4C->C (8*C^2)
+        total += depth * 2.0 * res * res * c * (49 + 8 * c)
+    total += 2.0 * dims[-1] * num_classes
+    return total * (3.0 if backward else 1.0)
+
+
 def _llama_stack_flops(seq: int, layers: int, hidden: int, ffn: int, kv_frac: float) -> float:
     """Forward FLOPs of a Llama-style stack (GQA + swiglu) over ``seq``
     tokens, no head: qkvo (4 + 4*kv_frac)H^2, ffn 6*H*F, attention 4*S*H
@@ -106,9 +126,23 @@ def llava_flops_per_example(finetune: bool, text_len: int = 512) -> float:
     return tower_fwd + 3.0 * projector_fwd + lm_mult * lm_fwd
 
 
+def vilt_flops_per_example(hidden: int, layers: int, ffn: int, patch: int, vocab: int, text_len: int = 512,
+                           image_size: int = 224) -> float:
+    """ViLT fwd+bwd FLOPs per benchmark example (3 trunk passes a step: MLM,
+    ITM, WPA): each pass runs the whole trunk over [text; class + patches]
+    forward and backward (3x forward, every parameter trains); the MLM
+    vocabulary head runs in the MLM pass only. The text and patch
+    embeddings and the IPOT loop (50 iterations of [T x P] elementwise and
+    matrix-vector work) are under 1% and left out."""
+    s = text_len + (image_size // patch) ** 2 + 1
+    trunk_fwd = s * transformer_flops_per_token(layers, hidden, s, vocab=0, ffn_mult=ffn / hidden, backward=False)
+    mlm_head_fwd = 2.0 * hidden * vocab * text_len
+    return 3.0 * (3.0 * trunk_fwd) + 3.0 * mlm_head_fwd
+
+
 def analytic_flops_per_example(model_class: BaseModelClass, backward: bool = True, remat: bool = False) -> float | None:
     """Closed-form fwd(+bwd) FLOPs for one example of the model's benchmark
-    workload, for the ported families that have one (all but Mamba)."""
+    workload, for the families that have one (all but Mamba)."""
     mt = model_class.model_type
     if mt.startswith("pythia"):
         from ..models.pythia import PYTHIA_SIZES
@@ -116,12 +150,26 @@ def analytic_flops_per_example(model_class: BaseModelClass, backward: bool = Tru
         L, H, _ = PYTHIA_SIZES[mt]
         S = model_class.sequence_length  # type: ignore[attr-defined]
         return S * transformer_flops_per_token(L, H, S, vocab=model_class.vocab_size, backward=backward, remat=remat)  # type: ignore[attr-defined]
+    if mt == "roberta":
+        S = model_class.sequence_length  # type: ignore[attr-defined]
+        return S * transformer_flops_per_token(24, 1024, S, vocab=model_class.vocab_size, backward=backward, remat=remat)  # type: ignore[attr-defined]
     if mt == "vit":
         # 224/16 -> 196 patches + cls
         S = 197
         return S * transformer_flops_per_token(24, 1024, S, vocab=21841, backward=backward, remat=remat)
+    if mt.startswith("convnext"):
+        from ..models.convnext import CONFIGS
+
+        cfg = CONFIGS[mt]
+        return convnext_flops_per_example(cfg["depths"], cfg["dims"], cfg["num_classes"], backward=backward)
     if mt.startswith("llava") and backward:
         return llava_flops_per_example(finetune=(mt == "llava-finetune"))
+    if mt.startswith("vilt") and backward:
+        if mt.startswith("vilt-original"):
+            from ..models.vilt_original import _ORIGINAL_KWARGS as k
+
+            return vilt_flops_per_example(k["hidden"], k["num_layers"], k["intermediate"], k["patch"], k["vocab_size"])
+        return vilt_flops_per_example(1408, 40, 6144, 14, 128256)
     return None
 
 

@@ -1,9 +1,10 @@
 """Model zoo contract (counterpart of ``models/__init__.py:81-220,275``).
 
-Same model-type literals and per-model recipe properties as the JAX package;
-``build_model`` returns a :class:`ModelBundle` holding a ``torch.nn.Module``
-and its loss function. The Pythia, Mamba, LLaVA and ViT families are ported
-so far.
+Same model-type literals, in the same order, and per-model recipe
+properties as the JAX package; ``build_model`` returns a :class:`ModelBundle`
+holding a ``torch.nn.Module`` and its loss function. Every family of the
+JAX package is ported: RoBERTa, Pythia, Mamba, ConvNeXt, ViT, LLaVA and
+ViLT (the CLIP-g trunk and the original B/32 one).
 """
 
 import enum
@@ -17,8 +18,11 @@ from ..benchmarking.data import (
     DummyDataset,
     DummyImageClassificationDataset,
     DummyMultimodalLanguageModelingDataset,
+    DummyMultimodalLanguageModelingForViltDataset,
     DummyTextModelingDataset,
 )
+
+RobertaT = Literal["roberta"]
 
 PythiaT = Literal[
     "pythia-14m",
@@ -35,15 +39,20 @@ PythiaT = Literal[
 
 MambaT = Literal["mamba"]
 
-LlavaT = Literal["llava-pretrain", "llava-finetune"]
+ConvNextT = Literal["convnext-large-1k", "convnext-large-22k", "convnext-xlarge-22k"]
 
 ViTT = Literal["vit"]
 
+LlavaT = Literal["llava-pretrain", "llava-finetune"]
+
+ViltT = Literal["vilt-pretrain", "vilt-finetune", "vilt-original-pretrain", "vilt-original-finetune"]
+
 ModelT = str
 
-# the model types the port builds (the JAX package's MODEL_TYPES, less the
-# families ``_NOT_PORTED`` names)
-MODEL_TYPES: tuple[str, ...] = (*get_args(PythiaT), *get_args(MambaT), *get_args(LlavaT), *get_args(ViTT))
+# the JAX package's MODEL_TYPES, in its order
+MODEL_TYPES: tuple[str, ...] = tuple(
+    t for family in (RobertaT, PythiaT, MambaT, ConvNextT, ViTT, LlavaT, ViltT) for t in get_args(family)
+)
 
 
 class SchedulerType(str, enum.Enum):
@@ -64,7 +73,7 @@ class ModelBundle:
     ``module`` holds the parameters (uninitialised until the session's
     ``init_state`` fills them from a generator or a converted state dict).
     ``loss_fn(module, batch, generator=None)`` returns ``(scalar_loss,
-    metrics_dict)``; a model with dropout (ViT) draws its masks from
+    metrics_dict)``; a model with dropout (ViT, RoBERTa) draws its masks from
     ``generator`` and is deterministic without one, the others ignore it.
     ``init_fn(module, generator)`` draws fresh parameters in place.
     ``trainable_mask`` maps each of the module's parameter names to whether
@@ -214,6 +223,15 @@ class MultimodalModelClass(Generic[T], BaseModelClass[T]):
     def load_dummy_dataset(self, sequence_length: int = 512) -> DummyDataset:
         # multimodal models are benchmarked at seq 512 whatever their
         # declared max sequence length, as in the JAX package
+        if self.model_type.startswith("vilt"):
+            return DummyMultimodalLanguageModelingForViltDataset(
+                vocab_size=self.vocab_size,
+                sequence_length=sequence_length,
+                image_size=self.image_size,
+                # the Llama mask token 128255, clamped into the 30522-row
+                # vocab of the original ViLT
+                mask_token=min(128255, self.vocab_size - 1),
+            )
         return DummyMultimodalLanguageModelingDataset(
             vocab_size=self.vocab_size,
             sequence_length=sequence_length,
@@ -222,15 +240,11 @@ class MultimodalModelClass(Generic[T], BaseModelClass[T]):
         )
 
 
-# Families not ported yet, with the ROADMAP item that ports each.
-_NOT_PORTED = {
-    "roberta": "ROADMAP Queue 1 item 9 (roberta)",
-    "convnext": "ROADMAP Queue 1 item 9 (convnext)",
-    "vilt": "ROADMAP Queue 1 item 9 (vilt)",
-}
-
-
 def get_model_class(model_type: ModelT) -> BaseModelClass:
+    if model_type == "roberta":
+        from .roberta import RobertaModelClass
+
+        return RobertaModelClass(model_type)
     if model_type.startswith("pythia"):
         from .pythia import PYTHIA_SIZES, PythiaModelClass
 
@@ -249,23 +263,43 @@ def get_model_class(model_type: ModelT) -> BaseModelClass:
         from .llava import LlavaFinetuneModelClass
 
         return LlavaFinetuneModelClass(model_type)
+    if model_type in get_args(ConvNextT):
+        from .convnext import ConvNextModelClass
+
+        return ConvNextModelClass(model_type)
     if model_type == "vit":
         from .vit import ViTModelClass
 
         return ViTModelClass(model_type)
-    for prefix, item in _NOT_PORTED.items():
-        if model_type.startswith(prefix):
-            raise NotImplementedError(f"{model_type} is not ported to PyTorch yet: {item}")
+    if model_type == "vilt-pretrain":
+        from .vilt import ViltPretrainModelClass
+
+        return ViltPretrainModelClass(model_type)
+    if model_type == "vilt-finetune":
+        from .vilt import ViltFinetuneModelClass
+
+        return ViltFinetuneModelClass(model_type)
+    if model_type == "vilt-original-pretrain":
+        from .vilt_original import ViltOriginalPretrainModelClass
+
+        return ViltOriginalPretrainModelClass(model_type)
+    if model_type == "vilt-original-finetune":
+        from .vilt_original import ViltOriginalFinetuneModelClass
+
+        return ViltOriginalFinetuneModelClass(model_type)
     raise ValueError(f"unknown model type: {model_type}")
 
 
 __all__ = [
     "ModelT",
     "MODEL_TYPES",
+    "RobertaT",
     "PythiaT",
     "MambaT",
-    "LlavaT",
+    "ConvNextT",
     "ViTT",
+    "LlavaT",
+    "ViltT",
     "ModelBundle",
     "SchedulerType",
     "OptimizerT",

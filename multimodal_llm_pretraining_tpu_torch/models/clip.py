@@ -1,10 +1,15 @@
-"""CLIP vision encoder: the LLaVA tower (counterpart of ``models/clip.py:17-96``).
+"""CLIP vision encoder: the LLaVA tower, and the block of the ViLT trunk
+(counterpart of ``models/clip.py:17-96``).
 
 Conv patch embedding as a bias-free Dense over NHWC patches, class token and
 learned positions, pre-LN, then pre-LN transformer blocks with a quick-GELU
 MLP (openai/clip-vit-large-patch14-336 at the defaults: hidden 1024, 24
-layers, 16 heads, intermediate 4096, patch 14, image 336).
+layers, 16 heads, intermediate 4096, patch 14, image 336). ``CLIPBlock``
+takes the activation and the LayerNorm epsilon, as the JAX block does: the
+ViLT trunk passes flax's ``nn.gelu`` (the tanh approximation) and 1e-12.
 """
+
+from typing import Callable
 
 import torch
 from torch import nn
@@ -18,12 +23,12 @@ def quick_gelu(x: torch.Tensor) -> torch.Tensor:
 
 class CLIPBlock(nn.Module):
     def __init__(self, hidden: int, num_heads: int, intermediate: int, attn_impl: str = "flash",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, activation: Callable = quick_gelu, ln_eps: float = 1e-5):
         super().__init__()
-        self.ln_attn = LayerNorm(hidden, dtype=dtype)
+        self.ln_attn = LayerNorm(hidden, eps=ln_eps, dtype=dtype)
         self.attn = SelfAttention(hidden, num_heads, hidden // num_heads, causal=False, attn_impl=attn_impl, dtype=dtype)  # type: ignore[arg-type]
-        self.ln_mlp = LayerNorm(hidden, dtype=dtype)
-        self.mlp = Mlp(hidden, intermediate, activation=quick_gelu, dtype=dtype)
+        self.ln_mlp = LayerNorm(hidden, eps=ln_eps, dtype=dtype)
+        self.mlp = Mlp(hidden, intermediate, activation=activation, dtype=dtype)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x + self.attn(self.ln_attn(x))

@@ -1,6 +1,7 @@
 """JAX param trees -> the port's state dicts: GPTNeoX (``params_from_jax``),
-Mamba (``mamba_params_from_jax``), LLaVA (``llava_params_from_jax``) and ViT
-(``vit_params_from_jax``).
+Mamba (``mamba_params_from_jax``), LLaVA (``llava_params_from_jax``), ViT
+(``vit_params_from_jax``), ViLT (``vilt_params_from_jax``), RoBERTa
+(``roberta_params_from_jax``) and ConvNeXt (``convnext_params_from_jax``).
 
 The JAX model scans its blocks, so every block leaf carries a leading layer
 axis ``L``; the port holds one module per block. Dense kernels are [in, out]
@@ -21,8 +22,16 @@ its path with ``/`` as ``.``. RMSNorm and LayerNorm ``scale`` become
 rules with one stack, ``layers/...``; ``cls_token`` and
 ``position_embeddings`` keep their layout.
 
+ViLT's and RoBERTa's trees follow them too: ViLT's trunk stack is
+``vilt/layers/...``, its ``patch_embed`` is a Dense with a bias (CLIP's has
+none), and ``mlm_decoder`` keeps its JAX [H, V] layout, as ``embed_out``
+does; RoBERTa's decoder is tied to ``word_embeddings`` and has no leaf of
+its own. ConvNeXt's stacks are ``stage_i/...``, split into ``stage_i.j``,
+and a flax ``Conv`` kernel [kh, kw, in / groups, out] becomes PyTorch's
+[out, in / groups, kh, kw].
+
 The functions take numpy arrays (``np.asarray`` of each JAX leaf) and never
-imports JAX. They map any tree of that structure, so they convert a
+import JAX. They map any tree of that structure, so they convert a
 gradient tree as well as a param tree.
 """
 
@@ -77,23 +86,28 @@ def mamba_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
     return out
 
 
+def _is_stack(key: str) -> bool:
+    return key == "layers" or key.startswith("stage_")
+
+
 def _split_leaves(tree: dict, prefix: str, out: dict, layer: int | None = None) -> None:
-    """Every stack ``layers/...`` split per block, Dense kernels transposed,
-    norm scales as weights, every other leaf kept, paths joined by ``.``."""
+    """Every stack (``layers/...``, ConvNeXt's ``stage_i/...``) split per
+    block, Dense kernels transposed and conv kernels permuted, norm scales as
+    weights, every other leaf kept, paths joined by ``.``."""
     for key, val in tree.items():
         if isinstance(val, dict):
-            if key == "layers" and layer is None:
+            if _is_stack(key) and layer is None:
                 first = val
                 while isinstance(first, dict):
                     first = next(iter(first.values()))
                 for i in range(np.asarray(first).shape[0]):
-                    _split_leaves(val, f"{prefix}layers.{i}.", out, i)
+                    _split_leaves(val, f"{prefix}{key}.{i}.", out, i)
             else:
                 _split_leaves(val, f"{prefix}{key}.", out, layer)
             continue
         a = np.asarray(val) if layer is None else np.asarray(val)[layer]
         if key == "kernel":
-            out[prefix + "weight"] = _t(a.T)
+            out[prefix + "weight"] = _t(a.T if a.ndim == 2 else a.transpose(3, 2, 0, 1))
         elif key == "scale":
             out[prefix + "weight"] = _t(a)
         else:
@@ -107,3 +121,6 @@ def llava_params_from_jax(tree: dict) -> dict[str, torch.Tensor]:
 
 
 vit_params_from_jax = llava_params_from_jax
+vilt_params_from_jax = llava_params_from_jax
+roberta_params_from_jax = llava_params_from_jax
+convnext_params_from_jax = llava_params_from_jax

@@ -2,13 +2,16 @@
 
     python -m multimodal_llm_pretraining_tpu_torch.profile_step --model llava-pretrain --mbs 16 --acc 2 --layout bf16
     python -m multimodal_llm_pretraining_tpu_torch.profile_step --model vit --mbs 128 --acc 2 --layout f32
+    python -m multimodal_llm_pretraining_tpu_torch.profile_step --model vilt-pretrain --mbs 4 --acc 2 --layout f32
 
 Builds the session through the user's entry points (``get_model_class`` ->
 ``TrainingPlan`` -> ``build_session``, random weights from the session's
 seed), runs 1 warmup and 3 timed steps, then one step under
 ``torch.profiler``. Prints each step's time and loss, the median timed step,
 the profiled step's wall time, the device's busy time (the union of kernel
-and copy intervals), its idle share, and the device time by kind of kernel.
+and copy intervals), its idle share, and the device time by kind of kernel
+and of the kernels launched inside each host span of ``SPANS`` (ViLT's
+IPOT island).
 ``--table`` gets the profiler's ``key_averages`` table. ``chip_smoke.py``
 builds its main paths with ``make_plan``.
 
@@ -43,6 +46,8 @@ KINDS = (
     ("memcpy/memset, cat", ("memcpy", "memset", "catarray")),
 )
 OTHER = "elementwise and other"
+# host-side ``record_function`` spans whose kernels are also summed apart
+SPANS = ("ipot",)
 
 
 LAYOUTS = ("bf16", "bf16_sr", "bf16_master", "f32")
@@ -88,12 +93,25 @@ def kind_of(name: str) -> str:
     return next((kind for kind, keys in KINDS if any(k in low for k in keys)), OTHER)
 
 
+def span_kernels(trace: list[dict], name: str) -> list[dict]:
+    """The kernels launched inside the host spans ``name``
+    (``record_function``): those whose launch (a runtime event with the
+    same correlation id) starts within one of the spans on its thread."""
+    spans = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in trace
+             if e.get("cat") == "user_annotation" and e.get("name") == name and "dur" in e]
+    inside = {e["args"]["correlation"] for e in trace
+              if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
+              and any(tid == e["tid"] and t0 <= e["ts"] <= t1 for tid, t0, t1 in spans)}
+    return [e for e in trace if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in inside]
+
+
 def device_breakdown(trace_path: str) -> dict:
     """Busy time (union of intervals), kernel count and time by kind from a
-    chrome trace's kernel, memcpy and memset events; times in seconds."""
+    chrome trace's kernel, memcpy and memset events, and the kernel time of
+    each of ``SPANS``; times in seconds."""
     with open(trace_path) as f:
-        events = [e for e in json.load(f)["traceEvents"]
-                  if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
+        trace = json.load(f)["traceEvents"]
+    events = [e for e in trace if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "dur" in e]
     by_kind: dict[str, list] = {}
     for e in events:
         kind = "memcpy/memset, cat" if e["cat"] != "kernel" else kind_of(e["name"])
@@ -105,7 +123,12 @@ def device_breakdown(trace_path: str) -> dict:
         busy += max(0.0, stop - max(start, end))
         end = max(end, stop)
     kernels = sum(1 for e in events if e["cat"] == "kernel")
-    return {"busy_s": busy * 1e-6, "kernels": kernels, "by_kind": by_kind}
+    spans = {}
+    for name in SPANS:
+        inside = span_kernels(trace, name)
+        if inside:
+            spans[name] = (sum(e["dur"] for e in inside) * 1e-6, len(inside))
+    return {"busy_s": busy * 1e-6, "kernels": kernels, "by_kind": by_kind, "spans": spans}
 
 
 def main() -> int:
@@ -154,6 +177,9 @@ def main() -> int:
           f"idle share {1 - b['busy_s'] / wall:.3f}, {b['kernels']} kernels", flush=True)
     for kind, (secs, calls) in sorted(b["by_kind"].items(), key=lambda kv: -kv[1][0]):
         print(f"[profile]   {kind}: {secs:.4f} s, {calls} calls, {secs / total:.3f} of device time", flush=True)
+    for name, (secs, calls) in b["spans"].items():
+        print(f"[profile]   span {name} (its kernels, counted in the kinds above too): {secs:.4f} s, {calls} "
+              f"kernels, {secs / total:.3f} of device time", flush=True)
     if args.table:
         with open(args.table, "w") as f:
             f.write(prof.key_averages().table(sort_by="cuda_time_total", row_limit=60))

@@ -11,9 +11,10 @@ for one package reads the same in the other. Which fields act here:
 - ``activation_checkpointing`` and ``checkpoint_policy``: handed to the
   model's ``build_model``. Pythia runs every block under the plan's policy,
   "flash" (keep the flash-attention outputs, recompute the rest) or "dots"
-  (also keep the products a backward reads); llava's tower and decoder and
-  ViT run theirs under "flash", the JAX default for those stacks; mamba
-  remats each whole block (what "flash" does to a block with no attention).
+  (also keep the products a backward reads); llava's tower and decoder,
+  ViT, ViLT's trunk and RoBERTa run theirs under "flash", the JAX default
+  for those stacks; mamba and ConvNeXt remat each whole block (what
+  "flash" does to a block with no attention).
 - No-ops, kept so plans stay interchangeable: ``compile`` (PyTorch runs
   eagerly; there is no compilation cache to toggle) and ``unroll_layers``
   (the blocks are a Python loop, never a scan).

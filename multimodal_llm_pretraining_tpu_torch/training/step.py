@@ -48,7 +48,7 @@ leaves beside f32 trainable ones, the layout JAX trains llava-pretrain in
 
 Every training micro-batch hands the loss the session's dropout generator,
 as the JAX step hands its loss an ``rng`` (``step.py:400-411, 501``); a
-model with dropout (ViT) draws its masks from it, the others ignore it. The
+model with dropout (ViT, RoBERTa) draws its masks from it, the others ignore it. The
 generator is seeded with ``DROPOUT_SEED``, like the SR generator with
 ``SR_SEED``, and draws on from micro-batch to micro-batch.
 
@@ -238,8 +238,11 @@ class TrainSession:
     def _optimizer_update(self, state: TrainState, acc_steps: float) -> None:
         params = [state.params[n] for n in self.trainable]
         grads = [self.accumulators.get(n, p.grad) for n, p in zip(self.trainable, params)]
-        if any(g is None for g in grads):
-            raise RuntimeError("optimizer update without gradients for every trainable parameter")
+        if all(g is None for g in grads):
+            raise RuntimeError("optimizer update without gradients")
+        # a trainable parameter the loss does not read (vilt-finetune's
+        # pooler) takes the zero gradient JAX's grad gives it
+        grads = [torch.zeros_like(p, dtype=self.grad_dtype) if g is None else g for p, g in zip(params, grads)]
         for g in grads:
             g.div_(acc_steps)
         master = state.opt_state.master

@@ -471,4 +471,4 @@ def test_cli_validates_and_counts(capsys):
     with pytest.raises(ValueError, match="evenly divisible"):
         cli.validate_arguments(1, 3, "h100-sxm", "pythia-1b")
     with pytest.raises(SystemExit):
-        cli.main(["--num-hosts", "1", "--chips-per-host", "1", "--gpu-type", "h100-sxm", "--model", "roberta"])
+        cli.main(["--num-hosts", "1", "--chips-per-host", "1", "--gpu-type", "h100-sxm", "--model", "gpt-5"])

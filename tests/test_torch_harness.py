@@ -89,7 +89,10 @@ def test_is_valid_and_sharding_policy_match_jax(offloading, hosts):
 # ---------------------------------------------------------------- FLOPs
 
 
-@pytest.mark.parametrize("model_type", [*PYTHIA_SIZES, "vit", "llava-pretrain", "llava-finetune", "mamba"])
+@pytest.mark.parametrize("model_type", [*PYTHIA_SIZES, "vit", "llava-pretrain", "llava-finetune", "mamba", "roberta",
+                                        "convnext-large-1k", "convnext-large-22k", "convnext-xlarge-22k",
+                                        "vilt-pretrain", "vilt-finetune", "vilt-original-pretrain",
+                                        "vilt-original-finetune"])
 def test_analytic_flops_match_jax(model_type):
     ours, theirs = get_model_class(model_type), jax_get_model_class(model_type)
     for backward, remat in ((True, False), (True, True), (False, False)):

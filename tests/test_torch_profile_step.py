@@ -83,3 +83,23 @@ def test_main_accepts_vit_and_the_f32_layout(monkeypatch):
     monkeypatch.setattr(sys, "argv", ["profile_step", "--model", "vit", "--mbs", "128", "--acc", "2", "--layout", "f32"])
     with pytest.raises(RuntimeError, match="no CUDA"):
         profile_step.main()
+
+
+def test_device_breakdown_sums_the_ipot_span(tmp_path):
+    """A span's kernels are those whose launch (the runtime event of the
+    same correlation id) starts inside a ``record_function`` span of that
+    name on the launching thread; each is counted in its kind too."""
+    events = [
+        {"cat": "user_annotation", "name": "ipot", "tid": 1, "ts": 100.0, "dur": 50.0},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "tid": 1, "ts": 110.0, "dur": 1.0, "args": {"correlation": 7}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "tid": 1, "ts": 200.0, "dur": 1.0, "args": {"correlation": 8}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "tid": 2, "ts": 120.0, "dur": 1.0, "args": {"correlation": 9}},
+        {"cat": "kernel", "name": "gemm_a", "ts": 300.0, "dur": 4.0, "args": {"correlation": 7}},
+        {"cat": "kernel", "name": "gemm_b", "ts": 310.0, "dur": 6.0, "args": {"correlation": 8}},
+        {"cat": "kernel", "name": "elementwise", "ts": 320.0, "dur": 3.0, "args": {"correlation": 9}},
+    ]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    b = device_breakdown(str(path))
+    assert b["spans"] == {"ipot": (pytest.approx(4e-6), 1)}
+    assert b["by_kind"]["GEMM"] == [pytest.approx(10e-6), 2]

@@ -12,12 +12,13 @@ import numpy as np
 import pytest
 import torch
 
+from multimodal_llm_pretraining_tpu.models import MODEL_TYPES as JAX_MODEL_TYPES
 from multimodal_llm_pretraining_tpu.models import get_model_class as jax_get_model_class
 from multimodal_llm_pretraining_tpu.models import layers as jlayers
 from multimodal_llm_pretraining_tpu.models.pythia import GPTNeoXLM as JaxGPTNeoXLM
 from multimodal_llm_pretraining_tpu.models.pythia import PYTHIA_SIZES as JAX_SIZES
 from multimodal_llm_pretraining_tpu.ops import xent as jxent
-from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+from multimodal_llm_pretraining_tpu_torch.models import MODEL_TYPES, get_model_class
 from multimodal_llm_pretraining_tpu_torch.models import layers as tlayers
 from multimodal_llm_pretraining_tpu_torch.models.from_jax import params_from_jax
 from multimodal_llm_pretraining_tpu_torch.models.pythia import PYTHIA_SIZES, GPTNeoXLM
@@ -116,10 +117,23 @@ def test_recipe_matches_jax(model_type):
     assert t.scheduler_type.value == j.scheduler_type.value
 
 
-@pytest.mark.parametrize("model_type", ["roberta", "convnext-large-1k", "vilt-finetune", "vilt-pretrain"])
-def test_unported_families_raise_with_roadmap_item(model_type):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model_class(model_type)
+RECIPE = ("batch_size", "training_steps", "mixed_precision", "optimizer", "optimizer_kwargs", "scheduler_kwargs",
+          "max_grad_norm", "fsdp_layers_to_wrap", "supports_activation_checkpointing", "supports_compilation",
+          "vocab_size", "sequence_length", "image_size", "num_classes")
+
+
+@pytest.mark.parametrize("model_type", JAX_MODEL_TYPES)
+def test_every_jax_model_type_builds_with_its_recipe(model_type):
+    """The port's registry holds the JAX package's model types in its order,
+    and ``get_model_class`` builds each with the JAX class's recipe: every
+    property the JAX class has, the port's has, equal."""
+    assert MODEL_TYPES == JAX_MODEL_TYPES
+    j, t = jax_get_model_class(model_type), get_model_class(model_type)
+    assert type(t).__name__ == type(j).__name__
+    for attr in RECIPE:
+        if hasattr(j, attr):
+            assert getattr(t, attr) == getattr(j, attr), attr
+    assert t.scheduler_type.value == j.scheduler_type.value
 
 
 def test_init_matches_jax_init_in_distribution():
