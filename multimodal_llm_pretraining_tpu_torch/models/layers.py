@@ -7,7 +7,8 @@ and are cast to the compute dtype where they are used, the way flax's
 operands, and its gradient flows back to the f32 params through the cast.
 
 ``checkpoint_block`` is the remat of the JAX ``make_stack``
-(``:151-190``), with its two policies over the ops the dispatcher sees.
+(``:151-190``), with its two policies over the ops the dispatcher sees;
+``remat`` runs every remat site's ``checkpoint`` and marks its recompute.
 """
 
 import functools
@@ -18,10 +19,11 @@ from typing import Callable
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts
+from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn
 
 from ..ops.attention import AttnImpl, dot_product_attention
 from ..ops.flash_attention import flash_fwd
+from ..tracing import profiling, span
 
 # ------------------------------------------------------------------ rotary
 
@@ -306,6 +308,49 @@ def _replaying(block: nn.Module, generator: torch.Generator) -> Callable:
     return run
 
 
+class _Replay:
+    """The recompute context ``checkpoint`` enters around each recompute of
+    its callable, inside the span ``remat.replay``. The span opens before
+    ``inner`` (a selective policy's dispatch mode), which would otherwise
+    see the span's own op in the recompute and not in the forward, and
+    refuse it."""
+
+    def __init__(self, inner):
+        self.inner = inner
+        self.span = None
+
+    def __enter__(self):
+        self.span = span("remat.replay")
+        self.span.__enter__()
+        return self.inner.__enter__()
+
+    def __exit__(self, *exc):
+        try:
+            return self.inner.__exit__(*exc)
+        finally:
+            self.span.__exit__(None, None, None)
+
+
+def remat(block: Callable, *args, generator: torch.Generator | None = None, context_fn: Callable = noop_context_fn):
+    """``block(*args)`` under non-reentrant ``checkpoint`` with ``context_fn``
+    (default: keep nothing, whole-block remat); ``generator`` is handed to
+    the block as its ``generator`` keyword, and the recompute replays its
+    draws (``_replaying``). While a profiler records, each recompute of the
+    block runs in the span ``remat.replay`` (``tracing.py``); otherwise
+    ``checkpoint`` gets ``block`` and ``context_fn`` as they are. Every
+    remat site of the port goes through here."""
+    kwargs = {} if generator is None else {"generator": generator}
+    fn = block if generator is None else _replaying(block, generator)
+    if profiling():
+        inner_fn = context_fn
+
+        def context_fn():
+            forward, recompute = inner_fn()
+            return forward, _Replay(recompute)
+
+    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)
+
+
 def checkpoint_block(block: nn.Module, *args, policy: str | None, generator: torch.Generator | None = None):
     """``block(*args)`` under the remat ``policy`` of the JAX ``make_stack``
     (``models/layers.py:151-190``); ``None`` runs the block as it is.
@@ -329,5 +374,4 @@ def checkpoint_block(block: nn.Module, *args, policy: str | None, generator: tor
         return block(*args, **kwargs)
     context_fn = functools.partial(create_selective_checkpoint_contexts,
                                    functools.partial(remat_policy_fn, policy == "dots"))
-    fn = block if generator is None else _replaying(block, generator)
-    return checkpoint(fn, *args, use_reentrant=False, context_fn=context_fn, **kwargs)
+    return remat(block, *args, generator=generator, context_fn=context_fn)

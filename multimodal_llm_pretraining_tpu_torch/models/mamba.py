@@ -17,12 +17,11 @@ from typing import Any, Literal
 import torch
 import torch.nn.functional as F
 from torch import nn
-from torch.utils.checkpoint import checkpoint
 
 from ..ops.selective_scan import causal_conv1d, selective_scan
 from ..ops.xent import lm_head_loss, matmul_f32
 from . import LanguageModelClass, MambaT, ModelBundle, SchedulerType
-from .layers import Dense, RMSNorm
+from .layers import Dense, RMSNorm, remat
 from .pythia import _lecun_normal_
 
 D_MODEL = 2560
@@ -80,7 +79,7 @@ class MambaBlock(nn.Module):
 class MambaLM(nn.Module):
     """Embedding [vocab, d_model], ``num_layers`` blocks, the final RMSNorm
     and the tied LM head (``embedding.T``). With ``remat`` each block runs
-    under ``torch.utils.checkpoint``: the JAX stack's default "flash" policy
+    under ``torch.utils.checkpoint`` (``layers.remat``): the JAX stack's default "flash" policy
     saves only flash-attention residuals, and a Mamba block has none, so
     there it is whole-block remat too."""
 
@@ -138,7 +137,7 @@ class MambaLM(nn.Module):
         chunked vocab projection."""
         x = F.embedding(input_ids, self.embedding).to(self.compute_dtype)
         for block in self.layers:
-            x = checkpoint(block, x, use_reentrant=False) if self.remat else block(x)
+            x = remat(block, x) if self.remat else block(x)
         x = self.final_norm(x)
         kernel = self.embedding.to(self.compute_dtype).t()  # tied LM head [d_model, vocab]
         if labels is None:

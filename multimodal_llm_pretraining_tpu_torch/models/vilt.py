@@ -38,6 +38,7 @@ from torch import nn
 
 from ..ops.attention import default_attn_impl
 from ..ops.xent import lm_head_loss
+from ..tracing import span
 from . import ModelBundle, MultimodalModelClass, SchedulerType, ViltT
 from .clip import CLIPBlock
 from .layers import Dense, LayerNorm, checkpoint_block, cross_entropy_loss, gelu_tanh
@@ -103,7 +104,7 @@ def wpa_loss(txt_emb, img_emb, txt_mask_keep, img_mask_keep, itm_labels) -> torc
     cost = torch.where(joint_pad, 0.0, cost)
     txt_len = txt_mask_keep.sum(dim=1).to(cost.dtype)
     img_len = img_mask_keep.sum(dim=1).to(cost.dtype)
-    with torch.profiler.record_function("ipot"):  # a span of its own in profile_step's breakdown
+    with span("ipot"):  # a span of its own in profile_step's breakdown
         T = ipot(cost.detach(), txt_len, txt_pad, img_len, img_pad, joint_pad, IPOT_BETA, IPOT_ITERATIONS, 1)
     distance = torch.einsum("bmn,bnm->b", cost, T)
     pos = itm_labels == 1

@@ -14,10 +14,15 @@ which gives the same products exactly (a bf16 x bf16 product is exact in f32)
 and differs only in summation order. Its backward rounds the incoming f32
 gradient to the operands' dtype before the two products, as a
 default-precision dot does on the TPU.
+
+The loss's forward records the span ``xent.forward`` and its backward, the
+chunk recomputes included, ``xent.backward`` (``tracing.py``).
 """
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from ..tracing import backward_span, span
 
 
 def _mm(a: torch.Tensor, b: torch.Tensor, out_dtype: torch.dtype) -> torch.Tensor:
@@ -80,12 +85,15 @@ def chunked_lm_cross_entropy(
     vocab = kernel.shape[1]
     if vocab % 8:
         kernel = torch.nn.functional.pad(kernel, (0, -vocab % 8))
-    loss_sum = hidden.new_zeros((), dtype=torch.float32)
-    for start in range(0, hidden.shape[0], chunk_size):
-        h_c, l_c = hidden[start : start + chunk_size], labels[start : start + chunk_size]
-        loss_sum = loss_sum + checkpoint(_chunk_nll_sum, kernel, h_c, l_c, ignore_index, vocab, use_reentrant=False)
-    count = (labels != ignore_index).sum().clamp_min(1)
-    return loss_sum / count
+    with span("xent.forward"):
+        loss_sum = hidden.new_zeros((), dtype=torch.float32)
+        for start in range(0, hidden.shape[0], chunk_size):
+            h_c, l_c = hidden[start : start + chunk_size], labels[start : start + chunk_size]
+            loss_sum = loss_sum + checkpoint(_chunk_nll_sum, kernel, h_c, l_c, ignore_index, vocab, use_reentrant=False)
+        count = (labels != ignore_index).sum().clamp_min(1)
+        loss = loss_sum / count
+    backward_span("xent.backward", loss, hidden)
+    return loss
 
 
 def lm_head_loss(

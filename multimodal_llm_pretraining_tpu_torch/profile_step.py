@@ -9,9 +9,10 @@ Builds the session through the user's entry points (``get_model_class`` ->
 seed), runs 1 warmup and 3 timed steps, then one step under
 ``torch.profiler``. Prints each step's time and loss, the median timed step,
 the profiled step's wall time, the device's busy time (the union of kernel
-and copy intervals), its idle share, and the device time by kind of kernel
-and of the kernels launched inside each host span of ``SPANS`` (ViLT's
-IPOT island).
+and copy intervals), its idle share of the median timed step (the
+profiler's own host cost lengthens the profiled step), and the device time
+by kind of kernel and of the kernels launched inside each of the port's
+spans in ``SPANS`` (``tracing.py``).
 ``--table`` gets the profiler's ``key_averages`` table. ``chip_smoke.py``
 builds its main paths with ``make_plan``.
 
@@ -46,8 +47,8 @@ KINDS = (
     ("memcpy/memset, cat", ("memcpy", "memset", "catarray")),
 )
 OTHER = "elementwise and other"
-# host-side ``record_function`` spans whose kernels are also summed apart
-SPANS = ("ipot",)
+# the port's spans (``tracing.py``) whose kernels are also summed apart
+SPANS = ("step.forward", "step.backward", "xent.forward", "xent.backward", "remat.replay", "ipot")
 
 
 LAYOUTS = ("bf16", "bf16_sr", "bf16_master", "f32")
@@ -95,13 +96,15 @@ def kind_of(name: str) -> str:
 
 def span_kernels(trace: list[dict], name: str) -> list[dict]:
     """The kernels launched inside the host spans ``name``
-    (``record_function``): those whose launch (a runtime event with the
-    same correlation id) starts within one of the spans on its thread."""
-    spans = [(e["tid"], e["ts"], e["ts"] + e["dur"]) for e in trace
+    (``record_function``): those whose launch (a runtime or driver event
+    with the same correlation id) starts within one of the spans, on any
+    thread, since autograd launches a backward's kernels from a thread of
+    its own while the span's thread waits for it."""
+    spans = [(e["ts"], e["ts"] + e["dur"]) for e in trace
              if e.get("cat") == "user_annotation" and e.get("name") == name and "dur" in e]
     inside = {e["args"]["correlation"] for e in trace
-              if e.get("cat") == "cuda_runtime" and "correlation" in e.get("args", {})
-              and any(tid == e["tid"] and t0 <= e["ts"] <= t1 for tid, t0, t1 in spans)}
+              if e.get("cat") in ("cuda_runtime", "cuda_driver") and "correlation" in e.get("args", {})
+              and any(t0 <= e["ts"] <= t1 for t0, t1 in spans)}
     return [e for e in trace if e.get("cat") == "kernel" and e.get("args", {}).get("correlation") in inside]
 
 
@@ -161,7 +164,8 @@ def main() -> int:
         return dt
 
     times = [run(i) for i in range(4)][1:]
-    print(f"[profile] {args.model} median step {statistics.median(times):.4f} s over {len(times)} steps, "
+    median = statistics.median(times)
+    print(f"[profile] {args.model} median step {median:.4f} s over {len(times)} steps, "
           f"peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB", flush=True)
 
     from torch.profiler import ProfilerActivity, profile
@@ -174,7 +178,7 @@ def main() -> int:
         b = device_breakdown(trace)
     total = sum(s for s, _ in b["by_kind"].values())
     print(f"[profile] profiled step: wall {wall:.4f} s, device busy {b['busy_s']:.4f} s, "
-          f"idle share {1 - b['busy_s'] / wall:.3f}, {b['kernels']} kernels", flush=True)
+          f"idle share of the median step {1 - b['busy_s'] / median:.3f}, {b['kernels']} kernels", flush=True)
     for kind, (secs, calls) in sorted(b["by_kind"].items(), key=lambda kv: -kv[1][0]):
         print(f"[profile]   {kind}: {secs:.4f} s, {calls} calls, {secs / total:.3f} of device time", flush=True)
     for name, (secs, calls) in b["spans"].items():

@@ -1,0 +1,58 @@
+"""Spans at the port's layer boundaries, on the profiler's own clock.
+
+A span is a ``torch.profiler.record_function`` annotation: it lands in the
+profiler's chrome trace beside the kernels, and a reader matches a kernel
+to it by the time its launch starts, on any thread. An active profiler is
+the only switch. With none active, ``span`` is a ``nullcontext`` and
+``backward_span`` registers nothing, so the arithmetic and the autograd
+graph are those of the code without spans.
+
+The spans the port records:
+
+- ``step.forward``, ``step.backward``: a micro-batch's forward and backward
+  (``training/step.py``); autograd launches the backward from a thread of
+  its own while the span's thread waits for it;
+- ``remat.replay``: one block's recompute in the backward
+  (``models/layers.py`` ``remat``);
+- ``xent.forward``, ``xent.backward``: the chunked LM-head loss, its chunk
+  recomputes included (``ops/xent.py``);
+- ``ipot``: ViLT's optimal-transport iterations (``models/vilt.py``).
+"""
+
+import contextlib
+
+import torch
+import torch.autograd.profiler as _autograd_profiler
+
+
+def profiling() -> bool:
+    """Whether a ``torch.profiler`` (or autograd profiler) is recording."""
+    return _autograd_profiler._is_profiler_enabled
+
+
+def span(name: str):
+    """A context manager: ``record_function(name)`` while a profiler is
+    recording, else a no-op."""
+    return torch.profiler.record_function(name) if profiling() else contextlib.nullcontext()
+
+
+def backward_span(name: str, out: torch.Tensor, inp: torch.Tensor) -> None:
+    """Span ``name`` over the backward of the region that computed ``out``
+    from ``inp``: a hook on ``out``'s gradient opens it, one on ``inp``'s
+    closes it, both on the thread autograd runs the backward on. Only while
+    a profiler is recording, and only where both need a gradient; otherwise
+    nothing is registered."""
+    if not (profiling() and out.requires_grad and inp.requires_grad):
+        return
+    opened = []
+
+    def open_span(grad):
+        if profiling():
+            opened.append(torch.profiler.record_function(name).__enter__())
+
+    def close_span(grad):
+        if opened:
+            opened.pop().__exit__(None, None, None)
+
+    out.register_hook(open_span)
+    inp.register_hook(close_span)

@@ -56,6 +56,10 @@ Activation checkpointing goes to the model's ``build_model``, and so does
 ``plan.checkpoint_policy`` where the model takes one (pythia's "flash" and
 "dots"), as the JAX session hands it over (``step.py:60-70``): mamba remats
 each whole block, the others run their blocks under ``checkpoint_block``.
+
+A micro-batch's forward and backward record the spans ``step.forward`` and
+``step.backward`` while a profiler records (``tracing.py``).
+
 Not ported yet, and refused with the ROADMAP item: sharding, offloading
 and more than one device.
 """
@@ -67,6 +71,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from ..tracing import span
 from ..utils import require_cuda
 from .optimizer import AdamState, build_optimizer, stochastic_round_to
 
@@ -215,10 +220,12 @@ class TrainSession:
     # ----------------------------------------------------------- steps
 
     def _accumulate(self, state: TrainState, micro_batch: dict[str, torch.Tensor]) -> torch.Tensor:
-        loss, _metrics = self.bundle.loss_fn(self.module, micro_batch, self.dropout_generator)
+        with span("step.forward"):
+            loss, _metrics = self.bundle.loss_fn(self.module, micro_batch, self.dropout_generator)
         # autograd adds into .grad in the params' dtype: one rounding per
         # micro-batch, as the JAX accumulator's (a + g).astype(a.dtype)
-        loss.backward()
+        with span("step.backward"):
+            loss.backward()
         return loss.detach()
 
     def _compute_grads(self, state: TrainState, batch: dict[str, torch.Tensor]) -> torch.Tensor:

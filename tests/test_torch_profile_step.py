@@ -7,7 +7,7 @@ import pytest
 import torch
 
 from multimodal_llm_pretraining_tpu_torch.models import get_model_class
-from multimodal_llm_pretraining_tpu_torch.profile_step import device_breakdown, kind_of, make_plan
+from multimodal_llm_pretraining_tpu_torch.profile_step import device_breakdown, kind_of, make_plan, span_kernels
 
 
 @pytest.mark.parametrize("name, kind", [
@@ -88,7 +88,7 @@ def test_main_accepts_vit_and_the_f32_layout(monkeypatch):
 def test_device_breakdown_sums_the_ipot_span(tmp_path):
     """A span's kernels are those whose launch (the runtime event of the
     same correlation id) starts inside a ``record_function`` span of that
-    name on the launching thread; each is counted in its kind too."""
+    name, on any thread; each is counted in its kind too."""
     events = [
         {"cat": "user_annotation", "name": "ipot", "tid": 1, "ts": 100.0, "dur": 50.0},
         {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "tid": 1, "ts": 110.0, "dur": 1.0, "args": {"correlation": 7}},
@@ -101,5 +101,29 @@ def test_device_breakdown_sums_the_ipot_span(tmp_path):
     path = tmp_path / "trace.json"
     path.write_text(json.dumps({"traceEvents": events}))
     b = device_breakdown(str(path))
-    assert b["spans"] == {"ipot": (pytest.approx(4e-6), 1)}
+    assert b["spans"] == {"ipot": (pytest.approx(7e-6), 2)}
     assert b["by_kind"]["GEMM"] == [pytest.approx(10e-6), 2]
+
+
+def test_span_kernels_launched_from_another_thread(tmp_path):
+    """``step.backward`` is opened on the main thread while autograd launches
+    the backward's kernels from its own: those launched (runtime or driver
+    call) while the span is open count, on whichever thread; a launch on
+    that thread after the span closes does not. ``remat.replay``, opened
+    on the autograd thread inside it, gets its own kernels."""
+    events = [
+        {"cat": "user_annotation", "name": "step.backward", "tid": 1, "ts": 100.0, "dur": 100.0},
+        {"cat": "user_annotation", "name": "remat.replay", "tid": 2, "ts": 130.0, "dur": 20.0},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "tid": 2, "ts": 110.0, "dur": 1.0, "args": {"correlation": 1}},
+        {"cat": "cuda_driver", "name": "cuLaunchKernel", "tid": 2, "ts": 140.0, "dur": 1.0, "args": {"correlation": 2}},
+        {"cat": "cuda_runtime", "name": "cudaLaunchKernel", "tid": 2, "ts": 250.0, "dur": 1.0, "args": {"correlation": 3}},
+        {"cat": "kernel", "name": "nvjet_a", "ts": 300.0, "dur": 4.0, "args": {"correlation": 1}},
+        {"cat": "kernel", "name": "elementwise", "ts": 310.0, "dur": 6.0, "args": {"correlation": 2}},
+        {"cat": "kernel", "name": "nvjet_b", "ts": 320.0, "dur": 3.0, "args": {"correlation": 3}},
+    ]
+    assert [e["name"] for e in span_kernels(events, "step.backward")] == ["nvjet_a", "elementwise"]
+    assert [e["name"] for e in span_kernels(events, "remat.replay")] == ["elementwise"]
+    path = tmp_path / "trace.json"
+    path.write_text(json.dumps({"traceEvents": events}))
+    b = device_breakdown(str(path))
+    assert b["spans"] == {"step.backward": (pytest.approx(10e-6), 2), "remat.replay": (pytest.approx(6e-6), 1)}
