@@ -6,9 +6,21 @@ Phases, one line (or a few) each; any failure exits non-zero:
 
 1. environment: the card (``nvidia-smi`` name and power limit), torch, CUDA
    and nvcc versions. No visible GPU is a failure, never a CPU fallback.
-2. build: the flash-attention and selective-scan kernels from ``csrc/``, one
-   nvcc per source, all started together (timed); each kernel's registers
-   and spills from ``ptxas -v``, one ``[ptxas]`` line each.
+2. build: the flash-attention, selective-scan and LM-head loss kernels from
+   ``csrc/``, one nvcc per source, all started together (timed); each
+   kernel's registers and spills from ``ptxas -v``, one ``[ptxas]`` line
+   each.
+2a. LM-head loss: both ``csrc/xent.cu`` kernels against their plain versions at
+   pythia-1b's chunk ([1024, 50304]) and llava's ([1024, 128257] padded to
+   128,264), bf16 dlogits, each seventh row ignored, NaN in the padding and
+   the ignored rows, which the kernels never read; a second launch of each
+   must repeat the first bit for bit. Then CUDA-event times at pythia's
+   chunk beside their bounds, their plain versions and the yardsticks
+   (``torch.logsumexp``; the pre-change autograd chain from the logits to
+   bf16 dlogits); then the whole loss, forward and backward, at the
+   benchmark's pythia-1b micro-batch ([32768, 2048] x 50304 bf16) on the
+   kernels and on the pre-change path (``xent_autograd_yardstick``), the
+   losses and gradients held to each other.
 3. kernels: each flash-attention kernel against its plain PyTorch version on
    the same inputs, at the pythia-1b training shape ([4, 8, 2049, 256] bf16
    causal) and at a small ragged shape, with the tolerances stated below;
@@ -194,7 +206,9 @@ time of the PyTorch call that computes the same function (``sdpa_ms``, the
 yardstick, which the port never calls), or null where there is none. The
 split kernels' ``library_ms`` is PyTorch's backward, which computes what the
 pair computes together, and their ``pair_ms`` the pair's own time beside it.
-The entries ``flash_fwd_vilt``, ``flash_bwd_fused_vilt``,
+The launches of ``xent_fwd`` and ``xent_bwd`` are those of the main paths
+that end in an LM-head loss (pythia-1b, mamba, llava, ViLT, RoBERTa), each
+counted from 0 just before its steps. The entries ``flash_fwd_vilt``, ``flash_bwd_fused_vilt``,
 ``flash_fwd_roberta`` and ``flash_bwd_fused_roberta`` are the same two
 kernels at vilt-pretrain's and RoBERTa-large's shapes, their ``launches``
 those of the main paths at that shape (counted in ``flash_fwd`` and
@@ -839,7 +853,9 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     ``after(sess, state)`` after the steps and their checks.
     ``layout`` is one of ``profile_step.make_plan``'s. ``counters`` is the
     kernel module whose launch counts ``names`` are zeroed just before the
-    steps and read just after. The first loss must lie in ``loss_band``.
+    steps and read just after, and so are the LM-head loss's
+    (``ops/xent.py``), returned as ``xent``. The first loss must lie in
+    ``loss_band``.
     For a model with a trainable mask, every frozen parameter must come out
     bit for bit and every trainable one must have moved; in the f32 layout
     every parameter and moment must be f32. Returns the module, the number
@@ -847,6 +863,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     the median step of each backward, the peak memory and the dropout
     generator's state after the steps."""
     from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+    from multimodal_llm_pretraining_tpu_torch.ops import xent
     from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
     from multimodal_llm_pretraining_tpu_torch.utils import block_on
 
@@ -875,6 +892,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     schedule, warmup = (AB_SCHEDULE, AB_WARMUP) if split_ab else ((fused,) * steps, 1)
     torch.cuda.reset_peak_memory_stats()
     counters.reset_launch_counts()
+    xent.reset_launch_counts()
     attn.XLA_BRANCH_CALLS = 0
     losses, times = [], []
     try:
@@ -894,6 +912,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     finally:
         fa.PREFER_FUSED_BWD = True
     launches = {n: getattr(counters, n) for n in names}
+    xent_launches = {"xent_fwd": xent.XENT_FWD_LAUNCHES, "xent_bwd": xent.XENT_BWD_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     if attn.XLA_BRANCH_CALLS != 0:
         raise AssertionError(f"{model_type}: {attn.XLA_BRANCH_CALLS} attention calls took the xla branch")
@@ -933,10 +952,10 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
         say(f"[main] {model_type} fused vs split backward, median step: {medians[True]:.4f} vs {medians[False]:.4f} s "
             f"(split / fused {medians[False] / medians[True]:.4f})")
     say(f"[main] {model_type} peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches "
-        + ", ".join(f"{n} {c}" for n, c in launches.items()) + ", xla-branch attention calls 0")
+        + ", ".join(f"{n} {c}" for n, c in (launches | xent_launches).items()) + ", xla-branch attention calls 0")
     if after is not None:
         after(sess, state)
-    return {"module": sess.module, "launches": launches,
+    return {"module": sess.module, "launches": launches, "xent": xent_launches,
             "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)},
             "losses": losses, "medians": medians, "peak": peak, "dropout_state": sess.dropout_generator.get_state()}
 
@@ -967,6 +986,25 @@ def flash_launch_entries(launches: dict) -> dict:
             "flash_bwd_dkv_varlen": launches["VARLEN_DKV_LAUNCHES"]}
 
 
+def xent_launch_entries(run: dict, model_type: str, chunks: int | None = None) -> dict:
+    """The run's LM-head loss launches (``drive_training``'s ``xent``):
+    ``chunks`` of each kernel a micro-batch where given (its tokens over the
+    loss's chunks of 1024), else at least one of each."""
+    got = run["xent"]
+    if chunks is None:
+        ok, want = got["xent_fwd"] > 0 and got["xent_bwd"] > 0, "at least one of each"
+    else:
+        n = chunks * sum(run["micro_batches"].values())
+        ok, want = got == {"xent_fwd": n, "xent_bwd": n}, f"{n} of each"
+    if not ok:
+        raise AssertionError(f"{model_type}: LM-head loss launches {got}, expected {want}")
+    return dict(got)
+
+
+# pythia-1b's LM-head loss a micro-batch of 4 rows: 4 x 2048 shifted tokens, 8 chunks of 1024
+PYTHIA_MBS4_XENT_CHUNKS = 8
+
+
 FLASH_COUNTERS = ("FWD_LAUNCHES", "BWD_LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES", "VARLEN_FWD_LAUNCHES",
                   "VARLEN_BWD_LAUNCHES", "VARLEN_DQ_LAUNCHES", "VARLEN_DKV_LAUNCHES")
 
@@ -980,7 +1018,7 @@ def phase_main_path() -> dict:
     expected = flash_launches_expected(FLASH_COUNTERS, len(run["module"].layers), 0, run["micro_batches"])
     if run["launches"] != expected:
         raise AssertionError(f"pythia flash launches {run['launches']}, expected {expected}")
-    return flash_launch_entries(run["launches"])
+    return flash_launch_entries(run["launches"]) | xent_launch_entries(run, "pythia-1b", PYTHIA_MBS4_XENT_CHUNKS)
 
 
 # ---------------------------------------------------------------- selective scan
@@ -1133,7 +1171,7 @@ def phase_mamba_main_path() -> dict:
     calls = len(run["module"].layers) * sum(run["micro_batches"].values())
     if run["launches"] != (2 * calls, calls):
         raise AssertionError(f"scan launches {run['launches']}, expected ({2 * calls}, {calls})")
-    return {"scan_fwd": run["launches"][0], "scan_bwd": run["launches"][1]}
+    return {"scan_fwd": run["launches"][0], "scan_bwd": run["launches"][1]} | xent_launch_entries(run, "mamba")
 
 
 # ---------------------------------------------------------------- varlen flash attention (llava)
@@ -1274,7 +1312,7 @@ def phase_llava_main_path() -> dict:
                                        run["micro_batches"], plain_bwd=False)
     if run["launches"] != expected:
         raise AssertionError(f"llava launches {run['launches']}, expected {expected}")
-    return flash_launch_entries(run["launches"])
+    return flash_launch_entries(run["launches"]) | xent_launch_entries(run, "llava-pretrain")
 
 
 # ---------------------------------------------------------------- split backward (ViT)
@@ -1673,8 +1711,10 @@ def phase_remat(card: str) -> tuple[dict, dict]:
     say(f"[remat] step / no-remat step: dots {runs['dots']['medians'][True] / base:.4f}, "
         f"flash {runs['flash']['medians'][True] / base:.4f}")
     launches: dict[str, int] = {}
-    for run in runs.values():
-        for name, n in flash_launch_entries(run["launches"]).items():
+    for policy, run in runs.items():
+        counts = flash_launch_entries(run["launches"]) | xent_launch_entries(
+            run, f"pythia-1b remat {policy}", PYTHIA_MBS4_XENT_CHUNKS)
+        for name, n in counts.items():
             launches[name] = launches.get(name, 0) + n
     return launches, {"loss": runs[None]["losses"][0], "peak": runs[None]["peak"]}
 
@@ -1730,7 +1770,11 @@ def phase_remat_llava() -> dict:
                                        remat["micro_batches"], plain_bwd=False)
     if remat["launches"] != expected:
         raise AssertionError(f"llava remat launches {remat['launches']}, expected {expected}")
-    return flash_launch_entries(remat["launches"])
+    launches = flash_launch_entries(remat["launches"])
+    for run, name in ((plain, "llava-pretrain"), (remat, "llava-pretrain remat")):
+        for k, n in xent_launch_entries(run, name).items():
+            launches[k] = launches.get(k, 0) + n
+    return launches
 
 
 SEARCH_MODEL = "pythia-1b"
@@ -1795,7 +1839,8 @@ def _bf16_master_session(card: str, bf16_sr_run: dict) -> dict:
         f"vs bf16_sr's {bf16_sr_run['peak']} ({bf16_sr_run['peak'] / 2**30:.2f} GiB), median step "
         f"{run['medians'][True]:.4f} s; {card}")
     del run["module"]
-    return flash_launch_entries(run["launches"])
+    return flash_launch_entries(run["launches"]) | xent_launch_entries(run, "pythia-1b bf16_master",
+                                                                       PYTHIA_MBS4_XENT_CHUNKS)
 
 
 def _counts_and_analytic_days() -> dict:
@@ -2074,8 +2119,8 @@ def phase_vilt_main_paths() -> tuple[dict, dict, list[dict]]:
     say(f"[vilt] vilt-pretrain: {passes} forwards and {passes} backwards a micro-batch (3 trunk passes of "
         f"{len(mod.vilt.layers)} blocks), every attention call on the kernels")
     at_shape = flash_launch_entries(run["launches"])
+    launches = at_shape | xent_launch_entries(run, "vilt-pretrain")
     del run, mod
-    launches = dict(at_shape)
     original = drive_training("vilt-original-pretrain", mbs=32, acc=2, remat=False, counters=fa,
                               loss_band=VILT_ORIGINAL_LOSS_BAND, layout="f32", names=FLASH_COUNTERS,
                               tokens_per_sample=VILT_ORIGINAL_POSITIONS, steps=2)
@@ -2083,7 +2128,8 @@ def phase_vilt_main_paths() -> tuple[dict, dict, list[dict]]:
     expected = flash_launches_expected(FLASH_COUNTERS, 3 * layers, 0, original["micro_batches"])
     if original["launches"] != expected:
         raise AssertionError(f"vilt-original-pretrain flash launches {original['launches']}, expected {expected}")
-    for name, n in flash_launch_entries(original["launches"]).items():
+    for name, n in (flash_launch_entries(original["launches"])
+                    | xent_launch_entries(original, "vilt-original-pretrain")).items():
         launches[name] += n
     return launches, at_shape, entries
 
@@ -2128,7 +2174,7 @@ def phase_roberta(card: str) -> tuple[dict, dict, list[dict]]:
     expected = flash_launches_expected(FLASH_COUNTERS, len(mod.layers), 0, run["micro_batches"])
     if run["launches"] != expected:
         raise AssertionError(f"roberta flash launches {run['launches']}, expected {expected}")
-    launches = flash_launch_entries(run["launches"])
+    launches = flash_launch_entries(run["launches"]) | xent_launch_entries(run, "roberta")
     del run, mod
     plain, remat = _remat_pair("roberta", mbs=ROBERTA_SHAPE[0], acc=2, loss_band=ROBERTA_LOSS_BAND, layout="bf16")
     if not torch.equal(remat["dropout_state"], plain["dropout_state"]):
@@ -2138,9 +2184,9 @@ def phase_roberta(card: str) -> tuple[dict, dict, list[dict]]:
         raise AssertionError(f"roberta remat flash launches {remat['launches']}, expected {expected}")
     say(f"[remat] roberta: dropout generator state after the steps equal to the run without remat; peak "
         f"{remat['peak'] / 2**30:.2f} GiB under remat, {plain['peak'] / 2**30:.2f} GiB without; {card}")
-    for counts in (plain["launches"], remat["launches"]):
-        for name, n in flash_launch_entries(counts).items():
-            launches[name] += n
+    for run, name in ((plain, "roberta"), (remat, "roberta remat")):
+        for k, n in (flash_launch_entries(run["launches"]) | xent_launch_entries(run, name)).items():
+            launches[k] += n
     return launches, entries
 
 
@@ -2157,6 +2203,158 @@ def phase_convnext_main_path() -> None:
     mod = run["module"]
     if (mod.depths, mod.classifier.weight.shape) != ((3, 3, 27, 3), (1000, 1536)):
         raise AssertionError("convnext: not convnext-large-1k")
+
+
+# ---------------------------------------------------------------- LM-head loss
+
+XENT_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/xent.cu"
+XENT_CHUNK = (1024, 50304)  # pythia-1b's chunk of the LM-head loss: 1024 rows of its vocab
+XENT_LLAVA_CHUNK = (1024, 128257, 128264)  # llava's: 1024 rows of 128,257, padded to 128,264
+XENT_MICRO_BATCH = (16 * 2048, 2048)  # the benchmark's pythia-1b micro-batch: 16 rows of 2049 tokens, shifted
+# kernel vs plain version, all f32 inside (as tests/test_torch_kernels.py):
+# lse and each row's nll absolute, dlogits relative to their norm (bf16: one
+# rounding of values that may lie an ulp apart)
+TOL_XENT_LSE_ABS = 1e-4
+TOL_XENT_D_NORM_REL = 4e-3
+# the loss on the kernels vs the pre-change autograd path, at the micro-batch
+TOL_XENT_LOSS_REL = 1e-5
+TOL_XENT_GRAD_NORM_REL = 2e-3
+
+
+def _xent_chunk(rows: int, vocab: int, width: int, seed: int):
+    """f32 logits about N(0, 9) with each seventh row ignored; NaN past
+    ``vocab`` and on the ignored rows, which the kernels never read."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn(rows, width, generator=g, device="cuda") * 3
+    labels = torch.randint(0, vocab, (rows,), generator=g, device="cuda")
+    labels[::7] = -100
+    logits[:, vocab:] = float("nan")
+    logits[labels == -100] = float("nan")
+    return logits, labels
+
+
+def check_xent_at(rows: int, vocab: int, width: int, seed: int) -> dict:
+    """Both xent kernels against their plain versions (bf16 dlogits); a
+    second forward and backward must repeat the first bit for bit, and
+    ignored rows and padded columns must come out 0."""
+    from multimodal_llm_pretraining_tpu_torch.ops import xent
+
+    logits, labels = _xent_chunk(rows, vocab, width, seed)
+    valid = labels != -100
+    lse_ref, nll_ref = xent.xent_fwd_reference(logits, labels, vocab, -100)
+    runs = []
+    for _ in range(2):
+        lse, nll = torch.empty(rows, device="cuda"), torch.empty(rows, device="cuda")
+        xent.xent_fwd_cuda(logits, labels, vocab, -100, lse, nll)
+        runs.append((lse, nll))
+    scale = torch.tensor(1.0 / int(valid.sum()), device="cuda")
+    d_ref = xent.xent_bwd_reference(logits, labels, lse_ref, scale, vocab, -100, torch.bfloat16)
+    d = xent.xent_bwd_cuda(logits, labels, lse_ref, scale, vocab, -100, torch.bfloat16)
+    d2 = xent.xent_bwd_cuda(logits, labels, lse_ref, scale, vocab, -100, torch.bfloat16)
+    (lse, nll), (lse2, nll2) = runs
+    errs = {"lse": _errs(lse[valid], lse_ref[valid]), "nll": _errs(nll[valid], nll_ref[valid]),
+            "dlogits": _errs(d, d_ref)}
+    repeat = torch.equal(lse, lse2) and torch.equal(nll, nll2) and torch.equal(d, d2)
+    zeros = not (d[~valid].any() or d[:, vocab:].any() or lse[~valid].any() or nll[~valid].any())
+    say(f"[xent] kernels vs plain at [{rows}, {vocab}] (width {width}): lse max_abs {errs['lse'][0]:.2e}, nll "
+        f"max_abs {errs['nll'][0]:.2e}, dlogits bf16 norm_rel {errs['dlogits'][1]:.2e}; second run identical "
+        f"{repeat}, ignored rows and padding 0 {zeros}")
+    if not (max(errs["lse"][0], errs["nll"][0]) <= TOL_XENT_LSE_ABS and errs["dlogits"][1] <= TOL_XENT_D_NORM_REL
+            and repeat and zeros):
+        raise AssertionError(f"xent kernels at [{rows}, {vocab}]: {errs}, repeat {repeat}, zeros {zeros}")
+    return errs
+
+
+def _xent_autograd_dlogits(logits, labels, vocab: int, scale):
+    """The chain the kernels replace, as the pre-change backward ran it on a
+    chunk's recomputed logits: logsumexp and the gather, autograd's backward
+    through them, and the cast to bf16 (the yardstick; the port never calls
+    it)."""
+    x = logits.detach().requires_grad_()
+    valid = labels != -100
+    gold = x[:, :vocab].gather(-1, torch.where(valid, labels, 0)[:, None])[:, 0]
+    nll = ((torch.logsumexp(x[:, :vocab], dim=-1) - gold) * valid).sum()
+    (g,) = torch.autograd.grad(nll * scale, x)
+    return g.to(torch.bfloat16)
+
+
+def phase_xent() -> list[dict]:
+    """The LM-head loss's kernels: against their plain versions at pythia's
+    and llava's chunks, then timed at pythia's beside their bounds, their
+    plain versions and the yardsticks (``torch.logsumexp``; the pre-change
+    autograd chain); then the whole loss, forward and backward, at the
+    benchmark's pythia-1b micro-batch on the kernels and on the pre-change
+    path (``xent_autograd_yardstick``), their losses and gradients held to
+    each other. The kernels JSON line's entries ``xent_fwd``, ``xent_bwd``."""
+    from multimodal_llm_pretraining_tpu_torch.ops import xent
+
+    errs = check_xent_at(*XENT_CHUNK, XENT_CHUNK[1], seed=20)
+    check_xent_at(*XENT_LLAVA_CHUNK, seed=21)
+    rows, vocab = XENT_CHUNK
+    logits, labels = _xent_chunk(rows, vocab, vocab, seed=22)
+    logits = torch.nan_to_num(logits)  # the plain versions and yardsticks read every row
+    labels = labels.clamp_min(0)  # every row counts, as in a packed pythia batch
+    lse, _ = xent.xent_fwd_reference(logits, labels, vocab, -100)
+    lse_k, nll_k = torch.empty(rows, device="cuda"), torch.empty(rows, device="cuda")
+    scale = torch.tensor(1.0 / XENT_MICRO_BATCH[0], device="cuda")
+    t = {
+        "fwd": cuda_ms(lambda: xent.xent_fwd_cuda(logits, labels, vocab, -100, lse_k, nll_k)),
+        "fwd_plain": cuda_ms(lambda: xent.xent_fwd_reference(logits, labels, vocab, -100)),
+        "fwd_library": cuda_ms(lambda: torch.logsumexp(logits, dim=-1)),
+        "bwd": cuda_ms(lambda: xent.xent_bwd_cuda(logits, labels, lse, scale, vocab, -100, torch.bfloat16)),
+        "bwd_plain": cuda_ms(lambda: xent.xent_bwd_reference(logits, labels, lse, scale, vocab, -100, torch.bfloat16)),
+        "bwd_library": cuda_ms(lambda: _xent_autograd_dlogits(logits, labels, vocab, scale)),
+    }
+    say(f"[xent] ms a call at {list(XENT_CHUNK)}: " + ", ".join(f"{n} {ms:.4f}" for n, ms in t.items()))
+    # bytes: each logit and label read once; the forward writes lse and nll, the backward
+    # reads lse and writes bf16 dlogits
+    ins = _nbytes(logits, labels)
+    bounds = {"fwd": bound(ins + 2 * _nbytes(lse), exps=logits.numel()),
+              "bwd": bound(ins + _nbytes(lse) + logits.numel() * 2, exps=logits.numel())}
+    for n in ("fwd", "bwd"):
+        say(f"[xent] {n} at {list(XENT_CHUNK)}: {t[n]:.4f} ms a call, bound {bounds[n]['bound_ms']:.4f} ms "
+            f"({bounds[n]['bound_by']}), {bounds[n]['bound_ms'] / t[n]:.3f} of it; plain {t[n + '_plain']:.4f} ms, "
+            f"yardstick {t[n + '_library']:.4f} ms ({t[n + '_library'] / t[n]:.2f}x the kernel)")
+    del logits
+
+    n_tok, hidden = XENT_MICRO_BATCH
+    g = torch.Generator(device="cuda").manual_seed(23)
+    h = torch.randn(n_tok, hidden, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(hidden, vocab, generator=g, device="cuda") * hidden**-0.5).to(torch.bfloat16)
+    tokens = torch.randint(0, vocab, (n_tok,), generator=g, device="cuda")
+    results, times = {}, {}
+    for name, fn in (("kernels", xent.chunked_lm_cross_entropy), ("pre-change", xent.xent_autograd_yardstick)):
+        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+
+        def fwd_bwd():
+            hh.grad = ww.grad = None
+            loss = fn(hh, ww, tokens)
+            loss.backward()
+            return loss
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times[name] = cuda_ms(fwd_bwd, warmup=1, iters=3, reps=3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        results[name] = (fwd_bwd().detach(), hh.grad, ww.grad)
+        say(f"[xent] loss at the micro-batch [{n_tok}, {hidden}] x {vocab} bf16 on the {name} path: "
+            f"{times[name]:.2f} ms forward and backward, {peak:.2f} GiB above its inputs")
+    (loss, dh, dw), (loss_ref, dh_ref, dw_ref) = results["kernels"], results["pre-change"]
+    gaps = {"loss": abs(loss.item() - loss_ref.item()) / abs(loss_ref.item()),
+            "dh": _errs(dh, dh_ref)[1], "dw": _errs(dw, dw_ref)[1]}
+    say(f"[xent] micro-batch: {times['pre-change'] / times['kernels']:.2f}x faster than the pre-change path; loss "
+        f"{loss.item():.6f} against {loss_ref.item():.6f} (rel {gaps['loss']:.1e}), grads norm_rel hidden "
+        f"{gaps['dh']:.1e}, head {gaps['dw']:.1e}")
+    if gaps["loss"] > TOL_XENT_LOSS_REL or max(gaps["dh"], gaps["dw"]) > TOL_XENT_GRAD_NORM_REL:
+        raise AssertionError(f"xent loss on the kernels vs the pre-change path: {gaps}")
+    return [
+        {"name": "xent_fwd", "route": "cuda", "source": XENT_SOURCE, "replaces": None, "launches": None,
+         "max_abs_err": errs["lse"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"], **bounds["fwd"],
+         "library_ms": t["fwd_library"]},
+        {"name": "xent_bwd", "route": "cuda", "source": XENT_SOURCE, "replaces": None, "launches": None,
+         "max_abs_err": errs["dlogits"][0], "ms": t["bwd"], "plain_ms": t["bwd_plain"], **bounds["bwd"],
+         "library_ms": t["bwd_library"]},
+    ]
 
 
 def families(card: str, add) -> list[dict]:
@@ -2180,6 +2378,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_env()
     phase_build()
+    xent_kernels = phase_xent()
     pythia_times, kernels = phase_kernels()
     phase_slice()
     launches: dict[str, int] = {}
@@ -2208,6 +2407,7 @@ def main() -> int:
     add(phase_remat_llava())
     add(phase_harness(card, bf16_sr_run))
     shaped = families(card, add)
+    kernels += xent_kernels
     for k in kernels:
         k["launches"] = launches[k["name"]]
     kernels += shaped

@@ -25,7 +25,7 @@ from ..utils import get_logger
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dq.cu", "selective_scan.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dq.cu", "selective_scan.cu", "xent.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -129,7 +129,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
     with _lock:
         if _lib is None:
             lib = ctypes.CDLL(str(build(verbose=verbose)))
-            ptr, i32, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+            ptr, i32, i64, f32 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
             lib.mlpt_flash_fwd.argtypes = [ptr] * 6 + [i32] * 6 + [f32, ptr]
             lib.mlpt_flash_fwd.restype = i32
             lib.mlpt_flash_bwd.argtypes = [ptr] * 13 + [i32] * 6 + [f32, ptr]
@@ -144,6 +144,10 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.mlpt_scan_fwd.restype = i32
             lib.mlpt_scan_bwd.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
             lib.mlpt_scan_bwd.restype = i32
+            lib.mlpt_xent_fwd.argtypes = [ptr] * 4 + [i32, i32, i64, i64, ptr]
+            lib.mlpt_xent_fwd.restype = i32
+            lib.mlpt_xent_bwd.argtypes = [ptr] * 5 + [i32, i32, i64, i64, i32, ptr]
+            lib.mlpt_xent_bwd.restype = i32
             lib.mlpt_error_string.argtypes = [i32]
             lib.mlpt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -990,3 +990,166 @@ def test_opcheck_on_the_card(op, mode):
         out, lse = fa.flash_fwd_cuda(q, k, v, True, scale, kv_lens)
         args = (q, k, v, out, lse, do, True, scale, kv_lens)
     torch.library.opcheck(getattr(fa, op), args)
+
+
+# ---------------------------------------------------------------- LM-head loss
+
+# The xent kernels against their plain versions, all f32 inside: lse within
+# XENT_LSE_ABS (the kernel's exp2 of (x - max) * log2(e) and its online max,
+# against one max and exp, over up to 128k terms summed in another order);
+# each row's nll within XENT_LSE_ABS too; dlogits within
+# 1e-5 of their norm in f32, and in bf16, where both sides round f32 values
+# that may lie one bf16 ulp apart, within one bf16 rounding (4e-3).
+XENT_LSE_ABS = 1e-4
+XENT_D_NORM_REL = {torch.float32: 1e-5, torch.bfloat16: 4e-3}
+# The loss on the kernels against the pre-change autograd path
+# (``xent_autograd_yardstick``), which takes its logits from the same
+# products: the loss within 1e-5; the gradients within 1e-5 of their norm in
+# f32, and in bf16 within 2e-3, dlogits being rounded to bf16 from f32 values
+# that differ by the lse's error, so that a few land one ulp apart before the
+# same products.
+XENT_LOSS_REL = 1e-5
+XENT_GRAD_NORM_REL = {torch.float32: 1e-5, torch.bfloat16: 2e-3}
+
+
+def _xent_inputs(rows: int, vocab: int, width: int, seed: int = 0):
+    """f32 logits [rows, width] about N(0, 9), NaN past ``vocab`` and on
+    every 7th row, which is ignored (-100): a kernel that read either would
+    show NaN."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    logits = torch.randn(rows, width, generator=g, device="cuda") * 3
+    labels = torch.randint(0, vocab, (rows,), generator=g, device="cuda")
+    labels[::7] = -100
+    logits[:, vocab:] = float("nan")
+    logits[labels == -100] = float("nan")
+    return logits, labels
+
+
+def _check_xent_kernels(rows: int, vocab: int, width: int, dtype: torch.dtype) -> None:
+    from multimodal_llm_pretraining_tpu_torch.ops import xent
+
+    logits, labels = _xent_inputs(rows, vocab, width)
+    valid = labels != -100
+    lse_ref, nll_ref = xent.xent_fwd_reference(logits, labels, vocab, -100)
+    runs = []
+    for _ in range(2):
+        lse, nll = torch.empty(rows, device="cuda"), torch.empty(rows, device="cuda")
+        xent.xent_fwd_cuda(logits, labels, vocab, -100, lse, nll)
+        runs.append((lse, nll))
+    (lse, nll), (lse2, nll2) = runs
+    torch.testing.assert_close(lse, lse_ref, atol=XENT_LSE_ABS, rtol=0)
+    torch.testing.assert_close(nll, nll_ref, atol=XENT_LSE_ABS, rtol=0)
+    assert (lse[~valid] == 0).all() and (nll[~valid] == 0).all()
+    assert torch.equal(lse, lse2) and torch.equal(nll, nll2)
+    scale = torch.tensor(1.0 / max(int(valid.sum()), 1), device="cuda")
+    want = xent.xent_bwd_reference(logits, labels, lse_ref, scale, vocab, -100, dtype)
+    got = xent.xent_bwd_cuda(logits, labels, lse_ref, scale, vocab, -100, dtype)
+    assert got.dtype == dtype and got.shape == logits.shape
+    assert (got[~valid] == 0).all() and (got[:, vocab:] == 0).all()
+    if want.float().norm() > 0:
+        _close(got, want, XENT_D_NORM_REL[dtype])
+    else:  # all rows ignored, or vocab 1: p is exactly 1 on both sides
+        assert torch.equal(got, want)
+    assert torch.equal(got, xent.xent_bwd_cuda(logits, labels, lse_ref, scale, vocab, -100, dtype))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("vocab,width", [(50304, 50304), (128257, 128264)])
+def test_xent_kernels_match_plain_versions(vocab, width, dtype):
+    """Both kernels at pythia's chunk (1024 rows of 50,304) and llava's (1024
+    rows of 128,257 padded to 128,264), each seventh row ignored: lse, each
+    row's nll and dlogits against the plain versions; a second forward
+    repeats the first bit for bit, a second backward too; ignored rows and
+    the padded columns come out 0 without being read."""
+    _needs_cuda()
+    _check_xent_kernels(1024, vocab, width, dtype)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("vocab", [1, 3, 4, 5, 1023, 1024, 1025, 4096, 4097, 4100, 30522])
+@pytest.mark.parametrize("rows", [1, 33])
+def test_xent_kernels_at_their_edges(rows, vocab, dtype):
+    """Vocabs around the kernels' 4-column loads and their 4096-column
+    strides (256 threads x 4 loads x 4 columns), padded to a multiple of 8
+    as the loss pads them, one row or a few (row 0 is ignored)."""
+    _needs_cuda()
+    _check_xent_kernels(rows, vocab, vocab + (-vocab % 8), dtype)
+
+
+@pytest.mark.cuda
+def test_xent_forward_gives_nan_for_a_label_out_of_range():
+    from multimodal_llm_pretraining_tpu_torch.ops import xent
+
+    _needs_cuda()
+    logits, labels = _xent_inputs(4, 50, 56)
+    labels[1] = 50
+    lse, nll = torch.empty(4, device="cuda"), torch.empty(4, device="cuda")
+    xent.xent_fwd_cuda(logits, labels, 50, -100, lse, nll)
+    assert torch.isnan(nll[1]) and torch.isfinite(nll[2:]).all()
+    with pytest.raises(ValueError, match="multiple of 4"):
+        xent.xent_fwd_cuda(logits[:, :50].contiguous(), labels, 50, -100, lse, nll)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("tokens,hidden,vocab,dtype,frozen", [
+    (4096, 2048, 50304, torch.bfloat16, False),  # pythia-1b's head, four chunks
+    (2085, 2048, 128257, torch.bfloat16, True),  # llava's frozen tied head, odd vocab, a short last chunk
+    (1500, 768, 30522, torch.float32, False),  # ViLT's f32 MLM head, odd vocab
+])
+def test_xent_loss_matches_the_pre_change_path(tokens, hidden, vocab, dtype, frozen):
+    """``chunked_lm_cross_entropy`` on the kernels against the autograd path
+    it replaced (``xent_autograd_yardstick``, the same products): the loss
+    and the gradients of hidden and, where it trains, the head; one launch
+    of each kernel a chunk."""
+    from multimodal_llm_pretraining_tpu_torch.ops import xent
+
+    _needs_cuda()
+    g = torch.Generator(device="cuda").manual_seed(1)
+    h = torch.randn(tokens, hidden, generator=g, device="cuda").to(dtype)
+    w = (torch.randn(hidden, vocab, generator=g, device="cuda") * hidden**-0.5).to(dtype)
+    labels = torch.randint(0, vocab, (tokens,), generator=g, device="cuda")
+    labels[::5] = -100
+    labels[:1024][200:700] = -100
+    results = []
+    for loss_fn in (xent.chunked_lm_cross_entropy, xent.xent_autograd_yardstick):
+        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_(not frozen)
+        xent.reset_launch_counts()
+        loss = loss_fn(hh, ww, labels)
+        loss.backward()
+        results.append((loss.detach(), hh.grad, ww.grad, (xent.XENT_FWD_LAUNCHES, xent.XENT_BWD_LAUNCHES)))
+    (loss, dh, dw, launches), (loss_ref, dh_ref, dw_ref, launches_ref) = results
+    chunks = -(-tokens // 1024)
+    assert launches == (chunks, chunks) and launches_ref == (0, 0)
+    torch.testing.assert_close(loss, loss_ref, rtol=XENT_LOSS_REL, atol=0)
+    assert dh.dtype == dtype
+    _close(dh, dh_ref, XENT_GRAD_NORM_REL[dtype])
+    if frozen:
+        assert dw is None and dw_ref is None
+    else:
+        assert dw.dtype == dtype
+        _close(dw, dw_ref, XENT_GRAD_NORM_REL[dtype])
+
+
+@pytest.mark.cuda
+def test_pythia_micro_batch_runs_its_loss_on_the_xent_kernels():
+    """One pythia-1b micro-batch at the benchmark's 16 rows of 2049 tokens
+    (no remat, ``bf16_sr``): its 32,768 shifted tokens are 32 chunks, each
+    one launch of each kernel."""
+    from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+    from multimodal_llm_pretraining_tpu_torch.ops import xent
+    from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
+
+    _needs_cuda()
+    mc = get_model_class("pythia-1b")
+    sess = make_plan(mc, 16, 1, False, "bf16_sr").build_session(mc, device="cuda")
+    state = sess.init_state()
+    batch = {k: v[0] for k, v in sess.make_train_batch(seed=0).items()}
+    xent.reset_launch_counts()
+    loss = sess.accumulate_fn()(state, batch)
+    torch.cuda.synchronize()
+    assert (xent.XENT_FWD_LAUNCHES, xent.XENT_BWD_LAUNCHES) == (32, 32)
+    assert 10.0 < float(loss) < 12.0
+    del sess, state
+    torch.cuda.empty_cache()

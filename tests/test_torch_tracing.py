@@ -91,20 +91,21 @@ def test_each_span_once_a_region(remat, tiny_pythia, tmp_path):
 
 @pytest.mark.parametrize("remat", REMATS)
 def test_loss_backward_is_inside_xent_backward(remat, tiny_pythia, tmp_path):
-    """The backward of the loss's ``logsumexp`` starts inside
-    ``xent.backward``; no LayerNorm backward does, and the first, the final
-    LayerNorm's, starts after it. The loss's forward ops start inside
+    """The loss's backward (``_ChunkedXentBackward``: the chunks'
+    recompute, the gradient of the logits and the head's products) starts
+    inside ``xent.backward``; no LayerNorm backward does, and the first, the
+    final LayerNorm's, starts after it. The loss's forward ops start inside
     ``xent.forward``, inside ``step.forward``."""
     sess, state = tiny_pythia(remat)
     events = _traced(lambda: sess.accumulate_fn()(state, _batch()), tmp_path)
     xb, xf = _spans(events, "xent.backward"), _spans(events, "xent.forward")
-    lse_bwd = _starts(events, "LogsumexpBackward0")
+    loss_bwd = _starts(events, "_ChunkedXentBackward")
     ln_bwd = _starts(events, "aten::native_layer_norm_backward")
-    assert lse_bwd and all(_inside(ts, xb) for ts in lse_bwd)
+    assert loss_bwd and all(_inside(ts, xb) for ts in loss_bwd)
     assert len(ln_bwd) == 5 and not any(_inside(ts, xb) for ts in ln_bwd)
     assert min(ln_bwd) > xb[0][1]
     lse_fwd = _starts(events, "aten::logsumexp")
-    assert lse_fwd and all(_inside(ts, xf) or _inside(ts, xb) for ts in lse_fwd)  # the chunk recompute
+    assert lse_fwd and all(_inside(ts, xf) for ts in lse_fwd)
     assert all(_inside(t0, _spans(events, "step.forward")) for t0, _ in xf)
 
 
