@@ -21,6 +21,18 @@ Phases, one line (or a few) each; any failure exits non-zero:
    benchmark's pythia-1b micro-batch ([32768, 2048] x 50304 bf16) on the
    kernels and on the pre-change path (``xent_autograd_yardstick``), the
    losses and gradients held to each other.
+2b. RMSNorm: both ``csrc/rmsnorm.cu`` kernels against their plain versions
+   at mamba-2.8b's benchmark micro-batch ([32768, 2560] f32 stream in, bf16
+   out, the residual's gradient added in the backward), its final norm (no
+   residual), llava-pretrain's decoder ([17392, 2048] bf16) and a ragged
+   row ([3, 100]); a second launch of each must repeat the first bit for
+   bit. Then CUDA-event times at mamba's shape beside their bounds, their
+   plain versions and the yardsticks (``F.rms_norm`` and a cast for the
+   forward; the pre-change autograd chain's backward and the residual's add
+   for the backward). The mamba and llava main paths (8, 11) count the
+   kernels' launches a micro-batch: 2 x 64 + 1 forwards and 64 + 1
+   backwards for mamba under block remat (each block's norm, its replay,
+   the final norm), 33 and 33 for llava's decoder.
 3. kernels: each flash-attention kernel against its plain PyTorch version on
    the same inputs, at the pythia-1b training shape ([4, 8, 2049, 256] bf16
    causal) and at a small ragged shape, with the tolerances stated below;
@@ -208,7 +220,9 @@ split kernels' ``library_ms`` is PyTorch's backward, which computes what the
 pair computes together, and their ``pair_ms`` the pair's own time beside it.
 The launches of ``xent_fwd`` and ``xent_bwd`` are those of the main paths
 that end in an LM-head loss (pythia-1b, mamba, llava, ViLT, RoBERTa), each
-counted from 0 just before its steps. The entries ``flash_fwd_vilt``, ``flash_bwd_fused_vilt``,
+counted from 0 just before its steps; those of ``rmsnorm_fwd`` and
+``rmsnorm_bwd`` the mamba and llava main paths' (their remat sessions'
+norms are not counted). The entries ``flash_fwd_vilt``, ``flash_bwd_fused_vilt``,
 ``flash_fwd_roberta`` and ``flash_bwd_fused_roberta`` are the same two
 kernels at vilt-pretrain's and RoBERTa-large's shapes, their ``launches``
 those of the main paths at that shape (counted in ``flash_fwd`` and
@@ -854,7 +868,8 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     ``layout`` is one of ``profile_step.make_plan``'s. ``counters`` is the
     kernel module whose launch counts ``names`` are zeroed just before the
     steps and read just after, and so are the LM-head loss's
-    (``ops/xent.py``), returned as ``xent``. The first loss must lie in
+    (``ops/xent.py``), returned as ``xent``, and RMSNorm's
+    (``ops/rmsnorm.py``), returned as ``rmsnorm``. The first loss must lie in
     ``loss_band``.
     For a model with a trainable mask, every frozen parameter must come out
     bit for bit and every trainable one must have moved; in the f32 layout
@@ -863,7 +878,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     the median step of each backward, the peak memory and the dropout
     generator's state after the steps."""
     from multimodal_llm_pretraining_tpu_torch.models import get_model_class
-    from multimodal_llm_pretraining_tpu_torch.ops import xent
+    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm, xent
     from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
     from multimodal_llm_pretraining_tpu_torch.utils import block_on
 
@@ -893,6 +908,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     torch.cuda.reset_peak_memory_stats()
     counters.reset_launch_counts()
     xent.reset_launch_counts()
+    rmsnorm.reset_launch_counts()
     attn.XLA_BRANCH_CALLS = 0
     losses, times = [], []
     try:
@@ -913,6 +929,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
         fa.PREFER_FUSED_BWD = True
     launches = {n: getattr(counters, n) for n in names}
     xent_launches = {"xent_fwd": xent.XENT_FWD_LAUNCHES, "xent_bwd": xent.XENT_BWD_LAUNCHES}
+    norm_launches = {"rmsnorm_fwd": rmsnorm.RMSNORM_FWD_LAUNCHES, "rmsnorm_bwd": rmsnorm.RMSNORM_BWD_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     if attn.XLA_BRANCH_CALLS != 0:
         raise AssertionError(f"{model_type}: {attn.XLA_BRANCH_CALLS} attention calls took the xla branch")
@@ -952,10 +969,11 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
         say(f"[main] {model_type} fused vs split backward, median step: {medians[True]:.4f} vs {medians[False]:.4f} s "
             f"(split / fused {medians[False] / medians[True]:.4f})")
     say(f"[main] {model_type} peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches "
-        + ", ".join(f"{n} {c}" for n, c in (launches | xent_launches).items()) + ", xla-branch attention calls 0")
+        + ", ".join(f"{n} {c}" for n, c in (launches | xent_launches | norm_launches).items())
+        + ", xla-branch attention calls 0")
     if after is not None:
         after(sess, state)
-    return {"module": sess.module, "launches": launches, "xent": xent_launches,
+    return {"module": sess.module, "launches": launches, "xent": xent_launches, "rmsnorm": norm_launches,
             "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)},
             "losses": losses, "medians": medians, "peak": peak, "dropout_state": sess.dropout_generator.get_state()}
 
@@ -1168,10 +1186,16 @@ def phase_mamba_main_path() -> dict:
     recompute runs it again) and the backward once."""
     run = drive_training("mamba", mbs=2, acc=2, remat=True, counters=ssf, loss_band=TEXT_LOSS_BAND)
     run["launches"] = tuple(run["launches"].values())
-    calls = len(run["module"].layers) * sum(run["micro_batches"].values())
+    micro_batches = sum(run["micro_batches"].values())
+    calls = len(run["module"].layers) * micro_batches
     if run["launches"] != (2 * calls, calls):
         raise AssertionError(f"scan launches {run['launches']}, expected ({2 * calls}, {calls})")
-    return {"scan_fwd": run["launches"][0], "scan_bwd": run["launches"][1]} | xent_launch_entries(run, "mamba")
+    # each block's norm forward twice (its replay), backward once, and the final norm's once each
+    norms = {"rmsnorm_fwd": 2 * calls + micro_batches, "rmsnorm_bwd": calls + micro_batches}
+    if run["rmsnorm"] != norms:
+        raise AssertionError(f"mamba: rmsnorm launches {run['rmsnorm']}, expected {norms}")
+    return ({"scan_fwd": run["launches"][0], "scan_bwd": run["launches"][1]} | xent_launch_entries(run, "mamba")
+            | run["rmsnorm"])
 
 
 # ---------------------------------------------------------------- varlen flash attention (llava)
@@ -1312,7 +1336,11 @@ def phase_llava_main_path() -> dict:
                                        run["micro_batches"], plain_bwd=False)
     if run["launches"] != expected:
         raise AssertionError(f"llava launches {run['launches']}, expected {expected}")
-    return flash_launch_entries(run["launches"]) | xent_launch_entries(run, "llava-pretrain")
+    # the decoder's two norms a layer and its final norm, forward and backward (the gradient reaches the projector)
+    n = (2 * len(mod.language_model.layers) + 1) * sum(run["micro_batches"].values())
+    if run["rmsnorm"] != {"rmsnorm_fwd": n, "rmsnorm_bwd": n}:
+        raise AssertionError(f"llava: rmsnorm launches {run['rmsnorm']}, expected {n} of each")
+    return flash_launch_entries(run["launches"]) | xent_launch_entries(run, "llava-pretrain") | run["rmsnorm"]
 
 
 # ---------------------------------------------------------------- split backward (ViT)
@@ -2357,6 +2385,108 @@ def phase_xent() -> list[dict]:
     ]
 
 
+# ---------------------------------------------------------------- RMSNorm
+
+RMSNORM_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/rmsnorm.cu"
+RMSNORM_SHAPE = (8 * 4096, 2560)  # mamba-2.8b at the benchmark's micro-batch: 8 rows of 4096 tokens, d_model 2560
+RMSNORM_LLAVA_SHAPE = (16 * LLAVA_TOKENS_PER_SAMPLE, 2048)  # llava-pretrain's decoder at mbs 16
+RMSNORM_EPS = 1e-5
+# kernel vs plain version (as tests/test_torch_kernels.py): both in f32, in
+# another summation order and with the kernel's rsqrtf; rstd, f32 dx and the
+# scale's gradient within 1e-5 of their norm, bf16 outputs within one bf16
+# rounding
+TOL_RMSNORM_F32 = 1e-5
+TOL_RMSNORM_BF16 = 4e-3
+
+
+def _rmsnorm_tol(dtype: torch.dtype) -> float:
+    return TOL_RMSNORM_BF16 if dtype == torch.bfloat16 else TOL_RMSNORM_F32
+
+
+def _rmsnorm_inputs(rows: int, cols: int, x_dtype, y_dtype, residual: bool, seed: int):
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = (torch.randn(rows, cols, generator=g, device="cuda") * 3 + 0.5).to(x_dtype)
+    w = torch.rand(cols, generator=g, device="cuda") + 0.5
+    dy = torch.randn(rows, cols, generator=g, device="cuda").to(y_dtype)
+    dres = torch.randn(rows, cols, generator=g, device="cuda").to(x_dtype) if residual else None
+    return x, w, dy, dres
+
+
+def check_rmsnorm_at(rows: int, cols: int, x_dtype, y_dtype, residual: bool, seed: int) -> dict:
+    """Both norm kernels against their plain versions; a second launch of
+    each must repeat the first bit for bit."""
+    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
+
+    x, w, dy, dres = _rmsnorm_inputs(rows, cols, x_dtype, y_dtype, residual, seed)
+    y_ref, rstd_ref = rmsnorm.rmsnorm_fwd_reference(x, w, RMSNORM_EPS, y_dtype)
+    dx_ref, dw_ref = rmsnorm.rmsnorm_bwd_reference(dy, x, rstd_ref, w, dres)
+    runs = [(*rmsnorm.rmsnorm_fwd_cuda(x, w, RMSNORM_EPS, y_dtype), *rmsnorm.rmsnorm_bwd_cuda(dy, x, rstd_ref, w, dres))
+            for _ in range(2)]
+    y, rstd, dx, dw = runs[0]
+    errs = {"y": _errs(y, y_ref), "rstd": _errs(rstd, rstd_ref), "dx": _errs(dx, dx_ref), "dw": _errs(dw, dw_ref)}
+    repeat = all(torch.equal(a, b) for a, b in zip(*runs))
+    say(f"[rmsnorm] kernels vs plain at [{rows}, {cols}] {str(x_dtype)[6:]} -> {str(y_dtype)[6:]}"
+        f"{' with the residual' if residual else ''}: " + ", ".join(f"{n} norm_rel {e[1]:.1e}" for n, e in errs.items())
+        + f"; second run identical {repeat}")
+    if not (errs["y"][1] <= _rmsnorm_tol(y_dtype) and errs["dx"][1] <= _rmsnorm_tol(x_dtype)
+            and max(errs["rstd"][1], errs["dw"][1]) <= TOL_RMSNORM_F32 and repeat):
+        raise AssertionError(f"rmsnorm kernels at [{rows}, {cols}]: {errs}, repeat {repeat}")
+    return errs
+
+
+def phase_rmsnorm() -> list[dict]:
+    """The norm kernels: against their plain versions at mamba's benchmark
+    micro-batch (a block's norm with the residual, the final norm without),
+    llava's decoder and a ragged row; then timed at mamba's shape beside
+    their bounds, their plain versions and the yardsticks (``F.rms_norm``
+    and the cast to bf16; the pre-change autograd chain's backward and the
+    residual's add). The kernels JSON line's entries ``rmsnorm_fwd``,
+    ``rmsnorm_bwd``."""
+    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
+
+    rows, cols = RMSNORM_SHAPE
+    errs = check_rmsnorm_at(rows, cols, torch.float32, torch.bfloat16, True, seed=30)
+    check_rmsnorm_at(rows, cols, torch.float32, torch.bfloat16, False, seed=31)
+    check_rmsnorm_at(*RMSNORM_LLAVA_SHAPE, torch.bfloat16, torch.bfloat16, False, seed=32)
+    check_rmsnorm_at(3, 100, torch.bfloat16, torch.float32, True, seed=33)
+
+    x, w, dy, dres = _rmsnorm_inputs(rows, cols, torch.float32, torch.bfloat16, True, seed=34)
+    y, rstd = rmsnorm.rmsnorm_fwd_cuda(x, w, RMSNORM_EPS, torch.bfloat16)
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y_chain = (xg * (torch.rsqrt(xg.square().mean(-1, keepdim=True) + RMSNORM_EPS) * wg)).to(torch.bfloat16)
+
+    def chain_backward():
+        dx, _ = torch.autograd.grad(y_chain, (xg, wg), dy, retain_graph=True)
+        return dx + dres
+
+    t = {
+        "fwd": cuda_ms(lambda: rmsnorm.rmsnorm_fwd_cuda(x, w, RMSNORM_EPS, torch.bfloat16)),
+        "fwd_plain": cuda_ms(lambda: rmsnorm.rmsnorm_fwd_reference(x, w, RMSNORM_EPS, torch.bfloat16)),
+        "fwd_library": cuda_ms(lambda: torch.nn.functional.rms_norm(x, (cols,), w, RMSNORM_EPS).to(torch.bfloat16)),
+        "bwd": cuda_ms(lambda: rmsnorm.rmsnorm_bwd_cuda(dy, x, rstd, w, dres)),
+        "bwd_plain": cuda_ms(lambda: rmsnorm.rmsnorm_bwd_reference(dy, x, rstd, w, dres)),
+        "bwd_library": cuda_ms(chain_backward),
+    }
+    say(f"[rmsnorm] ms a call at {list(RMSNORM_SHAPE)} f32 -> bf16: " + ", ".join(f"{n} {ms:.4f}" for n, ms in t.items()))
+    # bytes: the forward reads the f32 stream and the scale and writes bf16 y and an f32 rstd a row; the
+    # backward reads bf16 dy, the stream, rstd, the scale and the residual's f32 gradient, and writes the
+    # stream's f32 gradient and the scale's
+    small = _nbytes(w, rstd)
+    bounds = {"fwd": bound(_nbytes(x, y) + small), "bwd": bound(_nbytes(dy, x, dres, x) + 2 * small)}
+    for n in ("fwd", "bwd"):
+        say(f"[rmsnorm] {n} at {list(RMSNORM_SHAPE)}: {t[n]:.4f} ms a call, bound {bounds[n]['bound_ms']:.4f} ms "
+            f"({bounds[n]['bound_by']}), {bounds[n]['bound_ms'] / t[n]:.3f} of it; plain {t[n + '_plain']:.4f} ms, "
+            f"yardstick {t[n + '_library']:.4f} ms ({t[n + '_library'] / t[n]:.2f}x the kernel)")
+    return [
+        {"name": "rmsnorm_fwd", "route": "cuda", "source": RMSNORM_SOURCE, "replaces": None, "launches": None,
+         "max_abs_err": errs["y"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"], **bounds["fwd"],
+         "library_ms": t["fwd_library"]},
+        {"name": "rmsnorm_bwd", "route": "cuda", "source": RMSNORM_SOURCE, "replaces": None, "launches": None,
+         "max_abs_err": errs["dx"][0], "ms": t["bwd"], "plain_ms": t["bwd_plain"], **bounds["bwd"],
+         "library_ms": t["bwd_library"]},
+    ]
+
+
 def families(card: str, add) -> list[dict]:
     """Phases 22-25; returns the kernels line's entries at ViLT's and
     RoBERTa's shapes, each with the launches of the main paths at that
@@ -2379,6 +2509,7 @@ def main() -> int:
     card = phase_env()
     phase_build()
     xent_kernels = phase_xent()
+    norm_kernels = phase_rmsnorm()
     pythia_times, kernels = phase_kernels()
     phase_slice()
     launches: dict[str, int] = {}
@@ -2407,7 +2538,7 @@ def main() -> int:
     add(phase_remat_llava())
     add(phase_harness(card, bf16_sr_run))
     shaped = families(card, add)
-    kernels += xent_kernels
+    kernels += xent_kernels + norm_kernels
     for k in kernels:
         k["launches"] = launches[k["name"]]
     kernels += shaped

@@ -21,6 +21,7 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selective_checkpoint_contexts, noop_context_fn
 
+from ..ops import rmsnorm
 from ..ops.attention import AttnImpl, dot_product_attention
 from ..ops.flash_attention import flash_fwd
 from ..tracing import profiling, span
@@ -139,7 +140,14 @@ class LayerNorm(nn.LayerNorm):
 class RMSNorm(nn.Module):
     """flax ``nn.RMSNorm(epsilon=1e-5, dtype=...)``: the mean square in f32
     whatever the input dtype (``force_float32_reductions``), then
-    ``x * (rsqrt(ms + eps) * scale)`` in f32, result in ``dtype``."""
+    ``x * (rsqrt(ms + eps) * scale)`` in f32, result in ``dtype``.
+
+    On the card it runs on ``ops/rmsnorm.py``'s two hand-written kernels,
+    which raise for rows they do not take; on the CPU, on the plain math
+    below. With ``residual`` the call
+    returns (y, x): the caller adds its block's output to that x, and on the
+    card the add's gradient then reaches the norm's backward kernel, which
+    sums it with the norm's own in its one pass over the stream."""
 
     def __init__(self, features: int, eps: float = 1e-5, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -147,10 +155,13 @@ class RMSNorm(nn.Module):
         self.eps = eps
         self.compute_dtype = dtype
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        x = x.float()
-        mul = torch.rsqrt(x.square().mean(-1, keepdim=True) + self.eps) * self.weight.float()
-        return (x * mul).to(self.compute_dtype)
+    def forward(self, x: torch.Tensor, residual: bool = False):
+        if x.is_cuda:
+            return rmsnorm.rmsnorm(x, self.weight, self.eps, self.compute_dtype, residual)
+        xf = x.float()
+        mul = torch.rsqrt(xf.square().mean(-1, keepdim=True) + self.eps) * self.weight.float()
+        y = (xf * mul).to(self.compute_dtype)
+        return (y, x) if residual else y
 
 
 class SelfAttention(nn.Module):

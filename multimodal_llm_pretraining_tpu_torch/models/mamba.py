@@ -9,6 +9,31 @@ JAX package's (a CPU test pins it equal).
 The selective scan runs through ``ops/selective_scan.py``: the hand-written
 CUDA kernels on the card, their plain versions on the CPU, and the plain
 chunked scan under autograd with ``use_custom_kernels=False``.
+
+``residual_in_fp32`` (the default, ``RESIDUAL_IN_FP32``) computes as
+state-spaces/mamba runs the published configuration:
+
+- the residual stream is f32: the embedding's rows are widened to f32, each
+  block normalises the f32 stream into the compute dtype and adds its output
+  back in f32, and the final norm reads the f32 stream; under remat a block
+  keeps that one f32 tensor. On the card the norms run on
+  ``ops/rmsnorm.py``'s kernel pair, the published ``fused_add_norm``: the
+  block's residual add is one PyTorch add, and its gradient joins the norm's
+  in the backward kernel;
+- the conv and its SiLU, and the gate ``y * SiLU(z)``, are computed in f32
+  and rounded once to the compute dtype, as mamba_ssm's causal-conv and
+  selective-scan kernels compute them. Rounding each step to bf16, as the
+  JAX package does, moves mamba-2.8b's first loss (8 x 4096 tokens, on an
+  H100) by about +2.3e-4 of itself against a reference that keeps them in
+  f32, more than the residual stream's precision moves it.
+
+``residual_in_fp32=False`` computes as the JAX package does, every step in
+the compute dtype, the stream included: the port's arithmetic before the
+option. So the switch selects two things, the stream's precision and that
+of the conv and the gate, where mamba_ssm's setting of the same name selects
+the stream's alone (its kernels keep the conv and the gate in f32 either
+way). False exists for the tests that hold the port to the JAX package;
+they set it through ``RESIDUAL_IN_FP32``.
 """
 
 import math
@@ -33,12 +58,17 @@ D_INNER = EXPAND * D_MODEL  # 5120
 DT_RANK = math.ceil(D_MODEL / 16)  # 160
 VOCAB = 50280
 LN_EPS = 1e-5
+RESIDUAL_IN_FP32 = True  # state-spaces/mamba-2.8b's config.json
 
 
 class MambaBlock(nn.Module):
     """RMSNorm -> in_proj (u | z) -> causal conv + SiLU on u -> x_proj (dt |
     B | C) -> dt_proj + softplus -> selective scan -> * SiLU(z) -> out_proj,
-    plus the residual. ``conv_weight`` keeps the JAX layout [d_conv, d_inner]."""
+    plus the residual. ``conv_weight`` keeps the JAX layout [d_conv, d_inner].
+    With ``residual_in_fp32`` the block takes and returns the residual
+    stream in f32, its own work in the compute dtype but for the conv with
+    its SiLU and the gate, each computed in f32 and rounded once (see
+    above); without, all of it is in the compute dtype."""
 
     def __init__(
         self,
@@ -50,9 +80,11 @@ class MambaBlock(nn.Module):
         eps: float = LN_EPS,
         use_custom_kernels: bool = True,
         dtype: torch.dtype = torch.float32,
+        residual_in_fp32: bool = True,
     ):
         super().__init__()
         self.d_inner, self.d_state, self.dt_rank = d_inner, d_state, dt_rank
+        self.residual_in_fp32 = residual_in_fp32
         self.use_custom_kernels = use_custom_kernels
         self.compute_dtype = dtype
         self.norm = RMSNorm(d_model, eps=eps, dtype=dtype)
@@ -67,13 +99,19 @@ class MambaBlock(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         cdt = self.compute_dtype
-        u, z = self.in_proj(self.norm(x)).chunk(2, dim=-1)
-        u = F.silu(causal_conv1d(u, self.conv_weight.to(cdt), self.conv_bias.to(cdt)))
+        if self.residual_in_fp32:
+            # x comes back as the add's operand, so that its gradient reaches the norm's backward
+            h, x = self.norm(x.float(), residual=True)
+        else:
+            h = self.norm(x)
+        wide = torch.float32 if self.residual_in_fp32 else cdt  # where mamba_ssm's kernels compute in f32
+        u, z = self.in_proj(h).chunk(2, dim=-1)
+        u = F.silu(causal_conv1d(u.to(wide), self.conv_weight.to(wide), self.conv_bias.to(wide))).to(cdt)
         dt, B, C = self.x_proj(u).split([self.dt_rank, self.d_state, self.d_state], dim=-1)
         delta = F.softplus(self.dt_proj(dt))
         A = -torch.exp(self.A_log)
         y = selective_scan(u, delta, A, B, C, self.D, use_custom_kernels=self.use_custom_kernels)
-        return x + self.out_proj(y * F.silu(z))
+        return x + self.out_proj((y * F.silu(z.to(wide))).to(cdt))
 
 
 class MambaLM(nn.Module):
@@ -81,7 +119,10 @@ class MambaLM(nn.Module):
     and the tied LM head (``embedding.T``). With ``remat`` each block runs
     under ``torch.utils.checkpoint`` (``layers.remat``): the JAX stack's default "flash" policy
     saves only flash-attention residuals, and a Mamba block has none, so
-    there it is whole-block remat too."""
+    there it is whole-block remat too, keeping the block's input stream
+    alone. ``residual_in_fp32`` carries the stream in f32 and computes the
+    conv and the gate in f32; False computes all of it as the JAX package
+    does (see above)."""
 
     def __init__(
         self,
@@ -96,13 +137,16 @@ class MambaLM(nn.Module):
         use_custom_kernels: bool = True,
         remat: bool = False,
         dtype: torch.dtype = torch.float32,
+        residual_in_fp32: bool = True,
     ):
         super().__init__()
         self.compute_dtype = dtype
         self.remat = remat
+        self.stream_dtype = torch.float32 if residual_in_fp32 else dtype
         self.embedding = nn.Parameter(torch.empty(vocab_size, d_model))
         self.layers = nn.ModuleList(
-            MambaBlock(d_model, d_inner, d_state, d_conv, dt_rank, eps, use_custom_kernels, dtype) for _ in range(num_layers)
+            MambaBlock(d_model, d_inner, d_state, d_conv, dt_rank, eps, use_custom_kernels, dtype, residual_in_fp32)
+            for _ in range(num_layers)
         )
         self.final_norm = RMSNorm(d_model, eps=eps, dtype=dtype)
 
@@ -135,7 +179,7 @@ class MambaLM(nn.Module):
     def forward(self, input_ids: torch.Tensor, labels: torch.Tensor | None = None) -> torch.Tensor:
         """Logits when ``labels`` is None, else the (shifted) LM loss via the
         chunked vocab projection."""
-        x = F.embedding(input_ids, self.embedding).to(self.compute_dtype)
+        x = F.embedding(input_ids, self.embedding).to(self.stream_dtype)
         for block in self.layers:
             x = remat(block, x) if self.remat else block(x)
         x = self.final_norm(x)
@@ -154,14 +198,15 @@ class MambaModelClass(LanguageModelClass[MambaT]):
         device: torch.device | str = "cuda",
     ) -> ModelBundle:
         """``activation_checkpointing`` remats each whole block. The sizes
-        are this module's constants, read at call time as the JAX model reads
-        its own."""
+        and ``RESIDUAL_IN_FP32`` are this module's constants, read at call
+        time as the JAX model reads its own."""
         if compute_dtype is None:
             compute_dtype = torch.bfloat16 if self.mixed_precision else torch.float32
         with torch.device("meta"):
             module = MambaLM(
                 D_MODEL, N_LAYER, D_INNER, D_STATE, D_CONV, DT_RANK, VOCAB, LN_EPS,
                 use_custom_kernels=use_custom_kernels, remat=activation_checkpointing, dtype=compute_dtype,
+                residual_in_fp32=RESIDUAL_IN_FP32,
             )
         module = module.to_empty(device=device)
 

@@ -25,7 +25,7 @@ from ..utils import get_logger
 PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
-SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dq.cu", "selective_scan.cu", "xent.cu")
+SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dq.cu", "selective_scan.cu", "xent.cu", "rmsnorm.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -148,6 +148,12 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.mlpt_xent_fwd.restype = i32
             lib.mlpt_xent_bwd.argtypes = [ptr] * 5 + [i32, i32, i64, i64, i32, ptr]
             lib.mlpt_xent_bwd.restype = i32
+            lib.mlpt_rmsnorm_fwd.argtypes = [ptr] * 4 + [i32, i32, f32, i32, i32, ptr]
+            lib.mlpt_rmsnorm_fwd.restype = i32
+            lib.mlpt_rmsnorm_bwd_grid.argtypes = [i32] * 4
+            lib.mlpt_rmsnorm_bwd_grid.restype = i32
+            lib.mlpt_rmsnorm_bwd.argtypes = [ptr] * 7 + [i32] * 5 + [ptr]
+            lib.mlpt_rmsnorm_bwd.restype = i32
             lib.mlpt_error_string.argtypes = [i32]
             lib.mlpt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -10,6 +10,10 @@
   (``selective_scan_reference``) under autograd, anywhere: the JAX package's
   slow-path parity branch.
 
+The scan's forward records the span ``scan.forward`` (a block's replay under
+remat too); the kernels' backward records ``scan.backward``
+(``selective_scan_fused``), ``tracing.py``.
+
 The JAX dispatcher sends only TPU runs with L > ``chunk_size`` to its Pallas
 kernels and everything else to its XLA chunked scan (``:68``). The port has
 no XLA path to fall back to on the card: a plain PyTorch scan there
@@ -22,6 +26,7 @@ partial chunk.
 import torch
 import torch.nn.functional as F
 
+from ..tracing import span
 from .selective_scan_fused import chunked_scan, selective_scan_fused, skip
 
 
@@ -56,6 +61,7 @@ def selective_scan(
     h_t = exp(delta_t A) h_{t-1} + delta_t B_t u_t; in u's dtype.
     ``chunk_size`` is the plain scan's chunk; the kernels checkpoint every
     256 steps whatever it is."""
-    if use_custom_kernels:
-        return selective_scan_fused(u, delta, A, B, C, D)
-    return selective_scan_reference(u, delta, A, B, C, D, chunk_size=chunk_size)
+    with span("scan.forward"):
+        if use_custom_kernels:
+            return selective_scan_fused(u, delta, A, B, C, D)
+        return selective_scan_reference(u, delta, A, B, C, D, chunk_size=chunk_size)

@@ -44,6 +44,7 @@ from typing import Optional
 import torch
 import torch.nn.functional as F
 
+from ..tracing import span
 from . import _build
 from .flash_attention import MAX_GRID_Y, bh_chunks
 
@@ -443,15 +444,17 @@ def _scan_setup_context(ctx, inputs, output) -> None:
 
 def _scan_backward(ctx, g, _dckpt):
     """The backward op, then the D skip's terms in f32, as in the JAX
-    custom VJP: y = scan(...) + D * u adds D * g to du and carries dD."""
+    custom VJP: y = scan(...) + D * u adds D * g to du and carries dD. All
+    of it in the span ``scan.backward``."""
     u, delta, A, B, C, D, ckpt = ctx.saved_tensors
-    g32 = g.float()
-    du, ddelta, dA, dB, dC = scan_bwd(u, delta, A, B, C, g32, ckpt)
-    dD = None
-    if D is not None:
-        du = du + D.float() * g32
-        dD = (g32 * u.float()).sum((0, 1)).to(D.dtype)
-    return du.to(u.dtype), ddelta.to(delta.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype), dD
+    with span("scan.backward"):
+        g32 = g.float()
+        du, ddelta, dA, dB, dC = scan_bwd(u, delta, A, B, C, g32, ckpt)
+        dD = None
+        if D is not None:
+            du = du + D.float() * g32
+            dD = (g32 * u.float()).sum((0, 1)).to(D.dtype)
+        return du.to(u.dtype), ddelta.to(delta.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype), dD
 
 
 scan_fwd.register_autograd(_scan_backward, setup_context=_scan_setup_context)

@@ -16,6 +16,9 @@ The spans the port records:
   (``models/layers.py`` ``remat``);
 - ``xent.forward``, ``xent.backward``: the chunked LM-head loss, its chunk
   recomputes included (``ops/xent.py``);
+- ``scan.forward``, ``scan.backward``: the selective scan, its forward in
+  a block's replay included (``ops/selective_scan.py``), and the kernels'
+  backward with its f32 epilogue (``ops/selective_scan_fused.py``);
 - ``ipot``: ViLT's optimal-transport iterations (``models/vilt.py``).
 """
 

@@ -1,5 +1,6 @@
 """The port's CUDA kernels (flash attention: forward, fused backward and the
-split dq and dk/dv backward; selective scan) against their plain versions.
+split dq and dk/dv backward; selective scan; the LM-head loss; RMSNorm)
+against their plain versions.
 
 This file imports no JAX, so it runs on a GPU machine without it:
 
@@ -1153,3 +1154,211 @@ def test_pythia_micro_batch_runs_its_loss_on_the_xent_kernels():
     assert 10.0 < float(loss) < 12.0
     del sess, state
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- RMSNorm
+
+# The norm kernels against their plain versions, both computing in f32 and
+# differing in summation order (a row's mean square and the backward's dot,
+# the scale's gradient over rows) and in the kernel's rsqrtf (2 ulps): rstd
+# within 1e-5 relative; dx in f32 and the scale's f32 gradient within 1e-5 of
+# their norm; y and dx in bf16 within one bf16 rounding (4e-3 of the norm),
+# the two sides rounding f32 values that may lie an ulp apart. Neither
+# kernel has atomics, so a second run repeats the first bit for bit.
+RMSNORM_F32_NORM_REL = 1e-5
+RMSNORM_BF16_NORM_REL = 4e-3
+RMSNORM_RSTD_REL = 1e-5
+RMSNORM_EPS = 1e-5
+
+
+def _rmsnorm_tol(dtype: torch.dtype) -> float:
+    return RMSNORM_BF16_NORM_REL if dtype == torch.bfloat16 else RMSNORM_F32_NORM_REL
+
+
+def _rmsnorm_inputs(rows: int, cols: int, x_dtype: torch.dtype, dy_dtype: torch.dtype, seed: int = 0,
+                    device: str = "cuda"):
+    """x about N(0.5, 9), the scale in [0.5, 1.5), dy and the residual's
+    gradient N(0, 1)."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    x = (torch.randn(rows, cols, generator=g, device=device) * 3 + 0.5).to(x_dtype)
+    w = torch.rand(cols, generator=g, device=device) + 0.5
+    dy = torch.randn(rows, cols, generator=g, device=device).to(dy_dtype)
+    dres = torch.randn(rows, cols, generator=g, device=device).to(x_dtype)
+    return x, w, dy, dres
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rows,cols,x_dtype,y_dtype,residual", [
+    (32768, 2560, torch.float32, torch.bfloat16, True),  # mamba-2.8b's micro-batch: a block's norm on the f32 stream
+    (32768, 2560, torch.float32, torch.bfloat16, False),  # its final norm
+    (17392, 2048, torch.bfloat16, torch.bfloat16, False),  # llava-pretrain's decoder (Llama-3.2-1B) at 16 x 1087
+    (1, 4, torch.float32, torch.float32, True),  # one group of four
+    (3, 100, torch.bfloat16, torch.float32, True),  # 25 groups: one warp, 7 lanes idle
+    (5, 1028, torch.float32, torch.bfloat16, True),  # 257 groups: two a thread, a ragged last warp
+    (7, 4100, torch.bfloat16, torch.bfloat16, True),  # 1025 groups: eight a thread
+    (2, 8192, torch.float32, torch.bfloat16, True),  # the widest row, 256 threads of eight groups
+    (1000, 64, torch.bfloat16, torch.bfloat16, False),  # more rows than the backward's grid
+])
+def test_rmsnorm_kernels_match_plain_versions(rows, cols, x_dtype, y_dtype, residual):
+    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
+
+    _needs_cuda()
+    x, w, dy, dres = _rmsnorm_inputs(rows, cols, x_dtype, y_dtype)
+    dres = dres if residual else None
+    y_ref, rstd_ref = rmsnorm.rmsnorm_fwd_reference(x, w, RMSNORM_EPS, y_dtype)
+    dx_ref, dw_ref = rmsnorm.rmsnorm_bwd_reference(dy, x, rstd_ref, w, dres)
+    runs = []
+    for _ in range(2):
+        y, rstd = rmsnorm.rmsnorm_fwd_cuda(x, w, RMSNORM_EPS, y_dtype)
+        dx, dw = rmsnorm.rmsnorm_bwd_cuda(dy, x, rstd_ref, w, dres)
+        runs.append((y, rstd, dx, dw))
+    y, rstd, dx, dw = runs[0]
+    assert (y.dtype, rstd.dtype, dx.dtype, dw.dtype) == (y_dtype, torch.float32, x_dtype, torch.float32)
+    torch.testing.assert_close(rstd, rstd_ref, rtol=RMSNORM_RSTD_REL, atol=0)
+    _close(y, y_ref, _rmsnorm_tol(y_dtype))
+    _close(dx, dx_ref, _rmsnorm_tol(x_dtype))
+    _close(dw, dw_ref, RMSNORM_F32_NORM_REL)
+    assert all(torch.equal(a, b) for a, b in zip(*runs))
+    dx_frozen, dw_frozen = rmsnorm.rmsnorm_bwd_cuda(dy, x, rstd_ref, w, dres, need_dw=False)
+    assert dw_frozen is None and torch.equal(dx_frozen, dx)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_kernels_refuse_what_they_do_not_take():
+    """Rows the kernels do not take raise, in the launch wrapper and in
+    ``layers.RMSNorm`` on the card, which has no plain fallback there."""
+    from multimodal_llm_pretraining_tpu_torch.models import layers
+    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
+
+    _needs_cuda()
+    for x in (torch.ones(2, 6, device="cuda"), torch.ones(2, 8196, device="cuda"),
+              torch.ones(2, 8, device="cuda", dtype=torch.float16)):
+        assert not rmsnorm.kernel_takes(x)
+        with pytest.raises(ValueError, match="rmsnorm kernels take"):
+            rmsnorm.rmsnorm_fwd_cuda(x, torch.ones(x.shape[-1], device="cuda"), RMSNORM_EPS, torch.bfloat16)
+        norm = layers.RMSNorm(x.shape[-1], dtype=torch.bfloat16).cuda()
+        with pytest.raises(ValueError, match="rmsnorm kernels take"):
+            norm(x.clone().requires_grad_(), residual=True)
+
+
+@pytest.mark.cuda
+def test_rmsnorm_module_runs_on_the_kernels():
+    """``layers.RMSNorm`` on the card at mamba's width: one forward and one
+    backward launch, the residual's gradient joining the norm's in the
+    backward; the output and the gradients are the plain math's."""
+    from multimodal_llm_pretraining_tpu_torch.models import layers
+    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
+
+    _needs_cuda()
+    x, w, dy, dres = _rmsnorm_inputs(64, 2560, torch.float32, torch.bfloat16, seed=3)
+    norm = layers.RMSNorm(2560, dtype=torch.bfloat16).cuda()
+    with torch.no_grad():
+        norm.weight.copy_(w)
+    xk = x.clone().requires_grad_()
+    rmsnorm.reset_launch_counts()
+    y, passed = norm(xk, residual=True)
+    ((y.float() * dy.float()).sum() + (passed * dres).sum()).backward()
+    assert (rmsnorm.RMSNORM_FWD_LAUNCHES, rmsnorm.RMSNORM_BWD_LAUNCHES) == (1, 1)
+    assert passed.dtype == torch.float32 and passed.data_ptr() == xk.data_ptr()
+    y_ref, rstd = rmsnorm.rmsnorm_fwd_reference(x, w, RMSNORM_EPS, torch.bfloat16)
+    dx_ref, dw_ref = rmsnorm.rmsnorm_bwd_reference(dy, x, rstd, w, dres)
+    _close(y, y_ref, RMSNORM_BF16_NORM_REL)
+    _close(xk.grad, dx_ref, RMSNORM_F32_NORM_REL)
+    _close(norm.weight.grad, dw_ref, RMSNORM_F32_NORM_REL)
+
+
+@pytest.mark.cuda
+def test_mamba_micro_batch_runs_its_norms_on_the_kernels(monkeypatch):
+    """A mamba micro-batch at full width and sequence, narrowed to 4 blocks,
+    under block remat in ``bf16_sr``: each block's norm forward twice (the
+    replay runs it again) and backward once, plus the final norm's, all on
+    the kernels (2 x 4 + 1 forward, 4 + 1 backward); the residual stream
+    between blocks is f32."""
+    from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+    from multimodal_llm_pretraining_tpu_torch.models import mamba as tmamba
+    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
+    from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
+
+    _needs_cuda()
+    monkeypatch.setattr(tmamba, "N_LAYER", 4)
+    mc = get_model_class("mamba")
+    sess = make_plan(mc, 2, 1, True, "bf16_sr").build_session(mc, device="cuda")
+    state = sess.init_state()
+    streams = []
+    for block in sess.module.layers:
+        block.register_forward_hook(lambda mod, args, out: streams.append((args[0].dtype, out.dtype)))
+    batch = {k: v[0] for k, v in sess.make_train_batch(seed=0).items()}
+    rmsnorm.reset_launch_counts()
+    loss = sess.accumulate_fn()(state, batch)
+    torch.cuda.synchronize()
+    assert (rmsnorm.RMSNORM_FWD_LAUNCHES, rmsnorm.RMSNORM_BWD_LAUNCHES) == (9, 5)
+    # one record a block: the replay stops once it has recomputed what the backward reads
+    assert streams == [(torch.float32, torch.float32)] * 4
+    assert 10.0 < float(loss) < 12.0
+    del sess, state
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("x_dtype,dtype", [(torch.float32, torch.bfloat16), (torch.bfloat16, torch.bfloat16),
+                                           (torch.float32, torch.float32)])
+@pytest.mark.parametrize("residual", [False, True])
+def test_rmsnorm_plain_path_equals_layers_rmsnorm(x_dtype, dtype, residual):
+    """On the CPU ``ops/rmsnorm.py``'s autograd Function on the plain versions
+    gives ``layers.RMSNorm``'s plain math: the output bit for bit (the same
+    ops), the passed-through x as the input itself, and the gradients of x
+    and of the scale to f32 summation order (the backward's closed form
+    against autograd's chain). A bf16 x's gradient with the residual's added
+    may land one bf16 ulp apart: the Function adds in f32 and rounds once,
+    autograd rounds the norm's gradient and then sums in bf16: one ulp of
+    the largest entry, since the sum may cancel to near 0."""
+    from multimodal_llm_pretraining_tpu_torch.models import layers
+    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
+
+    x, w, dy, dres = _rmsnorm_inputs(6, 64, x_dtype, dtype, seed=5, device="cpu")
+    x = x.reshape(2, 3, 64)
+    dy, dres = dy.reshape(2, 3, 64), dres.reshape(2, 3, 64)
+    norm = layers.RMSNorm(64, dtype=dtype)
+    with torch.no_grad():
+        norm.weight.copy_(w)
+    outs = []
+    for fn, weight in ((norm, norm.weight), (None, w.clone().requires_grad_())):
+        xx = x.clone().requires_grad_()
+        out = fn(xx, residual=residual) if fn else rmsnorm.rmsnorm(xx, weight, RMSNORM_EPS, dtype, residual)
+        y, passed = out if residual else (out, None)
+        loss = (y.float() * dy.float()).sum() + ((passed.float() * dres.float()).sum() if residual else 0.0)
+        loss.backward()
+        outs.append((y, passed, xx, xx.grad, weight.grad))
+    (y, passed, xx, dx, dw), (y2, passed2, xx2, dx2, dw2) = outs
+    assert y2.dtype == dtype and torch.equal(y, y2)
+    if residual:
+        assert passed2.data_ptr() == xx2.data_ptr() and torch.equal(passed, passed2)
+    ulp = 2.0**-7 if x_dtype == torch.bfloat16 else 1e-6
+    torch.testing.assert_close(dx2, dx, rtol=ulp, atol=max(1e-6, ulp * float(dx.float().abs().max())))
+    torch.testing.assert_close(dw2, dw, rtol=1e-6, atol=1e-5)
+
+
+def test_rmsnorm_frozen_scale_takes_no_gradient():
+    """A scale that does not train (llava's frozen decoder) gets no
+    gradient, and the backward computes none; x's is the same."""
+    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
+
+    x, w, dy, _ = _rmsnorm_inputs(4, 64, torch.float32, torch.bfloat16, seed=6, device="cpu")
+    grads = []
+    for trains in (True, False):
+        xx, ww = x.clone().requires_grad_(), w.clone().requires_grad_(trains)
+        (rmsnorm.rmsnorm(xx, ww, RMSNORM_EPS, torch.bfloat16).float() * dy.float()).sum().backward()
+        grads.append((xx.grad, ww.grad))
+    assert grads[0][1] is not None and grads[1][1] is None and torch.equal(grads[0][0], grads[1][0])
+
+
+def test_rmsnorm_kernels_take_no_cpu_tensor():
+    """``kernel_takes`` is False for a CPU tensor, which ``layers.RMSNorm``
+    computes with its plain math; the launch wrappers refuse one."""
+    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
+
+    x = torch.ones(2, 8)
+    assert not rmsnorm.kernel_takes(x)
+    with pytest.raises(ValueError, match="rmsnorm kernels take"):
+        rmsnorm.rmsnorm_fwd_cuda(x, torch.ones(8), RMSNORM_EPS, torch.bfloat16)
+    with pytest.raises(ValueError, match="rmsnorm kernels take"):
+        rmsnorm.rmsnorm_bwd_cuda(x, x, torch.ones(2), torch.ones(8))

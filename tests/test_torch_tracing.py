@@ -1,7 +1,8 @@
 """The port's spans (``tracing.py``) under ``torch.profiler`` on the CPU: a
 tiny pythia (2 layers of 64, the port's plain kernels, f32) trained one
 micro-batch at a time through the session, with no remat and under the
-"flash" and "dots" policies, and a tiny mamba under its whole-block remat.
+"flash" and "dots" policies, and a tiny mamba under its whole-block remat,
+whose selective scan has spans of its own.
 
 Each span appears as often as the micro-batch has such regions, and holds
 the ops it names: the loss's backward inside ``xent.backward`` and the
@@ -31,7 +32,7 @@ torch.set_num_threads(2)
 
 SEQ = 33
 REMATS = [None, "flash", "dots"]
-SPANS = ("step.forward", "step.backward", "xent.forward", "xent.backward", "remat.replay")
+SPANS = ("step.forward", "step.backward", "xent.forward", "xent.backward", "remat.replay")  # pythia's
 
 
 @pytest.fixture
@@ -203,6 +204,48 @@ def test_mamba_whole_block_remat_replays_in_spans(tmp_path):
     events = _traced(lambda: model(ids, labels=ids).backward(), tmp_path)
     counts = collections.Counter(e["name"] for e in events if e.get("cat") == "user_annotation")
     assert (counts["remat.replay"], counts["xent.forward"], counts["xent.backward"]) == (2, 1, 1)
+
+
+def _tiny_mamba():
+    model = MambaLM(d_model=16, num_layers=2, d_inner=32, d_state=4, d_conv=4, dt_rank=2, vocab_size=64, remat=True)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model
+
+
+def test_scan_spans_hold_the_scan(monkeypatch, tmp_path):
+    """The scan's spans on mamba under whole-block remat, its ops on the
+    kernels' plain versions: ``scan.forward`` once a block in the forward and
+    once in its replay, ``scan.backward`` once a block; the scan's forward op
+    starts inside the first, its backward op inside the second. Without a
+    profiler no hook is registered, and loss and gradients equal a profiled
+    run's bit for bit."""
+    ids = torch.randint(0, 64, (2, 17), generator=torch.Generator().manual_seed(1))
+    hooks = []
+    register_hook = torch.Tensor.register_hook
+    monkeypatch.setattr(torch.Tensor, "register_hook", lambda self, hook: hooks.append(hook) or register_hook(self, hook))
+    runs = []
+    for profiled in (False, True):
+        model = _tiny_mamba()
+        hooks.clear()
+
+        def step():
+            loss = model(ids, labels=ids)
+            loss.backward()
+            runs.append((loss.detach(), {n: p.grad for n, p in model.named_parameters()}))
+
+        if profiled:
+            events = _traced(step, tmp_path)
+        else:
+            step()
+            assert hooks == []
+    (loss, grads), (loss_p, grads_p) = runs
+    assert torch.equal(loss, loss_p) and all(torch.equal(grads[n], grads_p[n]) for n in grads)
+    fwd, bwd = _spans(events, "scan.forward"), _spans(events, "scan.backward")
+    assert (len(fwd), len(bwd)) == (4, 2)
+    scan_fwd, scan_bwd = _starts(events, "mlpt::scan_fwd"), _starts(events, "mlpt::scan_bwd")
+    assert len(scan_fwd) == 4 and all(_inside(ts, fwd) for ts in scan_fwd)
+    assert len(scan_bwd) == 2 and all(_inside(ts, bwd) for ts in scan_bwd)
+    assert not any(_inside(ts, bwd) for ts in scan_fwd)
 
 
 def test_span_is_a_no_op_without_a_profiler(monkeypatch, tmp_path):
