@@ -1,0 +1,20 @@
+"""The causal-conv backward kernel's share of its roofline: the bytes bound
+of one call at the cell's shape (micro-batch x sequence rows of d_inner,
+width d_conv, the compute dtype for the activations, the parameters' dtype
+for the taps and bias; ``yardstick/bounds_conv.py``) over the summed device
+time of the kernels whose name holds ``causal_conv_bwd`` in the profiled
+stretch, per ``causal_conv_bwd_kernel`` launch. The sum of the kernel's
+partials, a PyTorch reduction, is not counted. None where no such kernel
+ran."""
+
+from bench_port.yardstick.bounds_conv import conv_bounds, param_dtype
+
+
+def read(r):
+    launches = r.trace.matching("causal_conv_bwd_kernel")
+    if not launches:
+        return None
+    c = r.config
+    bound = conv_bounds(r.workload["micro_batch_size"] * c["sequence_length"], c["d_inner"], c["d_conv"],
+                        c["compute_dtype"], param_dtype(c["state_layout"]))["bwd"]
+    return 100.0 * bound / (sum(e["dur"] for e in r.trace.matching("causal_conv_bwd")) * 1e-6 / len(launches))

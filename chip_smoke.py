@@ -33,6 +33,16 @@ Phases, one line (or a few) each; any failure exits non-zero:
    kernels' launches a micro-batch: 2 x 64 + 1 forwards and 64 + 1
    backwards for mamba under block remat (each block's norm, its replay,
    the final norm), 33 and 33 for llava's decoder.
+2c. causal conv: both ``csrc/causal_conv.cu`` kernels against their plain
+   versions at mamba-2.8b's benchmark micro-batch ([8, 4096, 5120] bf16, x
+   the strided half of [8, 4096, 10240] as the block hands it over, bf16
+   and f32 parameters) and at a ragged shape ([2, 300, 100], K 3); a second
+   launch of each must repeat the first bit for bit. Then CUDA-event times
+   at mamba's shape beside their bounds, their plain versions and the
+   PyTorch chain they replace (the f32 cast, pad, depthwise conv, SiLU, the
+   cast back and the copy to contiguous; its autograd backward). The mamba
+   main path (8) counts their launches: 2 x 64 forwards and 64 backwards a
+   micro-batch under block remat (each block's conv and its replay).
 3. kernels: each flash-attention kernel against its plain PyTorch version on
    the same inputs, at the pythia-1b training shape ([4, 8, 2049, 256] bf16
    causal) and at a small ragged shape, with the tolerances stated below;
@@ -868,8 +878,9 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     ``layout`` is one of ``profile_step.make_plan``'s. ``counters`` is the
     kernel module whose launch counts ``names`` are zeroed just before the
     steps and read just after, and so are the LM-head loss's
-    (``ops/xent.py``), returned as ``xent``, and RMSNorm's
-    (``ops/rmsnorm.py``), returned as ``rmsnorm``. The first loss must lie in
+    (``ops/xent.py``), returned as ``xent``, RMSNorm's
+    (``ops/rmsnorm.py``), returned as ``rmsnorm``, and the causal conv's
+    (``ops/causal_conv.py``), returned as ``conv``. The first loss must lie in
     ``loss_band``.
     For a model with a trainable mask, every frozen parameter must come out
     bit for bit and every trainable one must have moved; in the f32 layout
@@ -878,7 +889,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     the median step of each backward, the peak memory and the dropout
     generator's state after the steps."""
     from multimodal_llm_pretraining_tpu_torch.models import get_model_class
-    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm, xent
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv, rmsnorm, xent
     from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
     from multimodal_llm_pretraining_tpu_torch.utils import block_on
 
@@ -909,6 +920,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     counters.reset_launch_counts()
     xent.reset_launch_counts()
     rmsnorm.reset_launch_counts()
+    causal_conv.reset_launch_counts()
     attn.XLA_BRANCH_CALLS = 0
     losses, times = [], []
     try:
@@ -930,6 +942,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     launches = {n: getattr(counters, n) for n in names}
     xent_launches = {"xent_fwd": xent.XENT_FWD_LAUNCHES, "xent_bwd": xent.XENT_BWD_LAUNCHES}
     norm_launches = {"rmsnorm_fwd": rmsnorm.RMSNORM_FWD_LAUNCHES, "rmsnorm_bwd": rmsnorm.RMSNORM_BWD_LAUNCHES}
+    conv_launches = {"causal_conv_fwd": causal_conv.CONV_FWD_LAUNCHES, "causal_conv_bwd": causal_conv.CONV_BWD_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     if attn.XLA_BRANCH_CALLS != 0:
         raise AssertionError(f"{model_type}: {attn.XLA_BRANCH_CALLS} attention calls took the xla branch")
@@ -969,12 +982,12 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
         say(f"[main] {model_type} fused vs split backward, median step: {medians[True]:.4f} vs {medians[False]:.4f} s "
             f"(split / fused {medians[False] / medians[True]:.4f})")
     say(f"[main] {model_type} peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches "
-        + ", ".join(f"{n} {c}" for n, c in (launches | xent_launches | norm_launches).items())
+        + ", ".join(f"{n} {c}" for n, c in (launches | xent_launches | norm_launches | conv_launches).items())
         + ", xla-branch attention calls 0")
     if after is not None:
         after(sess, state)
     return {"module": sess.module, "launches": launches, "xent": xent_launches, "rmsnorm": norm_launches,
-            "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)},
+            "conv": conv_launches, "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)},
             "losses": losses, "medians": medians, "peak": peak, "dropout_state": sess.dropout_generator.get_state()}
 
 
@@ -1181,9 +1194,9 @@ def phase_scan_slice() -> None:
 
 
 def phase_mamba_main_path() -> dict:
-    """mamba-2.8b at full width and depth with block remat: every scan call
-    on the kernels, the forward twice per block and micro-batch (the remat
-    recompute runs it again) and the backward once."""
+    """mamba-2.8b at full width and depth with block remat: every scan and
+    conv call on the kernels, the forward twice per block and micro-batch
+    (the remat recompute runs it again) and the backward once."""
     run = drive_training("mamba", mbs=2, acc=2, remat=True, counters=ssf, loss_band=TEXT_LOSS_BAND)
     run["launches"] = tuple(run["launches"].values())
     micro_batches = sum(run["micro_batches"].values())
@@ -1194,8 +1207,12 @@ def phase_mamba_main_path() -> dict:
     norms = {"rmsnorm_fwd": 2 * calls + micro_batches, "rmsnorm_bwd": calls + micro_batches}
     if run["rmsnorm"] != norms:
         raise AssertionError(f"mamba: rmsnorm launches {run['rmsnorm']}, expected {norms}")
+    # each block's conv forward twice (its replay) and backward once
+    convs = {"causal_conv_fwd": 2 * calls, "causal_conv_bwd": calls}
+    if run["conv"] != convs:
+        raise AssertionError(f"mamba: causal-conv launches {run['conv']}, expected {convs}")
     return ({"scan_fwd": run["launches"][0], "scan_bwd": run["launches"][1]} | xent_launch_entries(run, "mamba")
-            | run["rmsnorm"])
+            | run["rmsnorm"] | run["conv"])
 
 
 # ---------------------------------------------------------------- varlen flash attention (llava)
@@ -2487,6 +2504,107 @@ def phase_rmsnorm() -> list[dict]:
     ]
 
 
+# ---------------------------------------------------------------- causal conv
+
+CONV_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/causal_conv.cu"
+CONV_SHAPE = (8, 4096, 5120, 4)  # mamba-2.8b at the benchmark's micro-batch: B, L, d_inner, d_conv
+# kernel vs plain version (as tests/test_torch_kernels.py): both in f32, in another order and with the
+# kernels' fast exp; out and dx within one rounding of x's dtype elementwise (2^-7 of the value in bf16)
+# plus 1e-5 of the largest entry, dw and db in f32 within 1e-5 of their norm, in bf16 one bf16 rounding
+TOL_CONV_ELEM_BF16 = 2.0**-7
+TOL_CONV_F32_NORM_REL = 1e-5
+TOL_CONV_BF16_NORM_REL = 4e-3
+
+
+def _conv_inputs(B: int, L: int, I: int, K: int, p_dtype, seed: int):
+    """bf16 x (the first half of [B, L, 2I]) and dout N(0, 1), the taps and
+    bias uniform in [-0.5, 0.5) in ``p_dtype``."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    x = torch.randn(B, L, 2 * I, generator=g, device="cuda").to(torch.bfloat16)[..., :I]
+    w = (torch.rand(K, I, generator=g, device="cuda") - 0.5).to(p_dtype)
+    b = (torch.rand(I, generator=g, device="cuda") - 0.5).to(p_dtype)
+    dout = torch.randn(B, L, I, generator=g, device="cuda").to(torch.bfloat16)
+    return x, w, b, dout
+
+
+def _conv_chain(x, w, b):
+    """The pre-kernel chain on the card: the f32 composition, then the copy to
+    contiguous that ``x_proj``'s product made of its channel-first result."""
+    from multimodal_llm_pretraining_tpu_torch.ops.selective_scan import causal_conv1d
+
+    return torch.nn.functional.silu(causal_conv1d(x.float(), w.float(), b.float())).to(x.dtype).contiguous()
+
+
+def check_conv_at(B: int, L: int, I: int, K: int, p_dtype, seed: int) -> dict:
+    """Both conv kernels against their plain versions (PyTorch's native
+    depthwise conv, cuDNN off); a second launch of each must repeat the
+    first bit for bit."""
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv as cc
+
+    x, w, b, dout = _conv_inputs(B, L, I, K, p_dtype, seed)
+    with torch.backends.cudnn.flags(enabled=False):
+        ref = (cc.causal_conv_fwd_reference(x, w, b), *cc.causal_conv_bwd_reference(x, w, b, dout))
+    runs = [(cc.causal_conv_fwd_cuda(x, w, b), *cc.causal_conv_bwd_cuda(x, w, b, dout)) for _ in range(2)]
+    names = ("out", "dx", "dw", "db")
+    errs = {n: _errs(got, want) for n, got, want in zip(names, runs[0], ref)}
+    elem = {n: ((got.float() - want.float()).abs() - TOL_CONV_ELEM_BF16 * want.float().abs()).max().item()
+            / max(want.float().abs().max().item(), 1e-30) for n, got, want in zip(("out", "dx"), runs[0], ref)}
+    repeat = all(torch.equal(a, c) for a, c in zip(*runs))
+    say(f"[conv] kernels vs plain at [{B}, {L}, {I}] K {K} bf16, {str(p_dtype)[6:]} parameters: "
+        + ", ".join(f"{n} max_abs {e[0]:.1e} norm_rel {e[1]:.1e}" for n, e in errs.items())
+        + f"; out and dx past one bf16 rounding by at most {max(elem.values()):.1e} of the largest entry"
+        + f"; second run identical {repeat}")
+    p_tol = TOL_CONV_F32_NORM_REL if p_dtype == torch.float32 else TOL_CONV_BF16_NORM_REL
+    if not (max(elem.values()) <= 1e-5 and max(errs["dw"][1], errs["db"][1]) <= p_tol and repeat):
+        raise AssertionError(f"causal-conv kernels at [{B}, {L}, {I}]: {errs}, {elem}, repeat {repeat}")
+    return errs
+
+
+def phase_causal_conv() -> list[dict]:
+    """The conv kernels: against their plain versions at mamba's benchmark
+    micro-batch (the strided half, bf16 and f32 parameters) and at a ragged
+    shape; then timed at mamba's shape beside their bounds, their plain
+    versions and the pre-kernel chain (``_conv_chain``, and its autograd
+    backward). The kernels JSON line's entries ``causal_conv_fwd``,
+    ``causal_conv_bwd``."""
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv as cc
+
+    B, L, I, K = CONV_SHAPE
+    errs = check_conv_at(B, L, I, K, torch.bfloat16, seed=40)
+    check_conv_at(B, L, I, K, torch.float32, seed=41)
+    check_conv_at(2, 300, 100, 3, torch.bfloat16, seed=42)
+
+    x, w, b, dout = _conv_inputs(B, L, I, K, torch.bfloat16, seed=43)
+    xg, wg, bg = x.detach().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()
+    out_chain = _conv_chain(xg, wg, bg)
+    t = {
+        "fwd": cuda_ms(lambda: cc.causal_conv_fwd_cuda(x, w, b)),
+        "fwd_plain": cuda_ms(lambda: cc.causal_conv_fwd_reference(x, w, b)),
+        "fwd_library": cuda_ms(lambda: _conv_chain(x, w, b)),
+        "bwd": cuda_ms(lambda: cc.causal_conv_bwd_cuda(x, w, b, dout)),
+        "bwd_plain": cuda_ms(lambda: cc.causal_conv_bwd_reference(x, w, b, dout)),
+        "bwd_library": cuda_ms(lambda: torch.autograd.grad(out_chain, (xg, wg, bg), dout, retain_graph=True)),
+    }
+    say(f"[conv] ms a call at {list(CONV_SHAPE)} bf16: " + ", ".join(f"{n} {ms:.4f}" for n, ms in t.items()))
+    # bytes: the forward reads x, the taps and the bias and writes out; the backward reads x, dout, the taps
+    # and the bias and writes dx and the f32 sums of dw and db
+    small = _nbytes(w, b)
+    bounds = {"fwd": bound(2 * _nbytes(dout) + small),
+              "bwd": bound(3 * _nbytes(dout) + small + (K + 1) * I * 4)}
+    for n in ("fwd", "bwd"):
+        say(f"[conv] {n} at {list(CONV_SHAPE)}: {t[n]:.4f} ms a call, bound {bounds[n]['bound_ms']:.4f} ms "
+            f"({bounds[n]['bound_by']}), {bounds[n]['bound_ms'] / t[n]:.3f} of it; plain {t[n + '_plain']:.4f} ms, "
+            f"pre-kernel chain {t[n + '_library']:.4f} ms ({t[n + '_library'] / t[n]:.2f}x the kernel)")
+    return [
+        {"name": "causal_conv_fwd", "route": "cuda", "source": CONV_SOURCE, "replaces": None, "launches": None,
+         "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"], **bounds["fwd"],
+         "library_ms": t["fwd_library"]},
+        {"name": "causal_conv_bwd", "route": "cuda", "source": CONV_SOURCE, "replaces": None, "launches": None,
+         "max_abs_err": errs["dx"][0], "ms": t["bwd"], "plain_ms": t["bwd_plain"], **bounds["bwd"],
+         "library_ms": t["bwd_library"]},
+    ]
+
+
 def families(card: str, add) -> list[dict]:
     """Phases 22-25; returns the kernels line's entries at ViLT's and
     RoBERTa's shapes, each with the launches of the main paths at that
@@ -2510,6 +2628,7 @@ def main() -> int:
     phase_build()
     xent_kernels = phase_xent()
     norm_kernels = phase_rmsnorm()
+    conv_kernels = phase_causal_conv()
     pythia_times, kernels = phase_kernels()
     phase_slice()
     launches: dict[str, int] = {}
@@ -2538,7 +2657,7 @@ def main() -> int:
     add(phase_remat_llava())
     add(phase_harness(card, bf16_sr_run))
     shaped = families(card, add)
-    kernels += xent_kernels + norm_kernels
+    kernels += xent_kernels + norm_kernels + conv_kernels
     for k in kernels:
         k["launches"] = launches[k["name"]]
     kernels += shaped

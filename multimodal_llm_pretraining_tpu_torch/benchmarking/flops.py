@@ -11,8 +11,8 @@ Two counts of one example's forward and backward:
   reference's protocol, ``src/benchmarking/flops.py:9-37``). It counts what
   runs: the products (``mm``, ``addmm``, ``bmm``, convolutions, the
   backward's through ``_conv_backward_flops``), the three flash attention
-  ops and the two selective-scan ops, each through the formula registered
-  below; elementwise work counts nothing.
+  ops, the two selective-scan ops and the two causal-conv ops, each through
+  the formula registered below; elementwise work counts nothing.
 
 The flash formulas count the model's FLOPs for the visible (query, key)
 pairs of the call, causal masking and varlen lengths included: 4·D a pair
@@ -36,6 +36,11 @@ D·dy and dD's product), which runs beside it in the autograd rule. The JAX
 package counts mamba with XLA's cost analysis of every HLO op (elementwise
 ones included), so the two packages' mamba totals differ by the
 elementwise work.
+
+The causal-conv formulas count the depthwise conv's products as PyTorch
+counts a convolution: 2·K·B·L·I forward, and twice that backward (the input's
+gradient and the taps'), what ``F.conv1d`` and its backward counted before
+the kernels; the bias, the SiLU and its derivative count nothing.
 """
 
 import math
@@ -45,7 +50,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode, register_flop_formula
 
 from ..models import BaseModelClass
-from ..ops import flash_attention, selective_scan_fused  # noqa: F401  (register the mlpt:: ops the formulas name)
+from ..ops import causal_conv, flash_attention, selective_scan_fused  # noqa: F401  (register the mlpt:: ops the formulas name)
 
 
 def transformer_flops_per_token(
@@ -205,6 +210,16 @@ def _scan_fwd_flops(u, delta, A, B, C, D=None, *args, **kwargs) -> int:
 def _scan_bwd_flops(u, delta, A, B, C, dy, ckpt, *args, **kwargs) -> int:
     bsz, L, I = u.shape
     return 2 * (9 * bsz * L * I * A.shape[-1] + bsz * L * I)
+
+
+@register_flop_formula(torch.ops.mlpt.causal_conv_fwd, get_raw=True)
+def _causal_conv_fwd_flops(x, weight, bias, *args, **kwargs) -> int:
+    return 2 * weight.shape[0] * x.numel()
+
+
+@register_flop_formula(torch.ops.mlpt.causal_conv_bwd, get_raw=True)
+def _causal_conv_bwd_flops(x, weight, bias, dout, *args, **kwargs) -> int:
+    return 4 * weight.shape[0] * x.numel()
 
 
 def _conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride, _padding, _dilation, transposed,

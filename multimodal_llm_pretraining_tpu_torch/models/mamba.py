@@ -22,14 +22,17 @@ state-spaces/mamba runs the published configuration:
   in the backward kernel;
 - the conv and its SiLU, and the gate ``y * SiLU(z)``, are computed in f32
   and rounded once to the compute dtype, as mamba_ssm's causal-conv and
-  selective-scan kernels compute them. Rounding each step to bf16, as the
+  selective-scan kernels compute them. The conv with its bias and SiLU is
+  ``ops/causal_conv.py``'s op: on the card its kernel pair, which reads the
+  strided half of ``in_proj``'s output uncopied and writes u contiguous; on
+  the CPU its plain version, the f32 ``causal_conv1d`` composition. Rounding each step to bf16, as the
   JAX package does, moves mamba-2.8b's first loss (8 x 4096 tokens, on an
   H100) by about +2.3e-4 of itself against a reference that keeps them in
   f32, more than the residual stream's precision moves it.
 
 ``residual_in_fp32=False`` computes as the JAX package does, every step in
-the compute dtype, the stream included: the port's arithmetic before the
-option. So the switch selects two things, the stream's precision and that
+the compute dtype, the stream included (the conv a padded grouped
+``F.conv1d``): the port's arithmetic before the option. So the switch selects two things, the stream's precision and that
 of the conv and the gate, where mamba_ssm's setting of the same name selects
 the stream's alone (its kernels keep the conv and the gate in f32 either
 way). False exists for the tests that hold the port to the JAX package;
@@ -43,6 +46,7 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from ..ops.causal_conv import causal_conv_silu
 from ..ops.selective_scan import causal_conv1d, selective_scan
 from ..ops.xent import lm_head_loss, matmul_f32
 from . import LanguageModelClass, MambaT, ModelBundle, SchedulerType
@@ -106,7 +110,11 @@ class MambaBlock(nn.Module):
             h = self.norm(x)
         wide = torch.float32 if self.residual_in_fp32 else cdt  # where mamba_ssm's kernels compute in f32
         u, z = self.in_proj(h).chunk(2, dim=-1)
-        u = F.silu(causal_conv1d(u.to(wide), self.conv_weight.to(wide), self.conv_bias.to(wide))).to(cdt)
+        if self.residual_in_fp32:
+            # the strided half of in_proj's output, uncopied: the kernel pair on the card
+            u = causal_conv_silu(u, self.conv_weight, self.conv_bias)
+        else:
+            u = F.silu(causal_conv1d(u, self.conv_weight.to(cdt), self.conv_bias.to(cdt)))
         dt, B, C = self.x_proj(u).split([self.dt_rank, self.d_state, self.d_state], dim=-1)
         delta = F.softplus(self.dt_proj(dt))
         A = -torch.exp(self.A_log)

@@ -2,7 +2,10 @@
 (counterpart of ``ops/selective_scan.py:25-132``).
 
 - ``causal_conv1d``: left pad, then a grouped ``F.conv1d`` (XLA in the JAX
-  package too, not a Pallas kernel).
+  package too, not a Pallas kernel). It is the conv of the JAX arithmetic
+  (``MambaBlock`` with ``residual_in_fp32=False``) and, in f32, the plain
+  version behind ``ops/causal_conv.py``, whose kernel pair computes the
+  published arithmetic's conv with its bias and SiLU on the card.
 - ``selective_scan``: the dispatcher. With ``use_custom_kernels=True`` the
   scan runs through ``selective_scan_fused`` (the ``mlpt::scan_fwd`` op):
   the hand-written CUDA kernels for CUDA tensors, at every sequence length,
@@ -47,7 +50,7 @@ def selective_scan_reference(u, delta, A, B, C, D, *, chunk_size: int = 256) -> 
 
 
 def selective_scan(
-    u: torch.Tensor,  # [B, L, I] input (post conv + silu)
+    u: torch.Tensor,  # [B, L, I] input (after the conv and its SiLU)
     delta: torch.Tensor,  # [B, L, I] positive step sizes
     A: torch.Tensor,  # [I, N] (negative real)
     B: torch.Tensor,  # [B, L, N]

@@ -1,6 +1,6 @@
 """The port's CUDA kernels (flash attention: forward, fused backward and the
-split dq and dk/dv backward; selective scan; the LM-head loss; RMSNorm)
-against their plain versions.
+split dq and dk/dv backward; selective scan; the LM-head loss; RMSNorm;
+mamba's causal conv with its SiLU) against their plain versions.
 
 This file imports no JAX, so it runs on a GPU machine without it:
 
@@ -1362,3 +1362,127 @@ def test_rmsnorm_kernels_take_no_cpu_tensor():
         rmsnorm.rmsnorm_fwd_cuda(x, torch.ones(8), RMSNORM_EPS, torch.bfloat16)
     with pytest.raises(ValueError, match="rmsnorm kernels take"):
         rmsnorm.rmsnorm_bwd_cuda(x, x, torch.ones(2), torch.ones(8))
+
+
+# ---------------------------------------------------------------- causal conv
+
+# (B, L, I, K, x dtype, parameter dtype, x a strided half of [B, L, 2I])
+CONV_CASES = [
+    (8, 4096, 5120, 4, torch.bfloat16, torch.bfloat16, True),  # mamba-2.8b's micro-batch under bf16_sr, as the block hands it
+    (8, 4096, 5120, 4, torch.bfloat16, torch.float32, True),  # the same with f32 parameters
+    (2, 300, 100, 4, torch.bfloat16, torch.bfloat16, True),  # I not a multiple of 8 (element loads), L no tile's multiple
+    (3, 2, 24, 4, torch.float32, torch.float32, False),  # L < K
+    (1, 257, 136, 3, torch.float32, torch.bfloat16, True),  # f32 x, K 3, one step past a forward block's 256
+    (2, 1025, 64, 2, torch.bfloat16, torch.float32, False),  # K 2, one step past a backward block's 1024
+    (3, 129, 40, 4, torch.bfloat16, torch.bfloat16, True),  # one step past a backward slice, 40 channels: a part warp
+    (1, 33, 8, 1, torch.bfloat16, torch.bfloat16, True),  # K 1: no halo
+]
+
+
+def _conv_inputs(B, L, I, K, x_dtype, p_dtype, strided, device="cuda", seed=0):
+    """x and dout N(0, 1), the taps and bias uniform in [-0.5, 0.5) (mamba's
+    initialisation at d_conv 4); x the first half of a [B, L, 2I] tensor
+    where ``strided``, as ``in_proj``'s output is split."""
+    g = torch.Generator(device=device).manual_seed(seed)
+    base = torch.randn(B, L, 2 * I if strided else I, generator=g, device=device).to(x_dtype)
+    x = base[..., :I]
+    w = (torch.rand(K, I, generator=g, device=device) - 0.5).to(p_dtype)
+    b = (torch.rand(I, generator=g, device=device) - 0.5).to(p_dtype)
+    dout = torch.randn(B, L, I, generator=g, device=device).to(x_dtype)
+    return x, w, b, dout
+
+
+def _within_one_rounding(got, want):
+    """Elementwise within one rounding of ``want``'s dtype (2^-7 of the value
+    in bf16, 1e-5 in f32: both sides compute in f32 in another order, with
+    the kernels' fast exp), plus 1e-5 of the largest entry for sums that
+    cancel to near 0."""
+    assert got.dtype == want.dtype and got.shape == want.shape and torch.isfinite(got).all()
+    rel = 2.0**-7 if want.dtype == torch.bfloat16 else 1e-5
+    torch.testing.assert_close(got.float(), want.float(), rtol=rel, atol=1e-5 * float(want.float().abs().max()))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,I,K,x_dtype,p_dtype,strided", CONV_CASES)
+def test_causal_conv_kernels_match_plain_versions(B, L, I, K, x_dtype, p_dtype, strided):
+    """Both conv kernels against their plain versions (PyTorch's native
+    depthwise conv in f32, cuDNN off): out and dx within one rounding of x's
+    dtype, dw and db (f32 sums over B x L terms in another order) within
+    1e-5 of their norm in f32 and one bf16 rounding (4e-3) in bf16; a second
+    run repeats the first bit for bit."""
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv as cc
+
+    _needs_cuda()
+    x, w, b, dout = _conv_inputs(B, L, I, K, x_dtype, p_dtype, strided)
+    with torch.backends.cudnn.flags(enabled=False):
+        out_ref = cc.causal_conv_fwd_reference(x, w, b)
+        dx_ref, dw_ref, db_ref = cc.causal_conv_bwd_reference(x, w, b, dout)
+    runs = [(cc.causal_conv_fwd_cuda(x, w, b), *cc.causal_conv_bwd_cuda(x, w, b, dout)) for _ in range(2)]
+    out, dx, dw, db = runs[0]
+    assert out.is_contiguous() and dx.is_contiguous()
+    assert (dw.dtype, db.dtype) == (p_dtype, p_dtype)
+    _within_one_rounding(out, out_ref)
+    _within_one_rounding(dx, dx_ref)
+    f32_tol = 1e-5 if p_dtype == torch.float32 else 4e-3  # bf16 parameters: dw and db rounded once to bf16
+    _close(dw, dw_ref, f32_tol)
+    _close(db, db_ref, f32_tol)
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_causal_conv_ops_pass_opcheck_on_the_card():
+    """``torch.library.opcheck`` of ``mlpt::causal_conv_fwd`` (with its
+    autograd rule, on a strided half) and ``mlpt::causal_conv_bwd``."""
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv as cc
+
+    _needs_cuda()
+    x, w, b, dout = _conv_inputs(2, 70, 48, 4, torch.bfloat16, torch.float32, True)
+    torch.library.opcheck(cc.causal_conv_fwd, (x.detach().requires_grad_(), w.requires_grad_(), b.requires_grad_()))
+    torch.library.opcheck(cc.causal_conv_bwd, (x, w.detach(), b.detach(), dout))
+
+
+@pytest.mark.cuda
+def test_causal_conv_kernels_refuse_what_they_do_not_take():
+    """K past 4, fp16, taps of another width, or a CPU tensor raise: there
+    is no plain fallback on the card."""
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv as cc
+
+    _needs_cuda()
+    x, w, b, _ = _conv_inputs(1, 16, 32, 4, torch.bfloat16, torch.bfloat16, False)
+    for args in ((x, torch.zeros(5, 32, device="cuda", dtype=torch.bfloat16), b), (x.half(), w, b),
+                 (x, w[:, :16], b), (x.cpu(), w.cpu(), b.cpu())):
+        with pytest.raises(ValueError, match="causal-conv kernels take"):
+            cc.causal_conv_fwd_cuda(*args)
+
+
+@pytest.mark.cuda
+def test_mamba_micro_batch_runs_its_conv_on_the_kernels(monkeypatch):
+    """A mamba micro-batch at full width and sequence, narrowed to 4 blocks,
+    under block remat in ``bf16_sr``: each block's conv forward twice (the
+    replay runs it again) and backward once, all on the kernels (8 and 4
+    launches), and no PyTorch depthwise conv kernel in its trace."""
+    from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+    from multimodal_llm_pretraining_tpu_torch.models import mamba as tmamba
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv as cc
+    from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
+
+    _needs_cuda()
+    monkeypatch.setattr(tmamba, "N_LAYER", 4)
+    mc = get_model_class("mamba")
+    sess = make_plan(mc, 2, 1, True, "bf16_sr").build_session(mc, device="cuda")
+    state = sess.init_state()
+    batch = {k: v[0] for k, v in sess.make_train_batch(seed=0).items()}
+    accumulate = sess.accumulate_fn()
+    accumulate(state, batch)
+    torch.cuda.synchronize()
+    cc.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        loss = accumulate(state, batch)
+        torch.cuda.synchronize()
+    assert (cc.CONV_FWD_LAUNCHES, cc.CONV_BWD_LAUNCHES) == (8, 4)
+    kernels = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("causal_conv_fwd_kernel" in k for k in kernels) and sum("causal_conv_bwd_kernel" in k for k in kernels)
+    assert not [k for k in kernels if "conv_depthwise" in k], kernels
+    assert 10.0 < float(loss) < 12.0
+    del sess, state
+    torch.cuda.empty_cache()
