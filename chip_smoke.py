@@ -2,241 +2,43 @@
 
     python3 chip_smoke.py
 
-Phases, one line (or a few) each; any failure exits non-zero:
+Each kernel's correctness is the card tests' (``python -m pytest --noconftest
+tests/test_torch_kernels.py -m cuda``). This script times each kernel at the
+one shape the kernel table reports, guarded by one comparison with its plain
+version there, and runs the main paths at full size. Phases, in order; any
+failure exits non-zero:
 
-1. environment: the card (``nvidia-smi`` name and power limit), torch, CUDA
-   and nvcc versions. No visible GPU is a failure, never a CPU fallback.
-2. build: the flash-attention, selective-scan and LM-head loss kernels from
-   ``csrc/``, one nvcc per source, all started together (timed); each
-   kernel's registers and spills from ``ptxas -v``, one ``[ptxas]`` line
-   each.
-2a. LM-head loss: both ``csrc/xent.cu`` kernels against their plain versions at
-   pythia-1b's chunk ([1024, 50304]) and llava's ([1024, 128257] padded to
-   128,264), bf16 dlogits, each seventh row ignored, NaN in the padding and
-   the ignored rows, which the kernels never read; a second launch of each
-   must repeat the first bit for bit. Then CUDA-event times at pythia's
-   chunk beside their bounds, their plain versions and the yardsticks
-   (``torch.logsumexp``; the pre-change autograd chain from the logits to
-   bf16 dlogits); then the whole loss, forward and backward, at the
-   benchmark's pythia-1b micro-batch ([32768, 2048] x 50304 bf16) on the
-   kernels and on the pre-change path (``xent_autograd_yardstick``), the
-   losses and gradients held to each other.
-2b. RMSNorm: both ``csrc/rmsnorm.cu`` kernels against their plain versions
-   at mamba-2.8b's benchmark micro-batch ([32768, 2560] f32 stream in, bf16
-   out, the residual's gradient added in the backward), its final norm (no
-   residual), llava-pretrain's decoder ([17392, 2048] bf16) and a ragged
-   row ([3, 100]); a second launch of each must repeat the first bit for
-   bit. Then CUDA-event times at mamba's shape beside their bounds, their
-   plain versions and the yardsticks (``F.rms_norm`` and a cast for the
-   forward; the pre-change autograd chain's backward and the residual's add
-   for the backward). The mamba and llava main paths (8, 11) count the
-   kernels' launches a micro-batch: 2 x 64 + 1 forwards and 64 + 1
-   backwards for mamba under block remat (each block's norm, its replay,
-   the final norm), 33 and 33 for llava's decoder.
-2c. causal conv: both ``csrc/causal_conv.cu`` kernels against their plain
-   versions at mamba-2.8b's benchmark micro-batch ([8, 4096, 5120] bf16, x
-   the strided half of [8, 4096, 10240] as the block hands it over, bf16
-   and f32 parameters) and at a ragged shape ([2, 300, 100], K 3); a second
-   launch of each must repeat the first bit for bit. Then CUDA-event times
-   at mamba's shape beside their bounds, their plain versions and the
-   PyTorch chain they replace (the f32 cast, pad, depthwise conv, SiLU, the
-   cast back and the copy to contiguous; its autograd backward). The mamba
-   main path (8) counts their launches: 2 x 64 forwards and 64 backwards a
-   micro-batch under block remat (each block's conv and its replay).
-3. kernels: each flash-attention kernel against its plain PyTorch version on
-   the same inputs, at the pythia-1b training shape ([4, 8, 2049, 256] bf16
-   causal) and at a small ragged shape, with the tolerances stated below;
-   the forward also at its tile edges (q_seq in FWD_EDGE_SEQS, kv_seq other
-   than q_seq, every head dim, causal and not), every forward repeated bit
-   for bit, and the fused backward at its own (``check_backward_edges``:
-   q_seq in BWD_EDGE_SEQS, kv_seq other than q_seq both ways, varlen lengths
-   BWD_EDGE_LENS, every head dim, causal and not; dk/dv bit for bit and dq
-   within one ulp on a second launch, exact zeros past the lens); then
-   CUDA-event times of kernel and plain version at the training shape, and
-   the forward's and fused backward's TFLOP/s, share of the bound and ratio
-   to PyTorch's call.
-4. slice: a two-layer GPTNeoX, loss and grads with the kernels against the
-   plain f32 attention on the same weights and tokens.
-5. main path: the pythia-1b training step at full width and depth, through
-   ``get_model_class`` -> ``TrainingPlan`` -> ``build_session`` ->
-   ``init_state`` -> ``train_step_fn``. The kernel launch counters are
-   zeroed just before and read just after, and must show every attention
-   call of the run on the kernels.
-6. scan kernels: both selective-scan kernels against their plain versions at
-   the mamba-2.8b shape ([2, 4096, 5120], d_state 16) and at a ragged shape
-   ([2, 300, 96]), for f32 and bf16 inputs: the forward before the D skip
-   and with it (the skip and the cast in the kernel's epilogue), plus dD
-   through the autograd Function; a second forward and a second backward
-   must repeat bit for bit; then median CUDA-event times of kernel and plain
-   version at the mamba shape (bf16; the forward with D, as the Function
-   runs it), and each kernel's share of its bound beside its earlier
-   design's time.
-7. scan slice: a two-layer narrow Mamba, f32, loss and every grad with the
-   kernels against the plain chunked scan (``use_custom_kernels=False``).
-8. main path: the mamba-2.8b training step at full width and depth (64
-   layers, d_inner 5120, seq 4096) with block remat, the same entry points,
-   micro-batch 2 x accumulation 2, 1 warmup + 3 timed steps; every scan call
-   must show on the kernels (forward twice per block: once more under remat).
-9. varlen kernels: both flash-attention kernels in their varlen (padded
-   batch) mode against the plain versions with the same lens, at the llava
-   decoder's shape ([16, 32, 1087, 64] bf16 causal, ragged lens), at the
-   tower's shape ([16, 16, 577, 64], non-causal) and at a small ragged shape
-   with an empty row; dk and dv must be exactly 0 at and past each length,
-   and a second backward must repeat them as phase 3 requires. Then both
-   kernels in plain mode at the tower's shape, as the main path calls the
-   forward there, and the varlen forward at lens on and around its tile
-   edges. Then CUDA-event times of the varlen and plain-mode kernels and the
-   plain versions at the decoder's shape (full lens), and of the plain-mode
-   forward at the tower's shape, each forward beside PyTorch's call.
-10. llava slice: a two-layer narrow LLaVA in bf16 (head_dim 64 in the tower
-    and the decoder), frozen as llava-pretrain freezes it, on a right-padded
-    batch: loss and every projector grad with the kernels against the plain
-    f32 attention.
-11. main path: the llava-pretrain training step at full width and depth (23
-    CLIP blocks, 16 Llama-3.2-1B blocks, 1087 merged positions), the same
-    entry points, in the JAX package's layout for it (bf16 compute, f32
-    projector and moments, bf16 frozen leaves), micro-batch 16 x
-    accumulation 2. Every decoder attention call must show on the varlen
-    kernels (forward and backward), every tower call on the plain-mode
-    forward, and no tower call on a backward; the frozen parameters stay
-    bit for bit and the projector moves.
-12. split kernels: the split backward (``check_split``: one prep launch,
-    the dq kernel, the dk/dv kernel, as ``mlpt::flash_bwd_split`` runs
-    it), beside the forward and the fused kernel, against their plain
-    versions at pythia's [4, 8, 2049, 256] bf16 causal, ViT's [128, 16,
-    197, 64] f32 and bf16 non-causal (the f32 forward and fused backward
-    are the ViT main path's own), [2, 3, 77, 64] both causal settings, and
-    in varlen mode at the llava decoder's [16, 32, 1087, 64] causal (ragged
-    lens) and [4, 2, 77, 64] with an empty row; dq, dk and dv must repeat
-    bit for bit on a second run, dq lie within TOL_NORM_REL of the fused
-    kernel's and dk, dv equal the fused kernel's bit for bit (where both
-    form k*scale from the same bf16 k), and in varlen mode dk/dv must be
-    exactly 0 past each length and dq 0 on an empty row; the forward and
-    the fused backward on f32 inputs at their tile edges, plain and varlen;
-    the split pair at the fused backward's tile edges (``check_split_edges``),
-    bf16 and f32. Then CUDA-event times at each main-path shape: the dq and
-    the dk/dv kernel alone, the pair with its prep launch and casts, and
-    their plain versions, set against the fused kernel (timed in phases 3
-    and 9, at ViT's shape here), PyTorch's backward (the yardstick) and
-    the bounds.
-13. ViT slice: a two-layer narrow ViT in f32 (head_dim 64, 197 tokens), loss
-    and every grad with the kernels under the fused and under the split
-    backward, against the plain f32 attention on the same weights.
-14. main path: the ViT-L/16 training step at full width and depth (24
-    blocks, 197 tokens, 21,841 classes) in the f32 layout with dropout on,
-    micro-batch 128 x accumulation 2.
-15. head dims: the forward, fused backward and split pair against their
-    plain versions at the head dims the kernels run zero-padded (32, 80,
-    88; plain and varlen, causal and not), then 2 steps each of pythia-14m
-    (head_dim 32) and of pythia-2.8b cut to 2 layers (head_dim 80, full
-    width) with every attention call on the kernels.
-16. grid: all of them at 65,536 batch-heads ([4096, 16, 16, 64], plain and
-    varlen), one more than a launch grid's y dimension holds: two launches
-    a call.
-17. repairs: the shapes the JAX package computes that the kernels do not
-    take as such, each against its plain version: head dim 320 through
-    ``dot_product_attention(impl="flash")``, which sends it to the xla
-    branch by shape (one xla-branch call, no flash launch); the fused
-    backward at head dim 256 with scale 0.07 (its one-stage variant with a
-    k*scale tile) and the split pair there (its dk/dv kernel on the
-    wrapper's k*scale), plain and varlen; both scan kernels at d_state 8, 24 and
-    64 (zero-padded groups of 16 states, one launch each) and at 65,536
-    batch elements (two launches a call).
-18. remat: pythia-1b at bench's recipe (micro-batch 4 x accumulation 2,
-    ``bf16_sr``) in one session each without remat, under "dots" and under
-    "flash" (``models/layers.py`` ``checkpoint_block`` on the flash custom
-    ops), 1 warmup + 3 timed steps each. The first loss must be bit for bit
-    the same in all three; every grad after one micro-batch under the split
-    backward (which repeats bit for bit), taken before the steps from the
-    same initial parameters, must equal no remat's bit for bit, or lie
-    within TOL_SLICE_GRAD_NORM_REL with the largest difference printed; the
-    flash launches must be the same in all three (one forward a block and
-    micro-batch: the recompute takes the saved outputs). Each session's
-    median step and peak memory are printed beside the card line.
-19. remat-ViT: ViT-L/16 (f32, dropout on, micro-batch 128 x accumulation 2)
-    without remat and under "flash", 2 steps each under the split
-    backward: equal losses, and the dropout generator in the same state
-    after the steps (the recompute replays the masks and draws nothing of
-    its own).
-20. remat-llava: llava-pretrain (micro-batch 16 x accumulation 2) the same
-    way: equal losses, the frozen leaves bit for bit, and no backward
-    launched for the frozen tower.
-21. harness and method search: ``benchmarking/`` on pythia-1b under "dots":
-    phase times at micro-batch 4 (1 warmup + 3 samples) and the step they
-    give at accumulation 32; one ``bf16_master`` session (micro-batch 4 x
-    accumulation 2, no remat) whose first loss must equal phase 18's
-    ``bf16_sr`` one bit for bit and whose bf16 params must equal their f32
-    masters rounded, its peak beside phase 18's; ``CountFlopsExperiment``
-    and ``TrainingTimeAnalytic`` (assumed MFU 1.0) for pythia-1b, mamba,
-    llava-pretrain and ViT-L/16, each count through the flash (plain and
-    varlen) and scan kernels under ``FlopCounterMode``, with mamba's scan
-    share; then, with the parent's reserved memory below 1 GiB, the method
-    search (``experiments/``): the CLI's ``--methods all`` grid for
-    pythia-1b on one card restricted to "dots" remat and the ``bf16_sr``
-    and ``bf16_master`` layouts, two arms, in a workspace of the phase's
-    own: each arm's max micro-batch (``find_max_mbs_pow2`` with one fresh
-    worker a candidate), split and fused step and training days, every
-    worker's op, outcome and time printed; the same sweep again, which
-    must start no worker and take under 5 s; the results table; the
-    phase's wall time. The counts also take vilt-pretrain (120 forwards and
-    120 backwards: three trunk passes), roberta (24 + 24) and
-    convnext-large-1k (no kernel).
-22. ViLT slice: the narrow ViLT of ``tests/test_torch_vilt.py`` (2 trunk
-    layers, 2 heads of 88 zero-padded to 128, f32, MLM + ITM + WPA, ragged
-    ITM text masks) on the card: loss and every grad with the kernels under
-    the fused and the split backward against the plain f32 attention.
-23. ViLT main paths: the forward and fused backward against their plain
-    versions and timed at vilt-pretrain's [4, 16, 769, 88] f32 shape; then
-    vilt-pretrain at full width and depth (CLIP-g/14 trunk, 40 blocks,
-    1,464,333,826 parameters) in the f32 layout, micro-batch 4 x
-    accumulation 2, under the A/B schedule: 120 forwards and 120 backwards
-    a micro-batch (three trunk passes); then 2 steps of
-    vilt-original-pretrain (ViLT-B/32, micro-batch 32 x accumulation 2).
-24. RoBERTa: the kernels at its [32, 16, 512, 64] bf16 shape; a 2-layer
-    bf16 slice against the plain attention under both backwards; the main
-    path (RoBERTa-large, dropout on, bf16 compute over f32 params,
-    micro-batch 32 x accumulation 2, A/B schedule: 24 + 24 a micro-batch);
-    then without remat and under "flash", 2 split steps each: equal losses
-    and the dropout generator in the same state after the steps.
-25. ConvNeXt main path: convnext-large-1k at full width and depth in the
-    f32 layout, micro-batch 64 x accumulation 2, 1 warmup + 3 timed steps,
-    no kernel launched. Then the run's wall time.
+1. env: the card (``nvidia-smi`` name and power limit), torch, CUDA and nvcc.
+2. build: every ``csrc/`` source, one nvcc each, in parallel; a ``[ptxas]`` line per kernel.
+3. LM-head loss kernels at pythia-1b's chunk; the whole loss at the benchmark's micro-batch against the pre-change path.
+4. RMSNorm kernels at mamba-2.8b's micro-batch ([32768, 2560] f32 in, bf16 out, the residual's gradient).
+5. causal-conv kernels at mamba-2.8b's micro-batch ([8, 4096, 5120] bf16, x a strided half).
+6. flash kernels at pythia-1b's attention ([4, 8, 2049, 256] bf16 causal): forward, fused and split backward.
+7. pythia slice: a 2-layer GPTNeoX, loss and grads with the kernels against the plain f32 attention.
+8. pythia-1b main path: the training step at full size, every attention call on the kernels.
+9. scan kernels at mamba-2.8b's [2, 4096, 5120] bf16, d_state 16.
+10. scan slice: a 2-layer narrow Mamba in f32 against the plain chunked scan.
+11. mamba-2.8b main path under block remat: every scan, norm and conv call on the kernels.
+12. flash kernels at the llava decoder's [16, 32, 1087, 64] (varlen mode) and the tower's [16, 16, 577, 64].
+13. llava slice: a 2-layer narrow LLaVA on a right-padded batch.
+14. llava-pretrain main path: frozen leaves bit for bit, the projector moving.
+15. flash kernels at ViT's [128, 16, 197, 64] f32: forward, fused and split backward.
+16. ViT slice under both backwards. 17. ViT-L/16 main path, dropout on.
+18. head dims: 2 steps each of pythia-14m (D 32) and pythia-2.8b cut to 2 layers (D 80).
+19. remat: pythia-1b without remat, under "dots" and "flash": equal first loss, grads bit for bit.
+20. remat-ViT and 21. remat-llava: equal losses, dropout state and frozen leaves.
+22. harness and method search: phase times, a ``bf16_master`` session, FLOP counts, the two-arm sweep.
+23. ViLT slice; 24. the kernels at vilt-pretrain's shape, vilt-pretrain and vilt-original-pretrain.
+25. RoBERTa: the kernels at its shape, a slice, the main path and its remat pair. 26. ConvNeXt main path.
 
-Every main path must send no attention call to the xla branch
-(``attention.XLA_BRANCH_CALLS`` stays 0). Main paths 5, 11, 14, 23
-(vilt-pretrain) and 24 (roberta) run in
-one session each 1 warmup step under each
-backward (``fa.PREFER_FUSED_BWD``), then 3 timed steps under each,
-interleaved fused, split, split, fused, fused, split; the median of each is
-printed, and the launch counters must show every attention backward of a
-micro-batch on the backward it ran under. Main path 8 (mamba, no attention)
-runs 1 warmup + 3 timed steps.
-
-Kernel times are the mean of a call in a run of 10 launches back to back
-between two CUDA events, the median of 3 runs (``cuda_ms``); the forward's
-line also gives its time with one event pair per call (``cuda_ms_alone``),
-where the card waits on the host's launch work.
-
-The last three lines are the kernels JSON line, the card line and
-``{"ok": true, "device": ...}``. A kernel's ``launches`` there is the sum
-over the main paths that run it (phases 18-21 included: phase 21's
-``bf16_master`` session and counts, not its workers, which are other
-processes); ``bound_ms`` is the larger of the bytes the
-function must move over the memory rate and its operations over their
-unit's peak rate, computed from that entry's inputs; ``library_ms`` is the
-time of the PyTorch call that computes the same function (``sdpa_ms``, the
-yardstick, which the port never calls), or null where there is none. The
-split kernels' ``library_ms`` is PyTorch's backward, which computes what the
-pair computes together, and their ``pair_ms`` the pair's own time beside it.
-The launches of ``xent_fwd`` and ``xent_bwd`` are those of the main paths
-that end in an LM-head loss (pythia-1b, mamba, llava, ViLT, RoBERTa), each
-counted from 0 just before its steps; those of ``rmsnorm_fwd`` and
-``rmsnorm_bwd`` the mamba and llava main paths' (their remat sessions'
-norms are not counted). The entries ``flash_fwd_vilt``, ``flash_bwd_fused_vilt``,
-``flash_fwd_roberta`` and ``flash_bwd_fused_roberta`` are the same two
-kernels at vilt-pretrain's and RoBERTa-large's shapes, their ``launches``
-those of the main paths at that shape (counted in ``flash_fwd`` and
-``flash_bwd_fused`` too).
+Main paths 8, 14, 17, 24 and 25 run 1 warmup step under each backward, then 3
+timed steps under each in turns; every main path sends no attention call to
+the xla branch, and its launch counters must show each kernel call. Kernel
+times are ``ms_per_call``: the mean of a call in 10 launches back to back,
+the median of 3 runs. The last lines are ``[total]``, the kernels JSON line
+(each entry's ``launches`` summed over the main paths that run it; its bound
+from ``gpus.bound``; ``library_ms`` the PyTorch call computing the same
+function, or null), the card line and ``{"ok": true, ...}``.
 """
 
 import json
@@ -253,12 +55,13 @@ sys.path.insert(0, ROOT)
 import numpy as np  # noqa: E402
 import torch  # noqa: E402
 
+from multimodal_llm_pretraining_tpu_torch.gpus import bound  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.ops import _build  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.ops import attention as attn  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.ops import flash_attention as fa  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.ops import selective_scan_fused as ssf  # noqa: E402
-from multimodal_llm_pretraining_tpu_torch.time_attention import ms_per_call as cuda_ms  # noqa: E402
-from multimodal_llm_pretraining_tpu_torch.time_attention import card_line, visible_pairs  # noqa: E402
+from multimodal_llm_pretraining_tpu_torch.time_attention import card_line, ms_per_call, visible_pairs  # noqa: E402
+from multimodal_llm_pretraining_tpu_torch.time_scan import nbytes, scan_bounds, scan_inputs  # noqa: E402
 from multimodal_llm_pretraining_tpu_torch.utils import require_cuda  # noqa: E402
 
 FWD_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/flash_fwd.cu"
@@ -267,18 +70,16 @@ DQ_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/flash_bwd_dq.cu"
 JAX_FLASH = "multimodal_llm_pretraining_tpu/ops/flash_attention.py"
 SCAN_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/selective_scan.cu"
 JAX_SCAN = "multimodal_llm_pretraining_tpu/ops/selective_scan_pallas.py"
+XENT_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/xent.cu"
+RMSNORM_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/rmsnorm.cu"
+CONV_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/causal_conv.cu"
 SCAN_SHAPE = (2, 4096, 5120)  # mamba-2.8b: mbs 2, seq 4096, d_inner 5120 (d_state 16)
-SCAN_RAGGED = (2, 300, 96)  # L not a multiple of 256, I not a multiple of the backward's 80-channel tile
-SCAN_BWD_EARLIER_MS = 5.485  # the earlier backward (one state a thread, synchronous staging) at SCAN_SHAPE bf16
-SCAN_FWD_EARLIER_MS = 1.299  # the earlier forward (the same, f32 y before the skip) at SCAN_SHAPE bf16, kernel alone
 SLICE_SHAPE = (4, 8, 2049, 256)  # pythia-1b: mbs 4, 8 heads, seq 2049, head_dim 256
-RAGGED_SHAPE = (2, 3, 77, 64)
 # llava-pretrain at the main path's mbs 16: the decoder's attention (32
 # heads, 512 - 1 + 576 merged positions, head_dim 64) and the CLIP tower's
 # (16 heads, 576 patches + CLS, head_dim 64)
 VARLEN_SHAPE = (16, 32, 1087, 64)
 TOWER_SHAPE = (16, 16, 577, 64)
-VARLEN_RAGGED = (4, 2, 77, 64)
 LLAVA_TOKENS_PER_SAMPLE = 512 - 1 + 576
 # llava's first loss: random text under a tied head whose rows are N(0, 0.02^2)
 # and a final RMSNorm that gives every hidden row a square norm of 2048, so
@@ -297,36 +98,24 @@ VIT_DROPOUT = 0.1  # the JAX ViTBlock's hidden dropout; the session always hands
 # 256 labels' logits has a standard deviation of 1/16; 0.3 either side
 VIT_LOSS_BAND = (10.19, 10.79)
 
-# H100 SXM peaks (NVIDIA's data sheet, dense, at 700 W): bf16 tensor-core products, f32 outside the tensor cores,
-# HBM. The exp rate: 16 special-function results per SM per clock (CUDA C++
-# Programming Guide, arithmetic instruction throughput, compute capability
-# 9.0) x 132 SMs x 1.98 GHz. The flash kernels' products run in bf16 also on
-# f32 inputs, so their operations are held to the bf16 rate.
-PEAK_BF16_FLOPS = 989e12
-PEAK_F32_FLOPS = 67e12
-PEAK_BYTES = 3.35e12
-PEAK_EXPS = 16 * 132 * 1.98e9
-
-# Kernel vs plain version. On bf16 inputs both round the same operands to
-# bf16 (q*scale, p, ds) and accumulate in f32; they differ in summation
-# order, in the online softmax's running rescale of p, and in dq's atomic
-# (run-to-run varying) summation order. Outputs are bf16, so one rounding of
-# 2^-9 is already in every element: bound the error relative to the output's
-# norm. On f32 inputs the kernels round every product operand to bf16 (2^-9
-# each), as a default-precision f32 dot does on the TPU, where the plain
-# versions keep f32: a few such roundings, again under 1e-2 of the norm.
-TOL_NORM_REL = 1e-2  # ||kernel - plain|| / ||plain|| for out, dq, dk, dv
-TOL_LSE_ABS = 1e-3  # lse is f32 and sees no bf16 output rounding; f32 inputs add ``lse_limit``'s term
+# Kernel vs plain version at a table shape, each output's error relative to
+# its norm. Flash attention: on bf16 inputs both sides round the same
+# operands to bf16 and accumulate in f32, differing in summation order and
+# in the online softmax's rescaling; on f32 inputs the kernels round every
+# product operand to bf16 (2^-9 each) where the plain versions keep f32: a
+# few such roundings, under 1e-2 of the norm. The scan: both sides in f32,
+# differing in summation order and the kernels' fast exp; y with the skip in
+# bf16 within one bf16 rounding. The other kernels: f32 within 1e-5, a bf16
+# output within one bf16 rounding.
+TOL_NORM_REL = 1e-2
+TOL_SCAN_Y_BF16 = 4e-3
+TOL_SCAN_GRAD = 1e-3
+TOL_F32 = 1e-5
+TOL_BF16 = 4e-3
+TOL_XENT_LSE_ABS = 1e-4  # the loss's lse and each row's nll, absolute (f32)
 # Two-layer model, kernels vs f32 plain attention (bf16 compute both ways)
 TOL_SLICE_LOSS = 2e-2
 TOL_SLICE_GRAD_NORM_REL = 5e-2
-# Scan kernels vs plain versions: both take the same inputs to f32 and
-# compute in f32; they differ in summation order (shuffle sums, doubling
-# scans, per-tile partial sums) and in the kernels' fast exp (ex2.approx, a
-# few ulps), which the recurrence carries over thousands of steps.
-TOL_SCAN_Y = 1e-4  # ||kernel - plain|| / ||plain|| for y before the skip, and with it in f32
-TOL_SCAN_Y_BF16 = 4e-3  # y with the skip in bf16: both round to bf16 values the f32 error may put one ulp apart
-TOL_SCAN_GRAD = 1e-3  # same for the checkpoint and du, ddelta, dA, dB, dC, dD (dA, dB sum thousands of terms)
 # Two-layer Mamba in f32, kernels vs the plain scan under autograd: every
 # other op is the same on both sides, so only the scan's error shows
 TOL_SCAN_SLICE_LOSS_REL = 1e-5
@@ -360,84 +149,6 @@ def _errs(got: torch.Tensor, ref: torch.Tensor) -> tuple[float, float]:
     return d.abs().max().item(), (d.norm() / ref.float().norm().clamp_min(1e-30)).item()
 
 
-def cuda_ms_alone(fn, warmup: int = 3, iters: int = 10) -> float:
-    """Median milliseconds of ``fn`` with one CUDA-event pair per call and a
-    synchronise after each: the card waits on the host's launch work, as it
-    does when nothing else is queued."""
-    for _ in range(warmup):
-        fn()
-    times = []
-    for _ in range(iters):
-        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
-        start.record()
-        fn()
-        end.record()
-        end.synchronize()
-        times.append(start.elapsed_time(end))
-    return statistics.median(times)
-
-
-def _inputs(shape, seed: int, dtype: torch.dtype = torch.bfloat16):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    b, h, s, d = shape
-    q, k, v, do = (torch.randn(b * h, s, d, generator=g, device="cuda").to(dtype) for _ in range(4))
-    return q, k, v, do
-
-
-def _nbytes(*tensors) -> int:
-    return sum(t.numel() * t.element_size() for t in tensors if t is not None)
-
-
-def bound(nbytes: int, flops: float = 0.0, flop_rate: float = PEAK_BF16_FLOPS, exps: float = 0.0) -> dict:
-    """The least time the card could take for a function, in ms, and what
-    bounds it: the bytes it must move (each input read once, each output
-    written once) over the memory rate, or its operations (products at
-    ``flop_rate``, exps at the special-function rate)."""
-    t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(flops / flop_rate, exps / PEAK_EXPS)
-    return {"bound_ms": max(t_bytes, t_ops) * 1e3, "bound_by": "bytes" if t_bytes >= t_ops else "operations"}
-
-
-def bound_terms(nbytes: int, flops: float = 0.0, flop_rate: float = PEAK_BF16_FLOPS, exps: float = 0.0) -> str:
-    """``bound``'s three terms in ms, for the log."""
-    return (f"bytes {nbytes} ({nbytes / PEAK_BYTES * 1e3:.4f} ms), products {flops:.4g} "
-            f"({flops / flop_rate * 1e3:.4f} ms), exps {exps:.4g} ({exps / PEAK_EXPS * 1e3:.4f} ms)")
-
-
-def attention_bounds(q, k, v, do, causal: bool, kv_lens=None) -> dict:
-    """``bound`` of each attention function on these [BH, S, D] inputs, with
-    2·D FLOP per visible pair per product and one exp per pair: the forward
-    (q, k, v -> out, f32 lse; 2 products) and the backward (q, k, v, out,
-    dO, lse -> dq, dk, dv; 5 products), which the fused kernel and the
-    split pair both compute."""
-    pairs = visible_pairs(q.shape[0], q.shape[1], k.shape[1], causal, kv_lens)
-    f = 2 * q.shape[-1] * pairs
-    stats = q.shape[0] * q.shape[1] * 4  # one f32 lse (or delta) per query row
-    qkv = _nbytes(q, k, v, kv_lens)
-    return {
-        "fwd": bound(qkv + _nbytes(q) + stats, 2 * f, exps=pairs),
-        "bwd": bound(qkv + _nbytes(q, do) + stats + _nbytes(q, k, v), 5 * f, exps=pairs),
-    }
-
-
-def split_bounds(q, k, ops, causal: bool, kv_lens=None) -> dict:
-    """``bound`` of the split pair's kernels on what each one reads and
-    writes: q, k, v and dO as ``split_operands`` hands them over (bf16; f32
-    inputs come rounded, the casts outside the kernels), the lse and delta
-    rows, the lens, and the outputs in the input dtype. dq alone (-> dq;
-    s, dp and ds·k: 3 products) and dk, dv alone (-> dk, dv; s, dp, pᵀ·dO
-    and dsᵀ·q: 4). ``q`` and ``k`` are the caller's [BH, S, D] tensors, so
-    the counts leave out the padding of a head dim."""
-    pairs = visible_pairs(q.shape[0], q.shape[1], k.shape[1], causal, kv_lens)
-    f = 2 * q.shape[-1] * pairs
-    stats = q.shape[0] * q.shape[1] * 4
-    read = 2 * (q.numel() + k.numel()) * ops.q.element_size() + 2 * stats + _nbytes(kv_lens)  # q, dO, k, v
-    return {
-        "dq": bound(read + _nbytes(q), 3 * f, exps=pairs),
-        "dkv": bound(read + 2 * _nbytes(k), 4 * f, exps=pairs),
-    }
-
-
 def sdpa_ms(q, k, v, do, causal: bool, flash_only: bool) -> dict:
     """The yardstick, and the one place where this script names PyTorch's
     fused attention (the port never calls it): median ms of
@@ -456,373 +167,424 @@ def sdpa_ms(q, k, v, do, causal: bool, flash_only: bool) -> dict:
         backend = next(b for b in SDPBackend.__members__.values() if int(b) == choice)
     leaves = [t.detach().clone().requires_grad_() for t in (q4, k4, v4)]
     with sdpa_kernel([backend]):
-        fwd = cuda_ms(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
-        both = cuda_ms(lambda: torch.autograd.grad(
+        fwd = ms_per_call(lambda: F.scaled_dot_product_attention(q4, k4, v4, is_causal=causal))
+        both = ms_per_call(lambda: torch.autograd.grad(
             F.scaled_dot_product_attention(*leaves, is_causal=causal), leaves, do4))
     return {"fwd": fwd, "bwd": both - fwd, "backend": backend.name}
 
 
-def lse_limit(q, k, scale: float):
-    """The most the forward kernel's lse may differ from the plain
-    version's: TOL_LSE_ABS on bf16 inputs, where both round the same
-    operands. On f32 inputs the kernel rounds q*scale and k to bf16 and the
-    plain version does not. Each rounding moves an operand by at most 2^-9
-    of itself, so a score moves by at most (2^-8 + 2^-18) * sum_d |q_d *
-    scale| * |k_d|, and a row's lse, which moves no further than its
-    largest score does, by at most that row's largest such sum (taken over
-    every key, visible or not: an upper bound under any mask). Returns one
-    limit per query row [BH, Sq], TOL_LSE_ABS included for the f32 exp and
-    summation order."""
-    if q.dtype != torch.float32:
-        return torch.full(q.shape[:2], TOL_LSE_ABS, device=q.device)
-    sums = torch.matmul(q.abs() * scale, k.abs().transpose(-1, -2))  # [BH, Sq, Sk]
-    return TOL_LSE_ABS + (2**-8 + 2**-18) * sums.amax(-1)
+def _ragged_lens(b: int, s: int, seed: int) -> list[int]:
+    """One full row, one shorter than a tile, one ending on a tile edge (64,
+    a multiple of both kernels' key tiles), the rest random in [1, s]."""
+    edge = (s - 1) // 64 * 64
+    rest = np.random.default_rng(seed).integers(1, s + 1, max(b - 3, 0)).tolist()
+    return [s, 37, edge, *rest][:b]
 
 
-def _split(q, k, v, out, lse, do, causal, scale, kv_lens, kernels: bool = True):
-    """The split backward as ``mlpt::flash_bwd_split`` runs it: one prep
-    launch (delta and the padded lse rows) and the casts, then dq, then
-    dk/dv; the kernels, or with ``kernels=False`` their plain versions."""
-    fn = fa.flash_bwd_split_cuda if kernels else fa.flash_bwd_split_reference
-    return fn(q, k, v, out, lse, do, causal, scale, kv_lens)
+# ---------------------------------------------------------------- the kernel table
 
 
-def check_split(q, k, v, do, causal: bool, kv_lens=None, out=None, lse=None, scale: float | None = None,
-                fused=None) -> dict:
-    """The split pair against its plain versions on the plain forward's out
-    and lse (or the given ones), at ``scale`` (default D^-0.5): dq, dk, dv
-    finite in the input dtype and within TOL_NORM_REL of their norm; all
-    three bit for bit on a second run (nothing is summed across blocks); dk
-    and dv exactly 0 at and past each length, dq exactly 0 on a row of
-    length 0. With ``fused`` (the fused kernel's (dq, dk, dv) on the same
-    inputs), dk and dv equal the fused kernel's bit for bit wherever both
-    form k*scale from the same bf16 k (bf16 inputs, or a power-of-two
-    scale), and dq, dk, dv lie within TOL_NORM_REL of it. Returns the errors
-    against the plain version, the largest dk/dv value past the lens, the
-    largest dq on an empty row and the norm_rel against the fused dq."""
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if out is None:
-        out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
-    grads = _split(q, k, v, out, lse, do, causal, scale, kv_lens)
-    again = _split(q, k, v, out, lse, do, causal, scale, kv_lens)
-    plain = _split(q, k, v, out, lse, do, causal, scale, kv_lens, kernels=False)
-    torch.cuda.synchronize()
-    what = f"{list(q.shape)} kv {k.shape[1]} {str(q.dtype).split('.')[-1]} causal={causal} scale {scale:.4g} lens {kv_lens}"
-    res = {}
-    for name, g, p in zip(("dq", "dk", "dv"), grads, plain):
-        if g.dtype != q.dtype or g.shape != p.shape or not torch.isfinite(g).all():
-            raise AssertionError(f"[split] {name} not finite, or of the wrong type or shape, at {what}")
-        res[name] = _errs(g, p)
-        if not res[name][1] <= TOL_NORM_REL:
-            raise AssertionError(f"[split] {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {what}")
-    if not all(torch.equal(a, b) for a, b in zip(grads, again)):
-        raise AssertionError(f"[split] dq, dk, dv differ between two runs at {what}")
-    past_max = dq_empty = 0.0
-    if kv_lens is not None:
-        past = torch.arange(k.shape[1], device="cuda")[None, :] >= kv_lens[:, None]  # [BH, Sk]: keys at or past the length
-        if past.any():
-            past_max = max(g[past].abs().max().item() for g in grads[1:])
-        if (kv_lens == 0).any():
-            dq_empty = grads[0][kv_lens == 0].abs().max().item()
-        if past_max != 0.0 or dq_empty != 0.0:
-            raise AssertionError(f"[split] dk/dv past the lens or dq on an empty row not exactly 0 at {what}")
-    dq_vs_fused = same_k = None
-    if fused is not None:
-        same_k = q.dtype == torch.bfloat16 or math.frexp(scale)[0] == 0.5
-        if same_k and not (torch.equal(grads[1], fused[1]) and torch.equal(grads[2], fused[2])):
-            raise AssertionError(f"[split] dk/dv differ from the fused kernel's at {what}")
-        if not all(_errs(a, f)[1] <= TOL_NORM_REL for a, f in zip(grads[1:], fused[1:])):
-            raise AssertionError(f"[split] dk/dv differ from the fused kernel's by more than {TOL_NORM_REL} at {what}")
-        dq_vs_fused = _errs(grads[0], fused[0])[1]
-        if not dq_vs_fused <= TOL_NORM_REL:
-            raise AssertionError(f"[split] dq differs from the fused kernel's by {dq_vs_fused:.3e} at {what}")
-    return {"grads": grads, "errs": res, "past_max": past_max, "dq_empty": dq_empty, "dq_vs_fused": dq_vs_fused,
-            "dkv_as_fused": same_k}
+def held(tag: str, what: str, pairs: dict, tols: dict, abs_tols: dict | None = None) -> dict:
+    """Each kernel output of ``pairs`` (name -> (kernel's, plain version's))
+    finite and within ``tols[name]`` of its norm, or ``abs_tols[name]``
+    absolute, of its plain version; prints and returns (max_abs, norm_rel)
+    of each."""
+    errs = {n: _errs(got, want) for n, (got, want) in pairs.items()}
+    say(f"{tag} kernels vs plain at {what}: "
+        + ", ".join(f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in errs.items()))
+    abs_tols = abs_tols or {}
+    bad = [n for n, (got, _) in pairs.items() if not torch.isfinite(got).all()
+           or not (errs[n][0] <= abs_tols[n] if n in abs_tols else errs[n][1] <= tols[n])]
+    if bad:
+        raise AssertionError(f"{tag} {bad} beyond their tolerances at {what}")
+    return errs
 
 
-# The forward at its tile edges: q blocks of 64 or 128 rows, key tiles of 64
-# or 128, and varlen lengths on and around them.
-FWD_EDGE_SEQS = (1, 63, 64, 65, 127, 128, 129, 2049)
-FWD_EDGE_KV = ((65, 200), (200, 65), (129, 1), (1, 129), (2049, 300))  # (q_seq, kv_seq)
-FWD_EDGE_LENS = (0, 1, 64, 127, 128, 300)  # one per batch row of [6 x 2 heads, 300, D]
+def say_times(tag: str, what: str, t: dict, bounds: dict, library: dict, flops: dict | None = None) -> None:
+    """A line for each kernel ``n`` of ``bounds`` timed in ``t``: its time,
+    TFLOP/s where ``flops`` counts it, its share of its bound, its plain
+    version's time (``t[n + "_plain"]``) and the library call's (``library[n]``:
+    a name and its ms, or None where there is none)."""
+    for n, (bnd, by) in bounds.items():
+        if n not in t:
+            continue
+        ms = t[n]
+        rate = f", {flops[n] / ms / 1e9:.1f} TFLOP/s" if flops else ""
+        lib = library.get(n)
+        lib = f"; {lib[0]} {lib[1]:.4f} ms ({lib[1] / ms:.2f}x the kernel)" if lib else "; no library call"
+        say(f"{tag} {n} at {what}: {ms:.4f} ms a call{rate}, {bnd / ms:.3f} of its bound {bnd:.4f} ms ({by}); "
+            f"plain {t[n + '_plain']:.4f} ms{lib}")
 
 
-def check_forward(q, k, v, causal: bool, kv_lens=None) -> dict:
-    """The forward kernel against its plain version: out within
-    TOL_NORM_REL of its norm, lse within ``lse_limit``, a second launch bit
-    for bit, out exactly 0 on rows of length 0. Returns the kernel's and the
-    plain version's out and lse, out's norm_rel, the largest lse error /
-    limit and the largest limit."""
-    scale = q.shape[-1] ** -0.5
-    out, lse = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
-    out2, lse2 = fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens)
-    out_ref, lse_ref = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
-    torch.cuda.synchronize()
-    what = f"{list(q.shape)} kv {k.shape[1]} {str(q.dtype).split('.')[-1]} causal={causal} lens {kv_lens}"
-    if out.dtype != q.dtype or lse.dtype != torch.float32 or not (torch.isfinite(out).all() and torch.isfinite(lse).all()):
-        raise AssertionError(f"[forward] out or lse not finite or of the wrong type at {what}")
-    rel = _errs(out, out_ref)[1]
-    limit = lse_limit(q, k, scale)
-    margin = ((lse - lse_ref).abs() / limit).max().item()  # at most 1 where every row is within its limit
-    if not (rel <= TOL_NORM_REL and margin <= 1.0):
-        raise AssertionError(f"[forward] out norm_rel {rel:.3e} or lse error / limit {margin:.3f} beyond its limit at {what}")
-    if not (torch.equal(out, out2) and torch.equal(lse, lse2)):
-        raise AssertionError(f"[forward] a second forward differs from the first at {what}")
-    if kv_lens is not None and (kv_lens == 0).any() and out[kv_lens == 0].any():
-        raise AssertionError(f"[forward] a row that sees no key is not 0 at {what}")
-    return {"out": out, "lse": lse, "out_ref": out_ref, "lse_ref": lse_ref, "norm_rel": rel, "lse_margin": margin,
-            "lse_limit_max": limit.max().item()}
+def kernel_entry(name: str, source: str, replaces: str | None, max_abs_err: float, ms: float, plain_ms: float,
+                 bnd: tuple[float, str], library_ms: float | None, **extra) -> dict:
+    """One entry of the kernels JSON line; ``launches`` comes from the main paths at the end."""
+    return {"name": name, "route": "cuda", "source": source, "replaces": replaces, "launches": None,
+            "max_abs_err": max_abs_err, "ms": ms, "plain_ms": plain_ms, "bound_ms": bnd[0], "bound_by": bnd[1],
+            "library_ms": library_ms, **extra}
 
 
-def check_forward_edges(tag: str, dtype: torch.dtype, mode: str) -> None:
-    """``check_forward`` at every head dim, causal and not, over the edge
-    cases of ``mode``: "seq" (q_seq = kv_seq in FWD_EDGE_SEQS, 3 heads),
-    "kv" (FWD_EDGE_KV) or "lens" (varlen, FWD_EDGE_LENS)."""
-    g = torch.Generator(device="cuda").manual_seed(50)
-
-    def rand(bh, s, d):
-        return torch.randn(bh, s, d, generator=g, device="cuda").to(dtype)
-
-    cases = {"seq": [(s, s) for s in FWD_EDGE_SEQS], "kv": list(FWD_EDGE_KV), "lens": [(300, 300)]}[mode]
-    worst_rel = worst_margin = 0.0
-    n = 0
-    for d in fa.KERNEL_HEAD_DIMS:
-        for causal in (True, False):
-            for q_seq, kv_seq in cases:
-                bh = 2 * len(FWD_EDGE_LENS) if mode == "lens" else 3
-                lens = (torch.tensor(FWD_EDGE_LENS, dtype=torch.int32, device="cuda").repeat_interleave(2)
-                        if mode == "lens" else None)
-                fwd = check_forward(rand(bh, q_seq, d), rand(bh, kv_seq, d), rand(bh, kv_seq, d), causal, lens)
-                worst_rel, worst_margin = max(worst_rel, fwd["norm_rel"]), max(worst_margin, fwd["lse_margin"])
-                n += 1
-    what = {"seq": f"q_seq = kv_seq in {list(FWD_EDGE_SEQS)}", "kv": f"(q_seq, kv_seq) in {list(FWD_EDGE_KV)}",
-            "lens": f"[12, 300, D], lens {list(FWD_EDGE_LENS)} x 2 heads"}[mode]
-    say(f"{tag} forward at the tile edges, {n} cases, {str(dtype).split('.')[-1]}, D {list(fa.KERNEL_HEAD_DIMS)}, "
-        f"causal and not, {what}: worst out norm_rel {worst_rel:.3e}, worst lse error / limit {worst_margin:.3f}, "
-        f"every second forward identical")
+def attention_bounds(q, k, v, do, causal: bool, kv_lens=None) -> dict:
+    """``bound`` of each attention function on these [BH, S, D] inputs, with
+    2·D FLOP per visible pair per product and one exp per pair: the forward
+    (q, k, v -> out, f32 lse; 2 products) and the backward (q, k, v, out,
+    dO, lse -> dq, dk, dv; 5 products), which the fused kernel and the
+    split pair both compute."""
+    pairs = visible_pairs(q.shape[0], q.shape[1], k.shape[1], causal, kv_lens)
+    f = 2 * q.shape[-1] * pairs
+    stats = q.shape[0] * q.shape[1] * 4  # one f32 lse (or delta) per query row
+    qkv = nbytes(q, k, v, kv_lens)
+    return {
+        "fwd": bound(qkv + nbytes(q) + stats, 2 * f, exps=pairs),
+        "bwd": bound(qkv + nbytes(q, do) + stats + nbytes(q, k, v), 5 * f, exps=pairs),
+    }
 
 
-def check_backward(q, k, v, do, causal: bool, kv_lens=None, out=None, lse=None, scale: float | None = None) -> dict:
-    """The fused backward kernel against its plain version on the plain
-    forward's out and lse (or the given ones), at ``scale`` (default
-    D^-0.5): dq, dk, dv finite in the
-    input dtype and within TOL_NORM_REL of their norm; a second launch gives
-    dk and dv bit for bit and dq within one bf16 ulp; dk and dv exactly 0 at
-    and past each length. Returns the errors against the plain version, the
-    largest change of dq between the two launches and the largest dk/dv
-    value past the lens."""
-    scale = q.shape[-1] ** -0.5 if scale is None else scale
-    if out is None:
-        out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
-    grads = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
-    again = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
-    plain = fa.flash_bwd_reference(q, k, v, out, lse, do, causal, scale, kv_lens)
-    torch.cuda.synchronize()
-    what = f"{list(q.shape)} kv {k.shape[1]} {str(q.dtype).split('.')[-1]} causal={causal} lens {kv_lens}"
-    res = {}
-    for name, g, p in zip(("dq", "dk", "dv"), grads, plain):
-        if g.dtype != q.dtype or g.shape != p.shape or not torch.isfinite(g).all():
-            raise AssertionError(f"[backward] {name} not finite, or of the wrong type or shape, at {what}")
-        res[name] = _errs(g, p)
-        if not res[name][1] <= TOL_NORM_REL:
-            raise AssertionError(f"[backward] {name} norm-relative error {res[name][1]:.3e} > {TOL_NORM_REL} at {what}")
-    # dq sums by f32 atomics in an order that changes between runs: a second
-    # run may differ by one bf16 ulp of the larger of the two values, plus
-    # f32 summation noise (1e-6) where terms cancel to near zero; dk and dv
-    # have no atomics and repeat exactly
-    dq_diff = (again[0].float() - grads[0].float()).abs()
-    dq_ulp = torch.maximum(again[0].float().abs(), grads[0].float().abs()) * 2.0**-7 + 1e-6
-    if not (torch.equal(again[1], grads[1]) and torch.equal(again[2], grads[2])):
-        raise AssertionError(f"[backward] dk/dv differ between two runs at {what}")
-    if not bool((dq_diff <= dq_ulp).all()):
-        raise AssertionError(f"[backward] dq differs by more than one bf16 ulp between two runs at {what}")
-    past_max = 0.0
-    if kv_lens is not None:
-        past = torch.arange(k.shape[1], device="cuda")[None, :] >= kv_lens[:, None]  # [BH, Sk]: keys at or past the length
-        if past.any():
-            past_max = max(g[past].abs().max().item() for g in grads[1:])
-        if past_max != 0.0:
-            raise AssertionError(f"[backward] dk/dv past the lens not exactly 0 at {what}")
-    return {"grads": grads, "errs": res, "dq_change": dq_diff.max().item(), "past_max": past_max}
+def split_bounds(q, k, ops, causal: bool, kv_lens=None) -> dict:
+    """``bound`` of the split pair's kernels on what each one reads and
+    writes: q, k, v and dO as ``split_operands`` hands them over (bf16; f32
+    inputs come rounded, the casts outside the kernels), the lse and delta
+    rows, the lens, and the outputs in the input dtype. dq alone (-> dq;
+    s, dp and ds·k: 3 products) and dk, dv alone (-> dk, dv; s, dp, pᵀ·dO
+    and dsᵀ·q: 4). ``q`` and ``k`` are the caller's [BH, S, D] tensors, so
+    the counts leave out the padding of a head dim."""
+    pairs = visible_pairs(q.shape[0], q.shape[1], k.shape[1], causal, kv_lens)
+    f = 2 * q.shape[-1] * pairs
+    stats = q.shape[0] * q.shape[1] * 4
+    read = 2 * (q.numel() + k.numel()) * ops.q.element_size() + 2 * stats + nbytes(kv_lens)  # q, dO, k, v
+    return {
+        "dq": bound(read + nbytes(q), 3 * f, exps=pairs),
+        "dkv": bound(read + 2 * nbytes(k), 4 * f, exps=pairs),
+    }
 
 
-# The fused backward at its tile edges: 64-row q and k blocks, and varlen
-# lengths on and around them. A query alone (q_seq 1, or a causal row 0)
-# sees one key, where ds = p (dp - delta) is rounding noise on both sides,
-# so q_seq 1 runs non-causal only.
-BWD_EDGE_SEQS = (17, 63, 64, 65, 127, 128, 129, 2049)
-BWD_EDGE_KV = ((1, 129), (65, 200), (200, 65), (129, 130), (2049, 300), (300, 2049))  # (q_seq, kv_seq)
-BWD_EDGE_LENS = (0, 1, 63, 64, 65, 127, 128, 300)  # one per batch row of [8 x 2 heads, 300, D]
-
-
-def backward_edge_cases(dtype: torch.dtype, seed: int):
-    """(q, k, v, dO, causal, kv_lens) at every head dim, causal and not, over
-    q_seq = kv_seq in BWD_EDGE_SEQS (3 heads), (q_seq, kv_seq) in
-    BWD_EDGE_KV and the varlen lengths BWD_EDGE_LENS."""
+def attention_at(shape, causal: bool, dtype: torch.dtype = torch.bfloat16, varlen: bool = False,
+                 split: bool = False, backward: bool = True, seed: int = 0) -> dict:
+    """The flash kernels at one shape of the table: the forward, the fused
+    backward (with ``backward``) and the split pair (with ``split``: its prep
+    launch and casts, dq, dk/dv, as ``mlpt::flash_bwd_split`` runs it)
+    against their plain versions, the backwards on the plain forward's out
+    and lse; then each timed beside its plain version, its bound and
+    PyTorch's call (``sdpa_ms``: the flash backend on bf16, on f32 the one
+    PyTorch picks; its backward is the split kernels' yardstick too).
+    ``varlen``: compared in the varlen mode at ragged lengths
+    (``_ragged_lens``) and timed with every length full, the function
+    PyTorch's call computes. The bounds and FLOP counts take the caller's
+    head dim: the padding is the kernels' cost, not the function's. Returns
+    the errors, the times, the bounds and PyTorch's times."""
+    b, h, s, d = shape
     g = torch.Generator(device="cuda").manual_seed(seed)
+    q, k, v, do = (torch.randn(b * h, s, d, generator=g, device="cuda").to(dtype) for _ in range(4))
+    scale = d**-0.5
+    what = f"{list(shape)} {str(dtype).split('.')[-1]} {'causal' if causal else 'non-causal'}"
+    # full f32 products in the plain versions (the main paths' plans turn TF32 on)
+    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
+    lens = torch.tensor(_ragged_lens(b, s, seed), dtype=torch.int32, device="cuda").repeat_interleave(h) \
+        if varlen else None
+    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, lens)
+    pairs = {"out": (fa.flash_fwd_cuda(q, k, v, causal, scale, lens)[0], out)}
+    args = (q, k, v, out, lse, do, causal, scale, lens)
+    for prefix, kernel, plain, on in (("", fa.flash_bwd_cuda, fa.flash_bwd_reference, backward),
+                                      ("split_", fa.flash_bwd_split_cuda, fa.flash_bwd_split_reference, split)):
+        if on:
+            pairs |= {prefix + n: pair for n, pair in zip(("dq", "dk", "dv"), zip(kernel(*args), plain(*args)))}
+    errs = held("[attention]", what + (", varlen mode at ragged lens" if varlen else ""), pairs,
+                dict.fromkeys(pairs, TOL_NORM_REL))
 
-    def rand(bh, s, d):
-        return torch.randn(bh, s, d, generator=g, device="cuda").to(dtype)
-
-    lens = torch.tensor(BWD_EDGE_LENS, dtype=torch.int32, device="cuda").repeat_interleave(2)
-    cases = [(s, s, None) for s in BWD_EDGE_SEQS] + [(q, kv, None) for q, kv in BWD_EDGE_KV] + [(300, 300, lens)]
-    for d in fa.KERNEL_HEAD_DIMS:
-        for causal in (True, False):
-            for q_seq, kv_seq, kv_lens in cases:
-                if causal and q_seq == 1:
-                    continue
-                bh = 3 if kv_lens is None else len(kv_lens)
-                yield rand(bh, q_seq, d), rand(bh, kv_seq, d), rand(bh, kv_seq, d), rand(bh, q_seq, d), causal, kv_lens
-
-
-BWD_EDGES_SHOWN = (f"D {list(fa.KERNEL_HEAD_DIMS)}, causal and not, q_seq = kv_seq in {list(BWD_EDGE_SEQS)}, "
-                   f"(q_seq, kv_seq) in {list(BWD_EDGE_KV)}, [16, 300, D] lens {list(BWD_EDGE_LENS)} x 2 heads")
-
-
-def check_backward_edges(tag: str, dtype: torch.dtype) -> None:
-    """``check_backward`` over ``backward_edge_cases``."""
-    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    dq_change = 0.0
-    n = 0
-    for q, k, v, do, causal, kv_lens in backward_edge_cases(dtype, 51):
-        r = check_backward(q, k, v, do, causal, kv_lens)
-        worst = {m: max(worst[m], r["errs"][m][1]) for m in worst}
-        dq_change = max(dq_change, r["dq_change"])
-        n += 1
-    say(f"{tag} fused backward at the tile edges, {n} cases, {str(dtype).split('.')[-1]}, {BWD_EDGES_SHOWN}: worst "
-        "norm_rel " + ", ".join(f"{m} {r:.3e}" for m, r in worst.items())
-        + f"; dk/dv identical on every second run, dq max change {dq_change:.3e}, dk/dv past the lens exactly 0")
-
-
-def check_split_edges(tag: str, dtype: torch.dtype) -> None:
-    """``check_split`` over ``backward_edge_cases``, each also held against
-    the fused kernel on the same inputs (dk and dv bit for bit where both
-    form k*scale from the same bf16 k)."""
-    worst = {"dq": 0.0, "dk": 0.0, "dv": 0.0}
-    n = n_same = 0
-    for q, k, v, do, causal, kv_lens in backward_edge_cases(dtype, 52):
-        scale = q.shape[-1] ** -0.5
-        out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
-        fused = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
-        r = check_split(q, k, v, do, causal, kv_lens, out, lse, fused=fused)
-        worst = {m: max(worst[m], r["errs"][m][1]) for m in worst}
-        n += 1
-        n_same += bool(r["dkv_as_fused"])
-    say(f"{tag} split pair at the fused backward's tile edges, {n} cases, {str(dtype).split('.')[-1]}, "
-        f"{BWD_EDGES_SHOWN}: worst norm_rel " + ", ".join(f"{m} {r:.3e}" for m, r in worst.items())
-        + f"; dq, dk, dv identical on every second run, dk/dv past the lens exactly 0, dk/dv identical to the "
-          f"fused kernel's in {n_same} of {n} cases (the rest f32 at D=128, whose k*scale the fused kernel rounds "
-          f"twice)")
-
-
-def fwd_flops(q, k, causal: bool, kv_lens=None) -> float:
-    """The forward's products: 2 x 2·D FLOP per visible (query, key) pair."""
-    return 4 * q.shape[-1] * visible_pairs(q.shape[0], q.shape[1], k.shape[1], causal, kv_lens)
-
-
-def bwd_flops(q, k, causal: bool, kv_lens=None) -> float:
-    """The backward's products: 5 x 2·D FLOP per visible (query, key) pair."""
-    return 10 * q.shape[-1] * visible_pairs(q.shape[0], q.shape[1], k.shape[1], causal, kv_lens)
-
-
-def say_backward(shape, what: str, ms: float, flops: float, bnd: dict, lib: dict) -> None:
-    """The fused backward's time beside what it achieves, its bound and PyTorch's call."""
-    say(f"[yardstick] fused backward {list(shape)} {what}: {ms:.4f} ms a call, {flops / ms / 1e9:.1f} TFLOP/s, "
-        f"{bnd['bound_ms'] / ms:.3f} of the bound {bnd['bound_ms']:.4f} ms ({bnd['bound_by']}); "
-        f"PyTorch ({lib['backend']}) {lib['bwd']:.4f} ms, ours / PyTorch {ms / lib['bwd']:.3f}")
-
-
-def say_forward(shape, what: str, ms: float, ms_alone: float, flops: float, bnd: dict, lib: dict) -> None:
-    """The forward's time beside what it achieves, its bound and PyTorch's call."""
-    say(f"[forward] {list(shape)} {what}: {ms:.4f} ms a call ({ms_alone:.4f} ms timed alone), "
-        f"{flops / ms / 1e9:.1f} TFLOP/s, {bnd['bound_ms'] / ms:.3f} of the bound {bnd['bound_ms']:.4f} ms "
-        f"({bnd['bound_by']}); PyTorch ({lib['backend']}) {lib['fwd']:.4f} ms, ours / PyTorch {ms / lib['fwd']:.3f}")
-
-
-def check_kernels_at(shape, causal: bool, seed: int = 0, lens: list[int] | None = None,
-                     dtype: torch.dtype = torch.bfloat16, split: bool = False, tag: str | None = None) -> dict:
-    """The forward (``check_forward``) and the fused backward kernel
-    (``check_backward``) against their plain versions on identical inputs.
-    With ``lens`` (one per batch row, broadcast over heads as
-    ``flash_attention`` does) all run in varlen mode. With ``split``, the
-    split pair too: dq, dk, dv within TOL_NORM_REL of its plain versions and
-    of the fused kernel, all three bit for bit on a second run (nothing is
-    summed across blocks), dk and dv exactly 0 past the lens and dq exactly 0
-    on a row of length 0. Returns the errors against the plain versions."""
-    b, h, s, _ = shape
-    q, k, v, do = _inputs(shape, seed, dtype)
-    scale = shape[-1] ** -0.5
-    kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
-    tag = tag or ("[split]" if split else "[kernels]" if lens is None else "[varlen]")
-    shown = lens if lens is None or len(lens) <= 16 else f"{len(lens)} in [{min(lens)}, {max(lens)}]"
-    what = f"{list(shape)} {str(dtype).split('.')[-1]} causal={causal}{'' if lens is None else f' lens {shown}'}"
-    fwd = check_forward(q, k, v, causal, kv_lens)
-    out_ref, lse_ref = fwd["out_ref"], fwd["lse_ref"]
-    bwd = check_backward(q, k, v, do, causal, kv_lens, out_ref, lse_ref)
-    res = {"out": _errs(fwd["out"], out_ref), "lse": _errs(fwd["lse"], lse_ref), **bwd["errs"]}
-    past_max, dq_empty, split_line = bwd["past_max"], 0.0, ""
+    if varlen:
+        what += ", varlen mode, full lens"
+        lens = torch.full((b * h,), s, dtype=torch.int32, device="cuda")
+        out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, lens)
+        args = (q, k, v, out, lse, do, causal, scale, lens)
+    fns = {"fwd": lambda: fa.flash_fwd_cuda(q, k, v, causal, scale, lens),
+           "fwd_plain": lambda: fa.flash_fwd_reference(q, k, v, causal, scale, lens)}
+    if backward:
+        fns |= {"bwd": lambda: fa.flash_bwd_cuda(*args), "bwd_plain": lambda: fa.flash_bwd_reference(*args)}
+    bounds = attention_bounds(q, k, v, do, causal, lens)
     if split:
-        sp = check_split(q, k, v, do, causal, kv_lens, out_ref, lse_ref, fused=bwd["grads"])
-        res.update({"split_" + n: e for n, e in sp["errs"].items()})
-        past_max, dq_empty = max(past_max, sp["past_max"]), sp["dq_empty"]
-        split_line = (f"; split pair second run identical True, dk/dv "
-                      + ("identical to the fused kernel's" if sp["dkv_as_fused"] else "not compared bit for bit (f32, odd scale)")
-                      + f", dq vs fused norm_rel {sp['dq_vs_fused']:.3e}")
-    say(f"{tag} {what}: " + ", ".join(f"{n} max_abs {a:.3e} norm_rel {r:.3e}" for n, (a, r) in res.items())
-        + f"; lse error / limit max {fwd['lse_margin']:.3f} (limit max {fwd['lse_limit_max']:.3e})"
-        + ("" if lens is None else f"; dk/dv past the lens max_abs {past_max:.1e}")
-        + (f", dq on empty rows {dq_empty:.1e}" if split and lens is not None else ""))
-    say(f"{tag} {what} second backward run: dq max_abs change {bwd['dq_change']:.3e}, dk/dv identical True"
-        + split_line)
-    return res
+        ops = fa.split_operands(q, k, v, out, lse, do, scale, lens)
+        plain_args = (q, k, v, do, lse, fa.bwd_delta(out, do), causal, scale, lens)
+        fns |= {"dq": lambda: fa.flash_bwd_dq_cuda(ops, causal),
+                "dq_plain": lambda: fa.flash_bwd_dq_reference(*plain_args),
+                "dkv": lambda: fa.flash_bwd_dkv_cuda(ops, causal),
+                "dkv_plain": lambda: fa.flash_bwd_dkv_reference(*plain_args),
+                "pair": lambda: fa.flash_bwd_split_cuda(*args),
+                "pair_plain": lambda: fa.flash_bwd_split_reference(*args),
+                "shared": lambda: fa.split_operands(q, k, v, out, lse, do, scale, lens)}
+        bounds |= split_bounds(q, k, ops, causal, lens) | {"pair": bounds["bwd"]}
+    t = {n: ms_per_call(fn) for n, fn in fns.items()}
+    lib = sdpa_ms(q, k, v, do, causal, flash_only=dtype == torch.bfloat16)
+    pytorch = f"PyTorch ({lib['backend']})"
+    library = {"fwd": (pytorch, lib["fwd"])} | dict.fromkeys(("bwd", "dq", "dkv", "pair"), (pytorch, lib["bwd"]))
+    fd = d * visible_pairs(b * h, s, s, causal, lens)
+    say_times("[attention]", what, t, bounds, library, {"fwd": 4 * fd, "bwd": 10 * fd, "dq": 6 * fd, "dkv": 8 * fd,
+                                                        "pair": 10 * fd})
+    if split:
+        say(f"[attention] split pair at {what}: the shared work (prep launch and casts) {t['shared']:.4f} ms; "
+            f"pair / fused backward {t['pair'] / t['bwd']:.3f}")
+    return {"errs": errs, "ms": t, "bounds": bounds, "library": lib}
 
 
-def phase_kernels() -> tuple[dict, list[dict]]:
-    """Returns the times at pythia's shape and the kernels line's entries."""
-    errs = check_kernels_at(SLICE_SHAPE, causal=True)
-    check_kernels_at(RAGGED_SHAPE, causal=True, seed=1)
-    check_kernels_at(RAGGED_SHAPE, causal=False, seed=2)
-    check_forward_edges("[kernels]", torch.bfloat16, "seq")
-    check_forward_edges("[kernels]", torch.bfloat16, "kv")
-    check_backward_edges("[kernels]", torch.bfloat16)
+def attention_entries(rows: dict, suffix: str = "") -> list[dict]:
+    """The kernels JSON line's entries of ``attention_at``'s rows: the
+    forward and the fused backward, and the split kernels where timed (their
+    ``library_ms`` PyTorch's backward, which computes what the pair computes
+    together, and ``pair_ms`` the pair's own time)."""
+    e, t, bnd, lib = rows["errs"], rows["ms"], rows["bounds"], rows["library"]
+    entries = [
+        kernel_entry(f"flash_fwd{suffix}", FWD_SOURCE, f"{JAX_FLASH}:91", e["out"][0], t["fwd"], t["fwd_plain"],
+                     bnd["fwd"], lib["fwd"]),
+        kernel_entry(f"flash_bwd_fused{suffix}", BWD_SOURCE, f"{JAX_FLASH}:208", max(e[n][0] for n in ("dq", "dk", "dv")),
+                     t["bwd"], t["bwd_plain"], bnd["bwd"], lib["bwd"]),
+    ]
+    if "pair" in t:
+        entries += [
+            kernel_entry(f"flash_bwd_dq{suffix}", DQ_SOURCE, f"{JAX_FLASH}:161", e["split_dq"][0], t["dq"],
+                         t["dq_plain"], bnd["dq"], lib["bwd"], pair_ms=t["pair"]),
+            kernel_entry(f"flash_bwd_dkv{suffix}", BWD_SOURCE, f"{JAX_FLASH}:293",
+                         max(e["split_dk"][0], e["split_dv"][0]), t["dkv"], t["dkv_plain"], bnd["dkv"], lib["bwd"],
+                         pair_ms=t["pair"]),
+        ]
+    return entries
 
-    q, k, v, do = _inputs(SLICE_SHAPE, 3)
-    scale = SLICE_SHAPE[-1] ** -0.5
-    out, lse = fa.flash_fwd_reference(q, k, v, True, scale)
-    def fwd_bwd(fwd, bwd):
-        o, l = fwd(q, k, v, True, scale)
-        bwd(q, k, v, o, l, do, True, scale)
+
+# pythia-1b's chunk of the LM-head loss (1024 rows of its vocab), and the benchmark's pythia-1b micro-batch (16 rows
+# of 2049 tokens, shifted) with its hidden width
+XENT_CHUNK = (1024, 50304)
+XENT_MICRO_BATCH = (16 * 2048, 2048)
+# the loss on the kernels vs the pre-change autograd path, at the micro-batch
+TOL_XENT_LOSS_REL = 1e-5
+TOL_XENT_GRAD_NORM_REL = 2e-3
+
+
+def _xent_autograd_dlogits(logits, labels, vocab: int, scale):
+    """The chain the kernels replace, as the pre-change backward ran it on a
+    chunk's recomputed logits: logsumexp and the gather, autograd's backward
+    through them, and the cast to bf16 (the yardstick; the port never calls
+    it)."""
+    x = logits.detach().requires_grad_()
+    valid = labels != -100
+    gold = x[:, :vocab].gather(-1, torch.where(valid, labels, 0)[:, None])[:, 0]
+    nll = ((torch.logsumexp(x[:, :vocab], dim=-1) - gold) * valid).sum()
+    (g,) = torch.autograd.grad(nll * scale, x)
+    return g.to(torch.bfloat16)
+
+
+def phase_xent() -> list[dict]:
+    """The LM-head loss's kernels at pythia's chunk (f32 logits, every row
+    counting, as in a packed pythia batch; bf16 dlogits): against their
+    plain versions, then timed beside their bounds (each logit and label
+    read once; the forward writes lse and nll, the backward reads lse and
+    writes bf16 dlogits; one exp a logit), their plain versions and the
+    yardsticks (``torch.logsumexp``; the pre-change autograd chain). Then
+    the whole loss, forward and backward, at the benchmark's pythia-1b
+    micro-batch on the kernels and on the pre-change path
+    (``xent_autograd_yardstick``), their losses and gradients held to each
+    other. The kernels JSON line's entries ``xent_fwd``, ``xent_bwd``."""
+    from multimodal_llm_pretraining_tpu_torch.ops import xent
+
+    rows, vocab = XENT_CHUNK
+    g = torch.Generator(device="cuda").manual_seed(22)
+    logits = torch.randn(rows, vocab, generator=g, device="cuda") * 3
+    labels = torch.randint(0, vocab, (rows,), generator=g, device="cuda")
+    lse_k, nll_k = torch.empty(rows, device="cuda"), torch.empty(rows, device="cuda")
+    xent.xent_fwd_cuda(logits, labels, vocab, -100, lse_k, nll_k)
+    lse, nll = xent.xent_fwd_reference(logits, labels, vocab, -100)
+    scale = torch.tensor(1.0 / XENT_MICRO_BATCH[0], device="cuda")
+    bwd_args = (logits, labels, lse, scale, vocab, -100, torch.bfloat16)
+    errs = held("[xent]", str(list(XENT_CHUNK)),
+                {"lse": (lse_k, lse), "nll": (nll_k, nll),
+                 "dlogits": (xent.xent_bwd_cuda(*bwd_args), xent.xent_bwd_reference(*bwd_args))},
+                {"dlogits": TOL_BF16}, {"lse": TOL_XENT_LSE_ABS, "nll": TOL_XENT_LSE_ABS})
+    t = {
+        "fwd": ms_per_call(lambda: xent.xent_fwd_cuda(logits, labels, vocab, -100, lse_k, nll_k)),
+        "fwd_plain": ms_per_call(lambda: xent.xent_fwd_reference(logits, labels, vocab, -100)),
+        "fwd_library": ms_per_call(lambda: torch.logsumexp(logits, dim=-1)),
+        "bwd": ms_per_call(lambda: xent.xent_bwd_cuda(*bwd_args)),
+        "bwd_plain": ms_per_call(lambda: xent.xent_bwd_reference(*bwd_args)),
+        "bwd_library": ms_per_call(lambda: _xent_autograd_dlogits(logits, labels, vocab, scale)),
+    }
+    ins = nbytes(logits, labels)
+    bounds = {"fwd": bound(ins + 2 * nbytes(lse), exps=logits.numel()),
+              "bwd": bound(ins + nbytes(lse) + logits.numel() * 2, exps=logits.numel())}
+    say_times("[xent]", str(list(XENT_CHUNK)), t, bounds,
+              {"fwd": ("torch.logsumexp", t["fwd_library"]), "bwd": ("the pre-change chain", t["bwd_library"])})
+    del logits
+
+    n_tok, hidden = XENT_MICRO_BATCH
+    g = torch.Generator(device="cuda").manual_seed(23)
+    h = torch.randn(n_tok, hidden, generator=g, device="cuda").to(torch.bfloat16)
+    w = (torch.randn(hidden, vocab, generator=g, device="cuda") * hidden**-0.5).to(torch.bfloat16)
+    tokens = torch.randint(0, vocab, (n_tok,), generator=g, device="cuda")
+    results, times = {}, {}
+    for name, fn in (("kernels", xent.chunked_lm_cross_entropy), ("pre-change", xent.xent_autograd_yardstick)):
+        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
+
+        def fwd_bwd():
+            hh.grad = ww.grad = None
+            loss = fn(hh, ww, tokens)
+            loss.backward()
+            return loss
+
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        times[name] = ms_per_call(fwd_bwd, warmup=1, iters=3, reps=3)
+        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
+        results[name] = (fwd_bwd().detach(), hh.grad, ww.grad)
+        say(f"[xent] loss at the micro-batch [{n_tok}, {hidden}] x {vocab} bf16 on the {name} path: "
+            f"{times[name]:.2f} ms forward and backward, {peak:.2f} GiB above its inputs")
+    (loss, dh, dw), (loss_ref, dh_ref, dw_ref) = results["kernels"], results["pre-change"]
+    gaps = {"loss": abs(loss.item() - loss_ref.item()) / abs(loss_ref.item()),
+            "dh": _errs(dh, dh_ref)[1], "dw": _errs(dw, dw_ref)[1]}
+    say(f"[xent] micro-batch: {times['pre-change'] / times['kernels']:.2f}x faster than the pre-change path; loss "
+        f"{loss.item():.6f} against {loss_ref.item():.6f} (rel {gaps['loss']:.1e}), grads norm_rel hidden "
+        f"{gaps['dh']:.1e}, head {gaps['dw']:.1e}")
+    if gaps["loss"] > TOL_XENT_LOSS_REL or max(gaps["dh"], gaps["dw"]) > TOL_XENT_GRAD_NORM_REL:
+        raise AssertionError(f"xent loss on the kernels vs the pre-change path: {gaps}")
+    return [kernel_entry("xent_fwd", XENT_SOURCE, None, errs["lse"][0], t["fwd"], t["fwd_plain"], bounds["fwd"],
+                         t["fwd_library"]),
+            kernel_entry("xent_bwd", XENT_SOURCE, None, errs["dlogits"][0], t["bwd"], t["bwd_plain"], bounds["bwd"],
+                         t["bwd_library"])]
+
+
+RMSNORM_SHAPE = (8 * 4096, 2560)  # mamba-2.8b at the benchmark's micro-batch: 8 rows of 4096 tokens, d_model 2560
+RMSNORM_EPS = 1e-5
+
+
+def phase_rmsnorm() -> list[dict]:
+    """The norm kernels at mamba's benchmark micro-batch (the f32 stream in,
+    bf16 out, the residual's gradient added in the backward): against their
+    plain versions, then timed beside their bounds (the forward reads the
+    stream and the scale and writes y and an f32 rstd a row; the backward
+    reads dy, the stream, rstd, the scale and the residual's gradient and
+    writes the stream's gradient and the scale's), their plain versions and
+    the yardsticks (``F.rms_norm`` and the cast to bf16; the pre-change
+    autograd chain's backward and the residual's add). The kernels JSON
+    line's entries ``rmsnorm_fwd``, ``rmsnorm_bwd``."""
+    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
+
+    rows, cols = RMSNORM_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(34)
+    x = torch.randn(rows, cols, generator=g, device="cuda") * 3 + 0.5
+    w = torch.rand(cols, generator=g, device="cuda") + 0.5
+    dy = torch.randn(rows, cols, generator=g, device="cuda").to(torch.bfloat16)
+    dres = torch.randn(rows, cols, generator=g, device="cuda")
+    y, rstd = rmsnorm.rmsnorm_fwd_cuda(x, w, RMSNORM_EPS, torch.bfloat16)
+    y_ref, rstd_ref = rmsnorm.rmsnorm_fwd_reference(x, w, RMSNORM_EPS, torch.bfloat16)
+    dx, dw = rmsnorm.rmsnorm_bwd_cuda(dy, x, rstd_ref, w, dres)
+    dx_ref, dw_ref = rmsnorm.rmsnorm_bwd_reference(dy, x, rstd_ref, w, dres)
+    what = f"{list(RMSNORM_SHAPE)} f32 -> bf16"
+    errs = held("[rmsnorm]", what, {"y": (y, y_ref), "rstd": (rstd, rstd_ref), "dx": (dx, dx_ref), "dw": (dw, dw_ref)},
+                {"y": TOL_BF16, "rstd": TOL_F32, "dx": TOL_F32, "dw": TOL_F32})
+    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
+    y_chain = (xg * (torch.rsqrt(xg.square().mean(-1, keepdim=True) + RMSNORM_EPS) * wg)).to(torch.bfloat16)
+
+    def chain_backward():
+        dx, _ = torch.autograd.grad(y_chain, (xg, wg), dy, retain_graph=True)
+        return dx + dres
 
     t = {
-        "fwd": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale)),
-        "fwd_plain": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, True, scale)),
-        "bwd": cuda_ms(lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, True, scale)),
-        "bwd_plain": cuda_ms(lambda: fa.flash_bwd_reference(q, k, v, out, lse, do, True, scale)),
-        "fwd_bwd": cuda_ms(lambda: fwd_bwd(fa.flash_fwd_cuda, fa.flash_bwd_cuda)),
-        "fwd_bwd_plain": cuda_ms(lambda: fwd_bwd(fa.flash_fwd_reference, fa.flash_bwd_reference)),
+        "fwd": ms_per_call(lambda: rmsnorm.rmsnorm_fwd_cuda(x, w, RMSNORM_EPS, torch.bfloat16)),
+        "fwd_plain": ms_per_call(lambda: rmsnorm.rmsnorm_fwd_reference(x, w, RMSNORM_EPS, torch.bfloat16)),
+        "fwd_library": ms_per_call(lambda: torch.nn.functional.rms_norm(x, (cols,), w, RMSNORM_EPS).to(torch.bfloat16)),
+        "bwd": ms_per_call(lambda: rmsnorm.rmsnorm_bwd_cuda(dy, x, rstd, w, dres)),
+        "bwd_plain": ms_per_call(lambda: rmsnorm.rmsnorm_bwd_reference(dy, x, rstd, w, dres)),
+        "bwd_library": ms_per_call(chain_backward),
     }
-    say(f"[kernels] ms a call at {list(SLICE_SHAPE)} bf16 causal: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
-    lib = sdpa_ms(q, k, v, do, True, flash_only=True)
-    bounds = attention_bounds(q, k, v, do, True)
-    say_yardstick(SLICE_SHAPE, "bf16 causal", lib, bounds)
-    say_forward(SLICE_SHAPE, "bf16 causal", t["fwd"], cuda_ms_alone(lambda: fa.flash_fwd_cuda(q, k, v, True, scale)),
-                fwd_flops(q, k, True), bounds["fwd"], lib)
-    say_backward(SLICE_SHAPE, "bf16 causal", t["bwd"], bwd_flops(q, k, True), bounds["bwd"], lib)
-    max_grad_err = max(errs[n][0] for n in ("dq", "dk", "dv"))
-    return {"ms": t, "library": lib}, [
-        {"name": "flash_fwd", "route": "cuda", "source": FWD_SOURCE, "replaces": f"{JAX_FLASH}:91",
-         "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
-         **bounds["fwd"], "library_ms": lib["fwd"]},
-        {"name": "flash_bwd_fused", "route": "cuda", "source": BWD_SOURCE, "replaces": f"{JAX_FLASH}:208",
-         "launches": None, "max_abs_err": max_grad_err, "ms": t["bwd"], "plain_ms": t["bwd_plain"],
-         **bounds["bwd"], "library_ms": lib["bwd"]},
-    ]
+    small = nbytes(w, rstd)
+    bounds = {"fwd": bound(nbytes(x, y) + small), "bwd": bound(nbytes(dy, x, dres, x) + 2 * small)}
+    say_times("[rmsnorm]", what, t, bounds, {"fwd": ("F.rms_norm and a cast", t["fwd_library"]),
+                                             "bwd": ("the pre-change chain", t["bwd_library"])})
+    return [kernel_entry("rmsnorm_fwd", RMSNORM_SOURCE, None, errs["y"][0], t["fwd"], t["fwd_plain"], bounds["fwd"],
+                         t["fwd_library"]),
+            kernel_entry("rmsnorm_bwd", RMSNORM_SOURCE, None, errs["dx"][0], t["bwd"], t["bwd_plain"], bounds["bwd"],
+                         t["bwd_library"])]
 
 
-def say_yardstick(shape, what: str, lib: dict, bounds: dict) -> None:
-    say(f"[yardstick] {list(shape)} {what}: PyTorch attention ({lib['backend']}) fwd {lib['fwd']:.3f} ms, "
-        f"bwd {lib['bwd']:.3f} ms; bounds " + ", ".join(
-            f"{n} {b['bound_ms']:.4f} ms ({b['bound_by']})" for n, b in bounds.items()))
+CONV_SHAPE = (8, 4096, 5120, 4)  # mamba-2.8b at the benchmark's micro-batch: B, L, d_inner, d_conv
+
+
+def _conv_chain(x, w, b):
+    """The pre-kernel chain on the card: the f32 composition, then the copy to
+    contiguous that ``x_proj``'s product made of its channel-first result."""
+    from multimodal_llm_pretraining_tpu_torch.ops.selective_scan import causal_conv1d
+
+    return torch.nn.functional.silu(causal_conv1d(x.float(), w.float(), b.float())).to(x.dtype).contiguous()
+
+
+def phase_causal_conv() -> list[dict]:
+    """The conv kernels at mamba's benchmark micro-batch (x the strided half
+    of [8, 4096, 10240] bf16, as in_proj's output is split; bf16 taps and
+    bias): against their plain versions (PyTorch's depthwise conv in f32,
+    cuDNN off), then timed beside their bounds (the forward reads x, the
+    taps and the bias and writes out; the backward reads x, dout, the taps
+    and the bias and writes dx and the f32 sums of dw and db), their plain
+    versions and the pre-kernel chain (``_conv_chain``, and its autograd
+    backward). The kernels JSON line's entries ``causal_conv_fwd``,
+    ``causal_conv_bwd``."""
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv as cc
+
+    B, L, I, K = CONV_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(43)
+    x = torch.randn(B, L, 2 * I, generator=g, device="cuda").to(torch.bfloat16)[..., :I]
+    w = (torch.rand(K, I, generator=g, device="cuda") - 0.5).to(torch.bfloat16)
+    b = (torch.rand(I, generator=g, device="cuda") - 0.5).to(torch.bfloat16)
+    dout = torch.randn(B, L, I, generator=g, device="cuda").to(torch.bfloat16)
+    with torch.backends.cudnn.flags(enabled=False):
+        ref = (cc.causal_conv_fwd_reference(x, w, b), *cc.causal_conv_bwd_reference(x, w, b, dout))
+    got = (cc.causal_conv_fwd_cuda(x, w, b), *cc.causal_conv_bwd_cuda(x, w, b, dout))
+    what = f"{list(CONV_SHAPE)} bf16"
+    errs = held("[conv]", what, dict(zip(("out", "dx", "dw", "db"), zip(got, ref))), dict.fromkeys(
+        ("out", "dx", "dw", "db"), TOL_BF16))
+    xg, wg, bg = x.detach().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()
+    out_chain = _conv_chain(xg, wg, bg)
+    t = {
+        "fwd": ms_per_call(lambda: cc.causal_conv_fwd_cuda(x, w, b)),
+        "fwd_plain": ms_per_call(lambda: cc.causal_conv_fwd_reference(x, w, b)),
+        "fwd_library": ms_per_call(lambda: _conv_chain(x, w, b)),
+        "bwd": ms_per_call(lambda: cc.causal_conv_bwd_cuda(x, w, b, dout)),
+        "bwd_plain": ms_per_call(lambda: cc.causal_conv_bwd_reference(x, w, b, dout)),
+        "bwd_library": ms_per_call(lambda: torch.autograd.grad(out_chain, (xg, wg, bg), dout, retain_graph=True)),
+    }
+    small = nbytes(w, b)
+    bounds = {"fwd": bound(2 * nbytes(dout) + small), "bwd": bound(3 * nbytes(dout) + small + (K + 1) * I * 4)}
+    say_times("[conv]", what, t, bounds, {"fwd": ("the pre-kernel chain", t["fwd_library"]),
+                                          "bwd": ("the pre-kernel chain", t["bwd_library"])})
+    return [kernel_entry("causal_conv_fwd", CONV_SOURCE, None, errs["out"][0], t["fwd"], t["fwd_plain"],
+                         bounds["fwd"], t["fwd_library"]),
+            kernel_entry("causal_conv_bwd", CONV_SOURCE, None, errs["dx"][0], t["bwd"], t["bwd_plain"],
+                         bounds["bwd"], t["bwd_library"])]
+
+
+def phase_scan_kernels() -> list[dict]:
+    """Both scan kernels at mamba's shape in bf16, the forward with D (the
+    skip and the cast in its epilogue, as ``selective_scan_fused`` runs it):
+    against their plain versions, then timed beside their bounds
+    (``time_scan.scan_bounds``) and their plain versions."""
+    u, delta, A, B, C, D, dy = scan_inputs(*SCAN_SHAPE, 16, torch.bfloat16, seed=12)
+    y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
+    y_ref, ckpt_ref = ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)
+    grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref)
+    grads_ref = ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt_ref)
+    names = ("du", "ddelta", "dA", "dB", "dC")
+    what = f"{list(SCAN_SHAPE)} N16 bf16"
+    errs = held("[scan]", what, {"y+skip": (y, y_ref), "ckpt": (ckpt, ckpt_ref), **dict(zip(names, zip(grads, grads_ref)))},
+                {"y+skip": TOL_SCAN_Y_BF16} | dict.fromkeys(("ckpt", *names), TOL_SCAN_GRAD))
+    t = {
+        "fwd": ms_per_call(lambda: ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)),
+        "fwd_plain": ms_per_call(lambda: ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)),
+        "bwd": ms_per_call(lambda: ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)),
+        "bwd_plain": ms_per_call(lambda: ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)),
+    }
+    bounds = scan_bounds(u, delta, A, B, C, D, dy, y, ckpt, grads)
+    say_times("[scan]", what, t, bounds, {})
+    return [kernel_entry("scan_fwd", SCAN_SOURCE, f"{JAX_SCAN}:47", errs["y+skip"][0], t["fwd"], t["fwd_plain"],
+                         bounds["fwd"], None),
+            kernel_entry("scan_bwd", SCAN_SOURCE, f"{JAX_SCAN}:161", max(errs[n][0] for n in names), t["bwd"],
+                         t["bwd_plain"], bounds["bwd"], None)]
+
+
+# ---------------------------------------------------------------- main paths
 
 
 def phase_slice() -> None:
@@ -1041,7 +803,7 @@ FLASH_COUNTERS = ("FWD_LAUNCHES", "BWD_LAUNCHES", "DQ_LAUNCHES", "DKV_LAUNCHES",
 
 
 def phase_main_path() -> dict:
-    """pythia-1b: bench.py's recipe, without remat (phase 18 runs its remat)
+    """pythia-1b: bench.py's recipe, without remat (phase 19 runs its remat)
     at acc 2, under the fused and the split backward;
     every attention call on the plain-mode kernels."""
     run = drive_training("pythia-1b", mbs=4, acc=2, remat=False, counters=fa, loss_band=TEXT_LOSS_BAND,
@@ -1050,116 +812,6 @@ def phase_main_path() -> dict:
     if run["launches"] != expected:
         raise AssertionError(f"pythia flash launches {run['launches']}, expected {expected}")
     return flash_launch_entries(run["launches"]) | xent_launch_entries(run, "pythia-1b", PYTHIA_MBS4_XENT_CHUNKS)
-
-
-# ---------------------------------------------------------------- selective scan
-
-
-def _scan_inputs(shape, dtype, seed: int, d_state: int = 16):
-    """u, delta, A, B, C, D, dy on the card; delta in (0.01, 0.51) and A in
-    -(0.5, 1.5) as in the JAX suite's scan tests."""
-    b, L, I = shape
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    u = torch.randn(b, L, I, generator=g, device="cuda").to(dtype)
-    delta = (torch.rand(b, L, I, generator=g, device="cuda") * 0.5 + 0.01).to(dtype)
-    A = -(torch.rand(I, d_state, generator=g, device="cuda") + 0.5)
-    B, C = (torch.randn(b, L, d_state, generator=g, device="cuda").to(dtype) for _ in range(2))
-    D = torch.randn(I, generator=g, device="cuda")
-    dy = torch.randn(b, L, I, generator=g, device="cuda")
-    return u, delta, A, B, C, D, dy
-
-
-def check_scan_at(shape, dtype, seed: int = 0, d_state: int = 16) -> dict:
-    """Both scan kernels vs their plain versions on identical inputs: the
-    forward before the D skip and with it (y in u's dtype), dD through the
-    autograd Function, and a second forward (with the skip) and backward
-    run bit for bit; returns the errors. Launches: the forward 4 calls (3
-    here, 1 in the Function), the backward 3 (2 here, 1 in the Function)."""
-    u, delta, A, B, C, D, dy = _scan_inputs(shape, dtype, seed, d_state)
-    y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
-    y_ref, ckpt_ref = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
-    ys, ckpt_s = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
-    ys_ref, _ = ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)
-    again = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
-    same = ys.dtype == dtype and torch.equal(ckpt_s, ckpt) and all(torch.equal(a, b) for a, b in zip(again, (ys, ckpt_s)))
-    say(f"[scan] {list(shape)} N{d_state} {str(dtype).split('.')[-1]} second forward run: y (with the skip, "
-        f"{str(ys.dtype).split('.')[-1]}) and checkpoint identical {same}")
-    if not same:
-        raise AssertionError(f"the scan forward differs between two runs (or from its pre-skip run) at {shape} {dtype}")
-    grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref)
-    grads_ref = ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt_ref)
-    leaves = [t.clone().requires_grad_() for t in (u, delta, A, B, C, D)]
-    g = dy.to(dtype)
-    ssf.selective_scan_fused(*leaves).backward(g)
-    dD_ref = (g.float() * u.float()).sum((0, 1))
-    torch.cuda.synchronize()
-    got = {"y": (y, y_ref), "y+skip": (ys, ys_ref), "ckpt": (ckpt, ckpt_ref), "dD": (leaves[5].grad, dD_ref)}
-    got.update({n: pair for n, pair in zip(("du", "ddelta", "dA", "dB", "dC"), zip(grads, grads_ref))})
-    res = {}
-    for name, (a, b) in got.items():
-        if not torch.isfinite(a).all():
-            raise AssertionError(f"scan {name} has non-finite values at {shape} {dtype}")
-        res[name] = _errs(a, b)
-        tol = TOL_SCAN_GRAD if name not in ("y", "y+skip") else (
-            TOL_SCAN_Y_BF16 if name == "y+skip" and dtype == torch.bfloat16 else TOL_SCAN_Y)
-        say(f"[scan] {list(shape)} N{d_state} {str(dtype).split('.')[-1]} {name}: max_abs {res[name][0]:.3e} "
-            f"norm_rel {res[name][1]:.3e} (tol {tol:g})")
-        if not res[name][1] <= tol:
-            raise AssertionError(f"scan {name} norm-relative error {res[name][1]:.3e} > {tol} at {shape} {dtype}")
-    again = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref)
-    same = all(torch.equal(a, b) for a, b in zip(grads, again))
-    say(f"[scan] {list(shape)} {str(dtype).split('.')[-1]} second backward run: du, ddelta, dA, dB, dC identical {same}")
-    if not same:
-        raise AssertionError(f"the scan backward differs between two runs at {shape} {dtype}")
-    return res
-
-
-def phase_scan_kernels() -> list[dict]:
-    for dtype in (torch.float32, torch.bfloat16):  # bf16 last: the main path's dtype, reported below
-        errs = check_scan_at(SCAN_SHAPE, dtype, seed=10)
-        check_scan_at(SCAN_RAGGED, dtype, seed=11)
-
-    u, delta, A, B, C, D, dy = _scan_inputs(SCAN_SHAPE, torch.bfloat16, 12)
-    _, ckpt = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
-    t = {  # the forward with D, as selective_scan_fused runs it
-        "fwd": cuda_ms(lambda: ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)),
-        "fwd_plain": cuda_ms(lambda: ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)),
-        "bwd": cuda_ms(lambda: ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)),
-        "bwd_plain": cuda_ms(lambda: ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)),
-    }
-    say(f"[scan] ms a call at {list(SCAN_SHAPE)} N16 bf16: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
-    # what each function must do per (batch, step, channel, state): the
-    # forward one exp (exp(delta*A)) and 6 f32 operations (delta*A, the
-    # decay, delta*u*B and its add, C*h and its sum); the backward the same
-    # exp and 16 (the recomputed state, the reverse-time dh recurrence, the
-    # du, ddelta, dA, dB, dC terms). Bytes: the inputs and outputs as given
-    # (the forward's y in u's dtype, with the skip).
-    y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
-    grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)
-    elems = u.numel() * A.shape[-1]
-    ins = _nbytes(u, delta, A, B, C)
-    work = {
-        "fwd": (ins + _nbytes(D, y, ckpt), 6 * elems, PEAK_F32_FLOPS, elems),
-        "bwd": (ins + _nbytes(dy, ckpt, *grads), 16 * elems, PEAK_F32_FLOPS, elems),
-    }
-    bounds = {n: bound(*w) for n, w in work.items()}
-    for n, b in bounds.items():
-        say(f"[scan] {n} bound at {list(SCAN_SHAPE)}: {b['bound_ms']:.4f} ms ({b['bound_by']}); {bound_terms(*work[n])}")
-    say(f"[scan] forward with the skip at {list(SCAN_SHAPE)} bf16: {t['fwd']:.4f} ms a call, "
-        f"{bounds['fwd']['bound_ms'] / t['fwd']:.3f} of its bound; the earlier design's {SCAN_FWD_EARLIER_MS} ms (one "
-        f"state a thread, synchronous staging, f32 y before the wrapper's skip; H100 SXM, 700 W) is "
-        f"{SCAN_FWD_EARLIER_MS / t['fwd']:.2f}x this")
-    say(f"[scan] backward at {list(SCAN_SHAPE)} bf16: {t['bwd']:.4f} ms a call, {bounds['bwd']['bound_ms'] / t['bwd']:.3f} "
-        f"of its bound; the earlier design's {SCAN_BWD_EARLIER_MS} ms (one state a thread, synchronous staging; "
-        f"H100 SXM, 700 W) is {SCAN_BWD_EARLIER_MS / t['bwd']:.2f}x this")
-    return [
-        {"name": "scan_fwd", "route": "cuda", "source": SCAN_SOURCE, "replaces": f"{JAX_SCAN}:47",
-         "launches": None, "max_abs_err": errs["y+skip"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
-         **bounds["fwd"], "library_ms": None},
-        {"name": "scan_bwd", "route": "cuda", "source": SCAN_SOURCE, "replaces": f"{JAX_SCAN}:161",
-         "launches": None, "max_abs_err": max(errs[n][0] for n in ("du", "ddelta", "dA", "dB", "dC")),
-         "ms": t["bwd"], "plain_ms": t["bwd_plain"], **bounds["bwd"], "library_ms": None},
-    ]
 
 
 def phase_scan_slice() -> None:
@@ -1213,79 +865,6 @@ def phase_mamba_main_path() -> dict:
         raise AssertionError(f"mamba: causal-conv launches {run['conv']}, expected {convs}")
     return ({"scan_fwd": run["launches"][0], "scan_bwd": run["launches"][1]} | xent_launch_entries(run, "mamba")
             | run["rmsnorm"] | run["conv"])
-
-
-# ---------------------------------------------------------------- varlen flash attention (llava)
-
-
-def _ragged_lens(b: int, s: int, seed: int) -> list[int]:
-    """One full row, one shorter than a tile, one ending on a tile edge (64,
-    a multiple of both kernels' key tiles), the rest random in [1, s]."""
-    edge = (s - 1) // 64 * 64
-    rest = np.random.default_rng(seed).integers(1, s + 1, max(b - 3, 0)).tolist()
-    return [s, 37, edge, *rest][:b]
-
-
-def phase_varlen_kernels() -> tuple[dict, list[dict]]:
-    """Returns the times at the decoder's shape (full lens) and the kernels
-    line's entries."""
-    # full f32 products in the plain versions (the main paths' plans turned TF32 on)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    errs = check_kernels_at(VARLEN_SHAPE, True, seed=20, lens=_ragged_lens(VARLEN_SHAPE[0], VARLEN_SHAPE[2], 0))
-    check_kernels_at(TOWER_SHAPE, False, seed=21, lens=_ragged_lens(TOWER_SHAPE[0], TOWER_SHAPE[2], 1))
-    for causal in (True, False):
-        check_kernels_at(VARLEN_RAGGED, causal, seed=22 + causal, lens=[77, 37, 64, 0])
-    check_kernels_at(TOWER_SHAPE, False, seed=24)  # the tower's own call: plain mode, non-causal
-    check_forward_edges("[varlen]", torch.bfloat16, "lens")
-
-    b, h, s, _ = VARLEN_SHAPE
-    q, k, v, do = _inputs(VARLEN_SHAPE, 23)
-    scale = VARLEN_SHAPE[-1] ** -0.5
-    full = torch.full((b * h,), s, dtype=torch.int32, device="cuda")  # every row full: the benchmark batch's mask
-    out, lse = fa.flash_fwd_reference(q, k, v, True, scale, full)
-    t = {
-        "fwd": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale, full)),
-        "fwd_plain_mode": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, True, scale)),
-        "fwd_plain": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, True, scale, full)),
-        "bwd": cuda_ms(lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, True, scale, full)),
-        "bwd_plain_mode": cuda_ms(lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, True, scale)),
-        "bwd_plain": cuda_ms(lambda: fa.flash_bwd_reference(q, k, v, out, lse, do, True, scale, full)),
-    }
-    say(f"[varlen] ms a call at {list(VARLEN_SHAPE)} bf16 causal, full lens: "
-        + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
-    # full lens: the same function as plain causal attention, which is what
-    # PyTorch's flash backend (no per-row lengths) computes
-    lib = sdpa_ms(q, k, v, do, True, flash_only=True)
-    bounds = attention_bounds(q, k, v, do, True, full)
-    say_yardstick(VARLEN_SHAPE, "bf16 causal, full lens", lib, bounds)
-    say_forward(VARLEN_SHAPE, "bf16 causal, varlen mode, full lens", t["fwd"],
-                cuda_ms_alone(lambda: fa.flash_fwd_cuda(q, k, v, True, scale, full)), fwd_flops(q, k, True, full),
-                bounds["fwd"], lib)
-    say_backward(VARLEN_SHAPE, "bf16 causal, varlen mode, full lens", t["bwd"], bwd_flops(q, k, True, full),
-                 bounds["bwd"], lib)
-    del q, k, v, do, out, lse
-    q, k, v, do = _inputs(TOWER_SHAPE, 24)
-    tower_scale = TOWER_SHAPE[-1] ** -0.5
-    tower = {
-        "fwd": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, False, tower_scale)),
-        "fwd_plain": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, False, tower_scale)),
-    }
-    say(f"[varlen] ms a call at the tower's {list(TOWER_SHAPE)} bf16 non-causal, plain mode: "
-        + ", ".join(f"{n} {ms:.3f}" for n, ms in tower.items()))
-    tower_lib = sdpa_ms(q, k, v, do, False, flash_only=True)
-    tower_bound = attention_bounds(q, k, v, do, False)["fwd"]
-    say_yardstick(TOWER_SHAPE, "bf16 non-causal", tower_lib, {"fwd": tower_bound})
-    say_forward(TOWER_SHAPE, "bf16 non-causal", tower["fwd"],
-                cuda_ms_alone(lambda: fa.flash_fwd_cuda(q, k, v, False, tower_scale)), fwd_flops(q, k, False),
-                tower_bound, tower_lib)
-    return {"ms": t, "library": lib}, [
-        {"name": "flash_fwd_varlen", "route": "cuda", "source": FWD_SOURCE, "replaces": f"{JAX_FLASH}:91",
-         "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
-         **bounds["fwd"], "library_ms": lib["fwd"]},
-        {"name": "flash_bwd_fused_varlen", "route": "cuda", "source": BWD_SOURCE, "replaces": f"{JAX_FLASH}:208",
-         "launches": None, "max_abs_err": max(errs[n][0] for n in ("dq", "dk", "dv")), "ms": t["bwd"],
-         "plain_ms": t["bwd_plain"], **bounds["bwd"], "library_ms": lib["bwd"]},
-    ]
 
 
 LLAVA_COUNTERS = ("FWD_LAUNCHES", "BWD_LAUNCHES", "VARLEN_FWD_LAUNCHES", "VARLEN_BWD_LAUNCHES")
@@ -1358,113 +937,6 @@ def phase_llava_main_path() -> dict:
     if run["rmsnorm"] != {"rmsnorm_fwd": n, "rmsnorm_bwd": n}:
         raise AssertionError(f"llava: rmsnorm launches {run['rmsnorm']}, expected {n} of each")
     return flash_launch_entries(run["launches"]) | xent_launch_entries(run, "llava-pretrain") | run["rmsnorm"]
-
-
-# ---------------------------------------------------------------- split backward (ViT)
-
-
-def time_split(shape, causal: bool, dtype, seed: int, full_lens: bool = False, fused: dict | None = None) -> dict:
-    """CUDA-event medians at a main path's shape: the dq and the dk/dv
-    kernel alone (on one ``split_operands``), that shared work alone (the
-    prep launch and casts), the split pair as
-    ``mlpt::flash_bwd_split`` runs it (the prep launch and casts, dq,
-    dk/dv), and their plain versions. ``fused`` holds what an
-    earlier phase timed at this shape (``ms`` of the forward and the fused
-    kernel and of their plain versions, ``library``: PyTorch's attention);
-    without it those are timed here. The pair is set against the fused
-    kernel and against the backward's bound, which both compute: the pair
-    does 7 tile products to the fused kernel's 5, a cost of its design.
-    ``full_lens``: the varlen mode with every length full, the same
-    function as plain attention."""
-    b, h, s, d = shape
-    q, k, v, do = _inputs(shape, seed, dtype)
-    scale = d**-0.5
-    kv_lens = torch.full((b * h,), s, dtype=torch.int32, device="cuda") if full_lens else None
-    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
-    ops = fa.split_operands(q, k, v, out, lse, do, scale, kv_lens)
-    args = (q, k, v, do, lse, fa.bwd_delta(out, do), causal, scale, kv_lens)
-    fns = {
-        "dq": lambda: fa.flash_bwd_dq_cuda(ops, causal),
-        "dkv": lambda: fa.flash_bwd_dkv_cuda(ops, causal),
-        "shared": lambda: fa.split_operands(q, k, v, out, lse, do, scale, kv_lens),
-        "split": lambda: _split(q, k, v, out, lse, do, causal, scale, kv_lens),
-        "dq_plain": lambda: fa.flash_bwd_dq_reference(*args),
-        "dkv_plain": lambda: fa.flash_bwd_dkv_reference(*args),
-        "split_plain": lambda: _split(q, k, v, out, lse, do, causal, scale, kv_lens, kernels=False),
-    }
-    if fused is None:
-        fns.update({
-            "fwd": lambda: fa.flash_fwd_cuda(q, k, v, causal, scale, kv_lens),
-            "fwd_plain": lambda: fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens),
-            "bwd": lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens),
-            "bwd_plain": lambda: fa.flash_bwd_reference(q, k, v, out, lse, do, causal, scale, kv_lens),
-        })
-    t = {n: cuda_ms(f) for n, f in fns.items()}
-    what = f"{str(dtype).split('.')[-1]} {'causal' if causal else 'non-causal'}{', full lens' if full_lens else ''}"
-    say(f"[split] ms a call at {list(shape)} {what}: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
-    bounds = attention_bounds(q, k, v, do, causal, kv_lens)
-    if fused is None:
-        fused = {"ms": t, "library": sdpa_ms(q, k, v, do, causal, flash_only=dtype == torch.bfloat16)}
-        say_yardstick(shape, what, fused["library"], bounds)
-        say_forward(shape, what, t["fwd"], cuda_ms_alone(fns["fwd"]), fwd_flops(q, k, causal, kv_lens),
-                    bounds["fwd"], fused["library"])
-        say_backward(shape, what, t["bwd"], bwd_flops(q, k, causal, kv_lens), bounds["bwd"], fused["library"])
-    bounds.update(split_bounds(q, k, ops, causal, kv_lens))
-    bwd = bounds["bwd"]["bound_ms"]
-    lib_bwd = fused["library"]["bwd"]
-    say(f"[yardstick] {list(shape)} {what}: split pair {t['split']:.4f} ms (dq {t['dq']:.4f} + dk/dv {t['dkv']:.4f} "
-        f"+ the shared work {t['shared']:.4f}: prep launch and casts), PyTorch's backward "
-        f"({fused['library']['backend']}) {lib_bwd:.4f} ms, pair / PyTorch {t['split'] / lib_bwd:.3f}; on the "
-        f"shared operands dq {bounds['dq']['bound_ms'] / t['dq']:.3f} of its bound {bounds['dq']['bound_ms']:.4f} ms "
-        f"({bounds['dq']['bound_by']}), dk/dv {bounds['dkv']['bound_ms'] / t['dkv']:.3f} of its bound "
-        f"{bounds['dkv']['bound_ms']:.4f} ms ({bounds['dkv']['bound_by']})")
-    say(f"[yardstick] {list(shape)} {what}: split pair {t['split']:.3f} ms, fused {fused['ms']['bwd']:.3f} ms "
-        f"(split / fused {t['split'] / fused['ms']['bwd']:.3f}); against the backward's bound {bwd:.4f} ms "
-        f"({bounds['bwd']['bound_by']}): split pair {t['split'] / bwd:.1f}x, fused {fused['ms']['bwd'] / bwd:.1f}x. "
-        f"The pair's 7 products to the fused kernel's 5: its kernels' bounds on the shared operands, dq {bounds['dq']['bound_ms']:.4f} + dk/dv "
-        f"{bounds['dkv']['bound_ms']:.4f} = {bounds['dq']['bound_ms'] + bounds['dkv']['bound_ms']:.4f} ms")
-    return {"ms": {**fused["ms"], **t}, "library": fused["library"], "bounds": bounds}
-
-
-def phase_split_kernels(pythia: dict, decoder: dict) -> list[dict]:
-    """The split pair beside the forward and fused kernels at every listed
-    shape (``check_kernels_at(..., split=True)``), the forward and fused
-    kernel on f32 inputs at ViT's shape among them; then the times at the
-    main paths' shapes, where ``pythia`` and ``decoder`` are what phases 3
-    and 9 timed at theirs."""
-    # full f32 products in the plain versions (the main paths' plans turned TF32 on)
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    errs = check_kernels_at(SLICE_SHAPE, True, seed=30, split=True)
-    check_kernels_at(VIT_SHAPE, False, seed=31, dtype=torch.float32, split=True)
-    check_forward_edges("[split]", torch.float32, "seq")
-    check_forward_edges("[split]", torch.float32, "lens")
-    check_backward_edges("[split]", torch.float32)
-    check_split_edges("[split]", torch.bfloat16)
-    check_split_edges("[split]", torch.float32)
-    check_kernels_at(VIT_SHAPE, False, seed=32, split=True)
-    for causal in (True, False):
-        check_kernels_at(RAGGED_SHAPE, causal, seed=33 + causal, split=True)
-        check_kernels_at(VARLEN_RAGGED, causal, seed=35 + causal, lens=[77, 37, 64, 0], split=True)
-    errs_varlen = check_kernels_at(VARLEN_SHAPE, True, seed=37, lens=_ragged_lens(VARLEN_SHAPE[0], VARLEN_SHAPE[2], 2),
-                                   split=True)
-
-    pythia = time_split(SLICE_SHAPE, True, torch.bfloat16, 38, fused=pythia)
-    time_split(VIT_SHAPE, False, torch.float32, 39)
-    llava = time_split(VARLEN_SHAPE, True, torch.bfloat16, 40, full_lens=True, fused=decoder)
-
-    # library_ms: PyTorch's backward, which computes what the pair computes
-    # together (no PyTorch call computes dq or dk/dv alone); pair_ms beside it
-    def entries(suffix: str, e: dict, timed: dict) -> list[dict]:
-        return [
-            {"name": f"flash_bwd_{part}{suffix}", "route": "cuda", "source": source,
-             "replaces": f"{JAX_FLASH}:{line}", "launches": None, "max_abs_err": err, "ms": timed["ms"][part],
-             "plain_ms": timed["ms"][f"{part}_plain"], **timed["bounds"][part],
-             "library_ms": timed["library"]["bwd"], "pair_ms": timed["ms"]["split"]}
-            for part, source, line, err in (("dq", DQ_SOURCE, 161, e["split_dq"][0]),
-                                            ("dkv", BWD_SOURCE, 293, max(e["split_dk"][0], e["split_dv"][0])))
-        ]
-
-    return entries("", errs, pythia) + entries("_varlen", errs_varlen, llava)
 
 
 def _slice_pair(tag: str, build, run, want: dict, tol_split: float = TOL_NORM_REL) -> None:
@@ -1551,25 +1023,12 @@ def phase_vit_main_path() -> dict:
     return flash_launch_entries(run["launches"])
 
 
-# ---------------------------------------------------------------- head dims and batch*heads
-
-
-PADDED_HEAD_DIMS = (32, 80, 88)  # pythia-14m/31m, pythia-2.8b, the default ViLT trunk: zero-padded to 64, 128, 128
-
-
 def phase_head_dims() -> None:
-    """The forward, fused backward and split pair against their plain
-    versions at the head dims the kernels run zero-padded, plain and varlen
-    mode, causal and not; then 2 steps each of pythia-14m (D=32, 6 layers)
-    and of pythia-2.8b (D=80) cut to 2 layers at full width, whose launch
-    counters must show every attention call on the kernels."""
+    """2 steps each of pythia-14m (D=32, 6 layers) and of pythia-2.8b (D=80)
+    cut to 2 layers at full width, which the kernels run zero-padded: the
+    launch counters must show every attention call on the kernels."""
     from multimodal_llm_pretraining_tpu_torch.models import pythia
 
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    for i, d in enumerate(PADDED_HEAD_DIMS):
-        for causal in (True, False):
-            check_kernels_at((2, 4, 300, d), causal, seed=60 + i, split=True, tag="[head dims]")
-            check_kernels_at((2, 4, 300, d), causal, seed=63 + i, lens=[300, 97], split=True, tag="[head dims]")
     for model_type, layers, mbs, acc in (("pythia-14m", None, 4, 2), ("pythia-2.8b", 2, 4, 1)):
         full = pythia.PYTHIA_SIZES[model_type]
         if layers is not None:
@@ -1585,109 +1044,6 @@ def phase_head_dims() -> None:
         attn = run["module"].layers[0].attn
         say(f"[head dims] {model_type} ({len(run['module'].layers)} layers, head_dim {attn.head_dim}): every "
             f"attention call on the kernels, launches as expected")
-
-
-GRID_SHAPE = (4096, 16, 16, 64)  # 65,536 batch-heads: one more than a launch grid's y dimension holds
-
-
-def phase_many_heads() -> None:
-    """The forward, fused backward and split pair against their plain
-    versions at 65,536 batch-heads, plain and varlen mode: each wrapper call
-    launches twice (two chunks)."""
-    b, h, s, _ = GRID_SHAPE
-    assert b * h == fa.MAX_GRID_Y + 1
-    lens = np.random.default_rng(7).integers(0, s + 1, b).tolist()
-    for causal, kv_lens in ((True, None), (False, lens)):
-        fa.reset_launch_counts()
-        check_kernels_at(GRID_SHAPE, causal, seed=70, lens=kv_lens, split=True, tag="[grid]")
-        # check_forward, check_backward and the split check each launch twice
-        calls = {"FWD_LAUNCHES": 2, "BWD_LAUNCHES": 2, "DQ_LAUNCHES": 2, "DKV_LAUNCHES": 2}
-        if kv_lens is not None:
-            calls = {"VARLEN_" + n: c for n, c in calls.items()}
-        got = {n: getattr(fa, n) for n in FLASH_COUNTERS}
-        want = {n: 2 * calls.get(n, 0) for n in FLASH_COUNTERS}  # two chunks a call
-        if got != want:
-            raise AssertionError(f"[grid] launches {got}, expected {want}")
-        say(f"[grid] {b * h} batch-heads, {'varlen' if kv_lens else 'plain'} mode: two launches a call, {got}")
-
-
-REPAIR_XLA_SHAPE = (2, 4, 300, 320)  # head dim 320: above the kernels' 256, inside the JAX kernel's 512
-REPAIR_SCALE_SHAPE = (4, 8, 300, 256)  # the fused backward at head dim 256 with scale 0.07
-REPAIR_SCALE = 0.07
-REPAIR_D_STATES = (8, 24, 64)  # the scan at d_states other than 16: zero-padded groups of 16
-REPAIR_SCAN_BATCH = (65536, 3, 8)  # one more batch element than a launch grid's y holds: two launches a call
-
-
-def phase_repairs() -> None:
-    """The shapes the JAX package computes and the kernels once refused,
-    each against its plain version on the card: head dim 320 through
-    ``dot_product_attention(impl="flash")``, which ``flash_supported``
-    sends to the xla branch (out and the gradients through autograd against
-    the f32 ``naive`` branch, to TOL_NORM_REL: the branch rounds its
-    probabilities to bf16); the fused backward at head dim 256 with scale
-    0.07, plain and varlen (its one-stage variant with a k*scale tile, as
-    ``check_backward`` holds every backward); both scan kernels at d_state
-    8, 24 and 64 (as ``check_scan_at`` holds them at 16, one launch per
-    group of 16 states) and at 65,536 batch elements (one launch per chunk
-    of at most 65,535)."""
-    b, h, s, d = REPAIR_XLA_SHAPE
-    q, k, v, do = (t.view(b, h, s, d) for t in _inputs(REPAIR_XLA_SHAPE, 80))
-    fa.reset_launch_counts()
-    attn.XLA_BRANCH_CALLS = 0
-    results = {}
-    for impl in ("flash", "naive"):
-        leaves = [t.clone().requires_grad_() for t in (q, k, v)]
-        out = attn.dot_product_attention(*leaves, causal=True, impl=impl)
-        out.backward(do.to(out.dtype))
-        results[impl] = [out, *(t.grad for t in leaves)]
-    torch.cuda.synchronize()
-    flash = {n: getattr(fa, n) for n in FLASH_COUNTERS}
-    if attn.XLA_BRANCH_CALLS != 1 or any(flash.values()):
-        raise AssertionError(f"[repairs] head dim {d}: xla-branch calls {attn.XLA_BRANCH_CALLS}, flash launches {flash}")
-    errs = {n: _errs(a, p) for n, a, p in zip(("out", "dq", "dk", "dv"), results["flash"], results["naive"])}
-    say(f"[repairs] head dim {d} {list(REPAIR_XLA_SHAPE)} bf16 causal through the xla branch (1 call, no flash "
-        f"launch): " + ", ".join(f"{n} norm_rel {r:.3e}" for n, (_, r) in errs.items()) + f" (tol {TOL_NORM_REL:g})")
-    if not all(r <= TOL_NORM_REL for _, r in errs.values()):
-        raise AssertionError(f"[repairs] the xla branch differs from the plain attention: {errs}")
-
-    b, h, s, d = REPAIR_SCALE_SHAPE
-    q, k, v, do = _inputs(REPAIR_SCALE_SHAPE, 81)
-    for lens in (None, [300, 1, 64, 0]):
-        kv_lens = None if lens is None else torch.tensor(lens, dtype=torch.int32, device="cuda").repeat_interleave(h)
-        fa.reset_launch_counts()
-        res = check_backward(q, k, v, do, True, kv_lens, scale=REPAIR_SCALE)
-        counted = fa.BWD_LAUNCHES if lens is None else fa.VARLEN_BWD_LAUNCHES
-        if counted != 2:
-            raise AssertionError(f"[repairs] fused backward at head dim {d}: {counted} launches counted, expected 2")
-        say(f"[repairs] fused backward {list(REPAIR_SCALE_SHAPE)} bf16 causal scale {REPAIR_SCALE} lens {lens}: "
-            + ", ".join(f"{n} norm_rel {r:.3e}" for n, (_, r) in res["errs"].items())
-            + f" (tol {TOL_NORM_REL:g}); dk/dv identical on a second launch; {counted} launches counted")
-        sp = check_split(q, k, v, do, True, kv_lens, scale=REPAIR_SCALE, fused=res["grads"])
-        names = ("DQ_LAUNCHES", "DKV_LAUNCHES") if lens is None else ("VARLEN_DQ_LAUNCHES", "VARLEN_DKV_LAUNCHES")
-        counted = [getattr(fa, n) for n in names]
-        if counted != [2, 2]:
-            raise AssertionError(f"[repairs] split pair at head dim {d}: {counted} launches counted, expected 2 each")
-        say(f"[repairs] split pair {list(REPAIR_SCALE_SHAPE)} bf16 causal scale {REPAIR_SCALE} lens {lens}: "
-            + ", ".join(f"{n} norm_rel {r:.3e}" for n, (_, r) in sp["errs"].items())
-            + f" (tol {TOL_NORM_REL:g}); identical on a second run, dk/dv identical to the fused kernel's; "
-              f"launches dq {counted[0]} dk/dv {counted[1]}")
-
-    for n_state in REPAIR_D_STATES:
-        ssf.reset_launch_counts()
-        check_scan_at(SCAN_RAGGED, torch.bfloat16, seed=82, d_state=n_state)
-        groups = -(-n_state // 16)
-        got = (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES)
-        if got != (4 * groups, 3 * groups):  # check_scan_at's 4 forward and 3 backward calls
-            raise AssertionError(f"[repairs] scan at d_state {n_state}: launches {got}, expected "
-                                 f"({4 * groups}, {3 * groups})")
-        say(f"[repairs] scan d_state {n_state}: {groups} group(s) of 16 states a call, launches fwd {got[0]} bwd {got[1]}")
-    ssf.reset_launch_counts()
-    check_scan_at(REPAIR_SCAN_BATCH, torch.bfloat16, seed=83)
-    got = (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES)
-    if got != (4 * 2, 3 * 2):
-        raise AssertionError(f"[repairs] scan at batch {REPAIR_SCAN_BATCH[0]}: launches {got}, expected (8, 6)")
-    say(f"[repairs] scan {list(REPAIR_SCAN_BATCH)}: two launches a call (65,535 + 1 batch elements), "
-        f"launches fwd {got[0]} bwd {got[1]}")
 
 
 # ---------------------------------------------------------------- remat and the harness
@@ -1861,7 +1217,7 @@ def _harness_phase_times(card: str) -> None:
 
 def _bf16_master_session(card: str, bf16_sr_run: dict) -> dict:
     """pythia-1b in ``bf16_master`` at micro-batch 4 x accumulation 2, no
-    remat: the first loss bit for bit phase 18's ``bf16_sr`` one (the same
+    remat: the first loss bit for bit phase 19's ``bf16_sr`` one (the same
     bf16 params and batch), every live param its f32 master rounded once
     after the steps; its peak beside the ``bf16_sr`` session's."""
     checked = {}
@@ -2100,46 +1456,9 @@ def phase_vilt_slice() -> None:
     _slice_pair("[vilt slice] 2-layer f32, head_dim 88, mlm+itm+wpa", build, lambda m: m(batch)[0], want)
 
 
-def kernel_entries_at(shape, causal: bool, dtype, seed: int, suffix: str) -> list[dict]:
-    """The forward and the fused backward against their plain versions at a
-    main path's shape (``check_kernels_at``), then CUDA-event times of both
-    and of their plain versions, PyTorch's call (the flash backend for
-    bf16; for f32 the backend PyTorch picks) and the bounds (from the
-    caller's head dim: the padding is the kernels' cost, not the
-    function's): the kernels JSON line's entries ``flash_fwd{suffix}`` and
-    ``flash_bwd_fused{suffix}``."""
-    torch.backends.cuda.matmul.allow_tf32 = torch.backends.cudnn.allow_tf32 = False
-    errs = check_kernels_at(shape, causal, seed=seed, dtype=dtype)
-    q, k, v, do = _inputs(shape, seed + 1, dtype)
-    scale = shape[-1] ** -0.5
-    out, lse = fa.flash_fwd_reference(q, k, v, causal, scale)
-    t = {
-        "fwd": cuda_ms(lambda: fa.flash_fwd_cuda(q, k, v, causal, scale)),
-        "fwd_plain": cuda_ms(lambda: fa.flash_fwd_reference(q, k, v, causal, scale)),
-        "bwd": cuda_ms(lambda: fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale)),
-        "bwd_plain": cuda_ms(lambda: fa.flash_bwd_reference(q, k, v, out, lse, do, causal, scale)),
-    }
-    what = f"{str(dtype).split('.')[-1]} {'causal' if causal else 'non-causal'}"
-    say(f"[kernels] ms a call at {list(shape)} {what}: " + ", ".join(f"{n} {ms:.3f}" for n, ms in t.items()))
-    lib = sdpa_ms(q, k, v, do, causal, flash_only=dtype == torch.bfloat16)
-    bounds = attention_bounds(q, k, v, do, causal)
-    say_yardstick(shape, what, lib, bounds)
-    say_forward(shape, what, t["fwd"], cuda_ms_alone(lambda: fa.flash_fwd_cuda(q, k, v, causal, scale)),
-                fwd_flops(q, k, causal), bounds["fwd"], lib)
-    say_backward(shape, what, t["bwd"], bwd_flops(q, k, causal), bounds["bwd"], lib)
-    return [
-        {"name": f"flash_fwd{suffix}", "route": "cuda", "source": FWD_SOURCE, "replaces": f"{JAX_FLASH}:91",
-         "launches": None, "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"],
-         **bounds["fwd"], "library_ms": lib["fwd"]},
-        {"name": f"flash_bwd_fused{suffix}", "route": "cuda", "source": BWD_SOURCE, "replaces": f"{JAX_FLASH}:208",
-         "launches": None, "max_abs_err": max(errs[n][0] for n in ("dq", "dk", "dv")), "ms": t["bwd"],
-         "plain_ms": t["bwd_plain"], **bounds["bwd"], "library_ms": lib["bwd"]},
-    ]
-
-
 def phase_vilt_main_paths() -> tuple[dict, dict, list[dict]]:
     """The kernels at vilt-pretrain's shape ([4, 16, 769, 88] f32, plain
-    mode, non-causal; ``kernel_entries_at``). Then vilt-pretrain at full
+    mode, non-causal; ``attention_at``). Then vilt-pretrain at full
     width and depth (CLIP-g/14 trunk: 40 blocks, hidden 1408, 16 heads of
     88, ffn 6144; vocab 128,256) in the f32 layout (TF32 products), no
     remat, micro-batch 4 x accumulation 2 (the recipe's batch of 128 cut
@@ -2149,7 +1468,7 @@ def phase_vilt_main_paths() -> tuple[dict, dict, list[dict]]:
     12 heads of 64, 562 positions), micro-batch 32 x accumulation 2: 36 +
     36 a micro-batch. Returns the launches of all main-path runs, those at
     vilt-pretrain's shape, and the kernels line's entries at it."""
-    entries = kernel_entries_at(VILT_SHAPE, False, torch.float32, 80, "_vilt")
+    entries = attention_entries(attention_at(VILT_SHAPE, False, torch.float32, seed=80), "_vilt")
     run = drive_training("vilt-pretrain", mbs=VILT_SHAPE[0], acc=2, remat=False, counters=fa,
                          loss_band=VILT_LOSS_BAND, layout="f32", names=FLASH_COUNTERS,
                          tokens_per_sample=VILT_POSITIONS, split_ab=True)
@@ -2181,7 +1500,7 @@ def phase_vilt_main_paths() -> tuple[dict, dict, list[dict]]:
 
 def phase_roberta(card: str) -> tuple[dict, dict, list[dict]]:
     """RoBERTa-large: the kernels at its shape ([32, 16, 512, 64] bf16,
-    plain mode, non-causal; ``kernel_entries_at``); a narrow 2-layer slice
+    plain mode, non-causal; ``attention_at``); a narrow 2-layer slice
     in bf16 (hidden 256, 4 heads of 64, dropout off) with the kernels under
     both backwards against the plain f32 attention; then the main path at
     full width and depth (24 post-LN blocks, vocab 50,265, dropout on) in
@@ -2195,7 +1514,7 @@ def phase_roberta(card: str) -> tuple[dict, dict, list[dict]]:
     line's entries."""
     from multimodal_llm_pretraining_tpu_torch.models.roberta import RobertaMLM
 
-    entries = kernel_entries_at(ROBERTA_SHAPE, False, torch.bfloat16, 90, "_roberta")
+    entries = attention_entries(attention_at(ROBERTA_SHAPE, False, seed=90), "_roberta")
     rng = np.random.default_rng(0)
     ids = torch.from_numpy(rng.integers(0, 1024, (4, 128))).to("cuda")
     labels = torch.where(torch.from_numpy(rng.random((4, 128)) < 0.15).to("cuda"), ids, -100)
@@ -2250,363 +1569,8 @@ def phase_convnext_main_path() -> None:
         raise AssertionError("convnext: not convnext-large-1k")
 
 
-# ---------------------------------------------------------------- LM-head loss
-
-XENT_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/xent.cu"
-XENT_CHUNK = (1024, 50304)  # pythia-1b's chunk of the LM-head loss: 1024 rows of its vocab
-XENT_LLAVA_CHUNK = (1024, 128257, 128264)  # llava's: 1024 rows of 128,257, padded to 128,264
-XENT_MICRO_BATCH = (16 * 2048, 2048)  # the benchmark's pythia-1b micro-batch: 16 rows of 2049 tokens, shifted
-# kernel vs plain version, all f32 inside (as tests/test_torch_kernels.py):
-# lse and each row's nll absolute, dlogits relative to their norm (bf16: one
-# rounding of values that may lie an ulp apart)
-TOL_XENT_LSE_ABS = 1e-4
-TOL_XENT_D_NORM_REL = 4e-3
-# the loss on the kernels vs the pre-change autograd path, at the micro-batch
-TOL_XENT_LOSS_REL = 1e-5
-TOL_XENT_GRAD_NORM_REL = 2e-3
-
-
-def _xent_chunk(rows: int, vocab: int, width: int, seed: int):
-    """f32 logits about N(0, 9) with each seventh row ignored; NaN past
-    ``vocab`` and on the ignored rows, which the kernels never read."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    logits = torch.randn(rows, width, generator=g, device="cuda") * 3
-    labels = torch.randint(0, vocab, (rows,), generator=g, device="cuda")
-    labels[::7] = -100
-    logits[:, vocab:] = float("nan")
-    logits[labels == -100] = float("nan")
-    return logits, labels
-
-
-def check_xent_at(rows: int, vocab: int, width: int, seed: int) -> dict:
-    """Both xent kernels against their plain versions (bf16 dlogits); a
-    second forward and backward must repeat the first bit for bit, and
-    ignored rows and padded columns must come out 0."""
-    from multimodal_llm_pretraining_tpu_torch.ops import xent
-
-    logits, labels = _xent_chunk(rows, vocab, width, seed)
-    valid = labels != -100
-    lse_ref, nll_ref = xent.xent_fwd_reference(logits, labels, vocab, -100)
-    runs = []
-    for _ in range(2):
-        lse, nll = torch.empty(rows, device="cuda"), torch.empty(rows, device="cuda")
-        xent.xent_fwd_cuda(logits, labels, vocab, -100, lse, nll)
-        runs.append((lse, nll))
-    scale = torch.tensor(1.0 / int(valid.sum()), device="cuda")
-    d_ref = xent.xent_bwd_reference(logits, labels, lse_ref, scale, vocab, -100, torch.bfloat16)
-    d = xent.xent_bwd_cuda(logits, labels, lse_ref, scale, vocab, -100, torch.bfloat16)
-    d2 = xent.xent_bwd_cuda(logits, labels, lse_ref, scale, vocab, -100, torch.bfloat16)
-    (lse, nll), (lse2, nll2) = runs
-    errs = {"lse": _errs(lse[valid], lse_ref[valid]), "nll": _errs(nll[valid], nll_ref[valid]),
-            "dlogits": _errs(d, d_ref)}
-    repeat = torch.equal(lse, lse2) and torch.equal(nll, nll2) and torch.equal(d, d2)
-    zeros = not (d[~valid].any() or d[:, vocab:].any() or lse[~valid].any() or nll[~valid].any())
-    say(f"[xent] kernels vs plain at [{rows}, {vocab}] (width {width}): lse max_abs {errs['lse'][0]:.2e}, nll "
-        f"max_abs {errs['nll'][0]:.2e}, dlogits bf16 norm_rel {errs['dlogits'][1]:.2e}; second run identical "
-        f"{repeat}, ignored rows and padding 0 {zeros}")
-    if not (max(errs["lse"][0], errs["nll"][0]) <= TOL_XENT_LSE_ABS and errs["dlogits"][1] <= TOL_XENT_D_NORM_REL
-            and repeat and zeros):
-        raise AssertionError(f"xent kernels at [{rows}, {vocab}]: {errs}, repeat {repeat}, zeros {zeros}")
-    return errs
-
-
-def _xent_autograd_dlogits(logits, labels, vocab: int, scale):
-    """The chain the kernels replace, as the pre-change backward ran it on a
-    chunk's recomputed logits: logsumexp and the gather, autograd's backward
-    through them, and the cast to bf16 (the yardstick; the port never calls
-    it)."""
-    x = logits.detach().requires_grad_()
-    valid = labels != -100
-    gold = x[:, :vocab].gather(-1, torch.where(valid, labels, 0)[:, None])[:, 0]
-    nll = ((torch.logsumexp(x[:, :vocab], dim=-1) - gold) * valid).sum()
-    (g,) = torch.autograd.grad(nll * scale, x)
-    return g.to(torch.bfloat16)
-
-
-def phase_xent() -> list[dict]:
-    """The LM-head loss's kernels: against their plain versions at pythia's
-    and llava's chunks, then timed at pythia's beside their bounds, their
-    plain versions and the yardsticks (``torch.logsumexp``; the pre-change
-    autograd chain); then the whole loss, forward and backward, at the
-    benchmark's pythia-1b micro-batch on the kernels and on the pre-change
-    path (``xent_autograd_yardstick``), their losses and gradients held to
-    each other. The kernels JSON line's entries ``xent_fwd``, ``xent_bwd``."""
-    from multimodal_llm_pretraining_tpu_torch.ops import xent
-
-    errs = check_xent_at(*XENT_CHUNK, XENT_CHUNK[1], seed=20)
-    check_xent_at(*XENT_LLAVA_CHUNK, seed=21)
-    rows, vocab = XENT_CHUNK
-    logits, labels = _xent_chunk(rows, vocab, vocab, seed=22)
-    logits = torch.nan_to_num(logits)  # the plain versions and yardsticks read every row
-    labels = labels.clamp_min(0)  # every row counts, as in a packed pythia batch
-    lse, _ = xent.xent_fwd_reference(logits, labels, vocab, -100)
-    lse_k, nll_k = torch.empty(rows, device="cuda"), torch.empty(rows, device="cuda")
-    scale = torch.tensor(1.0 / XENT_MICRO_BATCH[0], device="cuda")
-    t = {
-        "fwd": cuda_ms(lambda: xent.xent_fwd_cuda(logits, labels, vocab, -100, lse_k, nll_k)),
-        "fwd_plain": cuda_ms(lambda: xent.xent_fwd_reference(logits, labels, vocab, -100)),
-        "fwd_library": cuda_ms(lambda: torch.logsumexp(logits, dim=-1)),
-        "bwd": cuda_ms(lambda: xent.xent_bwd_cuda(logits, labels, lse, scale, vocab, -100, torch.bfloat16)),
-        "bwd_plain": cuda_ms(lambda: xent.xent_bwd_reference(logits, labels, lse, scale, vocab, -100, torch.bfloat16)),
-        "bwd_library": cuda_ms(lambda: _xent_autograd_dlogits(logits, labels, vocab, scale)),
-    }
-    say(f"[xent] ms a call at {list(XENT_CHUNK)}: " + ", ".join(f"{n} {ms:.4f}" for n, ms in t.items()))
-    # bytes: each logit and label read once; the forward writes lse and nll, the backward
-    # reads lse and writes bf16 dlogits
-    ins = _nbytes(logits, labels)
-    bounds = {"fwd": bound(ins + 2 * _nbytes(lse), exps=logits.numel()),
-              "bwd": bound(ins + _nbytes(lse) + logits.numel() * 2, exps=logits.numel())}
-    for n in ("fwd", "bwd"):
-        say(f"[xent] {n} at {list(XENT_CHUNK)}: {t[n]:.4f} ms a call, bound {bounds[n]['bound_ms']:.4f} ms "
-            f"({bounds[n]['bound_by']}), {bounds[n]['bound_ms'] / t[n]:.3f} of it; plain {t[n + '_plain']:.4f} ms, "
-            f"yardstick {t[n + '_library']:.4f} ms ({t[n + '_library'] / t[n]:.2f}x the kernel)")
-    del logits
-
-    n_tok, hidden = XENT_MICRO_BATCH
-    g = torch.Generator(device="cuda").manual_seed(23)
-    h = torch.randn(n_tok, hidden, generator=g, device="cuda").to(torch.bfloat16)
-    w = (torch.randn(hidden, vocab, generator=g, device="cuda") * hidden**-0.5).to(torch.bfloat16)
-    tokens = torch.randint(0, vocab, (n_tok,), generator=g, device="cuda")
-    results, times = {}, {}
-    for name, fn in (("kernels", xent.chunked_lm_cross_entropy), ("pre-change", xent.xent_autograd_yardstick)):
-        hh, ww = h.clone().requires_grad_(), w.clone().requires_grad_()
-
-        def fwd_bwd():
-            hh.grad = ww.grad = None
-            loss = fn(hh, ww, tokens)
-            loss.backward()
-            return loss
-
-        torch.cuda.reset_peak_memory_stats()
-        base = torch.cuda.memory_allocated()
-        times[name] = cuda_ms(fwd_bwd, warmup=1, iters=3, reps=3)
-        peak = (torch.cuda.max_memory_allocated() - base) / 2**30
-        results[name] = (fwd_bwd().detach(), hh.grad, ww.grad)
-        say(f"[xent] loss at the micro-batch [{n_tok}, {hidden}] x {vocab} bf16 on the {name} path: "
-            f"{times[name]:.2f} ms forward and backward, {peak:.2f} GiB above its inputs")
-    (loss, dh, dw), (loss_ref, dh_ref, dw_ref) = results["kernels"], results["pre-change"]
-    gaps = {"loss": abs(loss.item() - loss_ref.item()) / abs(loss_ref.item()),
-            "dh": _errs(dh, dh_ref)[1], "dw": _errs(dw, dw_ref)[1]}
-    say(f"[xent] micro-batch: {times['pre-change'] / times['kernels']:.2f}x faster than the pre-change path; loss "
-        f"{loss.item():.6f} against {loss_ref.item():.6f} (rel {gaps['loss']:.1e}), grads norm_rel hidden "
-        f"{gaps['dh']:.1e}, head {gaps['dw']:.1e}")
-    if gaps["loss"] > TOL_XENT_LOSS_REL or max(gaps["dh"], gaps["dw"]) > TOL_XENT_GRAD_NORM_REL:
-        raise AssertionError(f"xent loss on the kernels vs the pre-change path: {gaps}")
-    return [
-        {"name": "xent_fwd", "route": "cuda", "source": XENT_SOURCE, "replaces": None, "launches": None,
-         "max_abs_err": errs["lse"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"], **bounds["fwd"],
-         "library_ms": t["fwd_library"]},
-        {"name": "xent_bwd", "route": "cuda", "source": XENT_SOURCE, "replaces": None, "launches": None,
-         "max_abs_err": errs["dlogits"][0], "ms": t["bwd"], "plain_ms": t["bwd_plain"], **bounds["bwd"],
-         "library_ms": t["bwd_library"]},
-    ]
-
-
-# ---------------------------------------------------------------- RMSNorm
-
-RMSNORM_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/rmsnorm.cu"
-RMSNORM_SHAPE = (8 * 4096, 2560)  # mamba-2.8b at the benchmark's micro-batch: 8 rows of 4096 tokens, d_model 2560
-RMSNORM_LLAVA_SHAPE = (16 * LLAVA_TOKENS_PER_SAMPLE, 2048)  # llava-pretrain's decoder at mbs 16
-RMSNORM_EPS = 1e-5
-# kernel vs plain version (as tests/test_torch_kernels.py): both in f32, in
-# another summation order and with the kernel's rsqrtf; rstd, f32 dx and the
-# scale's gradient within 1e-5 of their norm, bf16 outputs within one bf16
-# rounding
-TOL_RMSNORM_F32 = 1e-5
-TOL_RMSNORM_BF16 = 4e-3
-
-
-def _rmsnorm_tol(dtype: torch.dtype) -> float:
-    return TOL_RMSNORM_BF16 if dtype == torch.bfloat16 else TOL_RMSNORM_F32
-
-
-def _rmsnorm_inputs(rows: int, cols: int, x_dtype, y_dtype, residual: bool, seed: int):
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x = (torch.randn(rows, cols, generator=g, device="cuda") * 3 + 0.5).to(x_dtype)
-    w = torch.rand(cols, generator=g, device="cuda") + 0.5
-    dy = torch.randn(rows, cols, generator=g, device="cuda").to(y_dtype)
-    dres = torch.randn(rows, cols, generator=g, device="cuda").to(x_dtype) if residual else None
-    return x, w, dy, dres
-
-
-def check_rmsnorm_at(rows: int, cols: int, x_dtype, y_dtype, residual: bool, seed: int) -> dict:
-    """Both norm kernels against their plain versions; a second launch of
-    each must repeat the first bit for bit."""
-    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
-
-    x, w, dy, dres = _rmsnorm_inputs(rows, cols, x_dtype, y_dtype, residual, seed)
-    y_ref, rstd_ref = rmsnorm.rmsnorm_fwd_reference(x, w, RMSNORM_EPS, y_dtype)
-    dx_ref, dw_ref = rmsnorm.rmsnorm_bwd_reference(dy, x, rstd_ref, w, dres)
-    runs = [(*rmsnorm.rmsnorm_fwd_cuda(x, w, RMSNORM_EPS, y_dtype), *rmsnorm.rmsnorm_bwd_cuda(dy, x, rstd_ref, w, dres))
-            for _ in range(2)]
-    y, rstd, dx, dw = runs[0]
-    errs = {"y": _errs(y, y_ref), "rstd": _errs(rstd, rstd_ref), "dx": _errs(dx, dx_ref), "dw": _errs(dw, dw_ref)}
-    repeat = all(torch.equal(a, b) for a, b in zip(*runs))
-    say(f"[rmsnorm] kernels vs plain at [{rows}, {cols}] {str(x_dtype)[6:]} -> {str(y_dtype)[6:]}"
-        f"{' with the residual' if residual else ''}: " + ", ".join(f"{n} norm_rel {e[1]:.1e}" for n, e in errs.items())
-        + f"; second run identical {repeat}")
-    if not (errs["y"][1] <= _rmsnorm_tol(y_dtype) and errs["dx"][1] <= _rmsnorm_tol(x_dtype)
-            and max(errs["rstd"][1], errs["dw"][1]) <= TOL_RMSNORM_F32 and repeat):
-        raise AssertionError(f"rmsnorm kernels at [{rows}, {cols}]: {errs}, repeat {repeat}")
-    return errs
-
-
-def phase_rmsnorm() -> list[dict]:
-    """The norm kernels: against their plain versions at mamba's benchmark
-    micro-batch (a block's norm with the residual, the final norm without),
-    llava's decoder and a ragged row; then timed at mamba's shape beside
-    their bounds, their plain versions and the yardsticks (``F.rms_norm``
-    and the cast to bf16; the pre-change autograd chain's backward and the
-    residual's add). The kernels JSON line's entries ``rmsnorm_fwd``,
-    ``rmsnorm_bwd``."""
-    from multimodal_llm_pretraining_tpu_torch.ops import rmsnorm
-
-    rows, cols = RMSNORM_SHAPE
-    errs = check_rmsnorm_at(rows, cols, torch.float32, torch.bfloat16, True, seed=30)
-    check_rmsnorm_at(rows, cols, torch.float32, torch.bfloat16, False, seed=31)
-    check_rmsnorm_at(*RMSNORM_LLAVA_SHAPE, torch.bfloat16, torch.bfloat16, False, seed=32)
-    check_rmsnorm_at(3, 100, torch.bfloat16, torch.float32, True, seed=33)
-
-    x, w, dy, dres = _rmsnorm_inputs(rows, cols, torch.float32, torch.bfloat16, True, seed=34)
-    y, rstd = rmsnorm.rmsnorm_fwd_cuda(x, w, RMSNORM_EPS, torch.bfloat16)
-    xg, wg = x.clone().requires_grad_(), w.clone().requires_grad_()
-    y_chain = (xg * (torch.rsqrt(xg.square().mean(-1, keepdim=True) + RMSNORM_EPS) * wg)).to(torch.bfloat16)
-
-    def chain_backward():
-        dx, _ = torch.autograd.grad(y_chain, (xg, wg), dy, retain_graph=True)
-        return dx + dres
-
-    t = {
-        "fwd": cuda_ms(lambda: rmsnorm.rmsnorm_fwd_cuda(x, w, RMSNORM_EPS, torch.bfloat16)),
-        "fwd_plain": cuda_ms(lambda: rmsnorm.rmsnorm_fwd_reference(x, w, RMSNORM_EPS, torch.bfloat16)),
-        "fwd_library": cuda_ms(lambda: torch.nn.functional.rms_norm(x, (cols,), w, RMSNORM_EPS).to(torch.bfloat16)),
-        "bwd": cuda_ms(lambda: rmsnorm.rmsnorm_bwd_cuda(dy, x, rstd, w, dres)),
-        "bwd_plain": cuda_ms(lambda: rmsnorm.rmsnorm_bwd_reference(dy, x, rstd, w, dres)),
-        "bwd_library": cuda_ms(chain_backward),
-    }
-    say(f"[rmsnorm] ms a call at {list(RMSNORM_SHAPE)} f32 -> bf16: " + ", ".join(f"{n} {ms:.4f}" for n, ms in t.items()))
-    # bytes: the forward reads the f32 stream and the scale and writes bf16 y and an f32 rstd a row; the
-    # backward reads bf16 dy, the stream, rstd, the scale and the residual's f32 gradient, and writes the
-    # stream's f32 gradient and the scale's
-    small = _nbytes(w, rstd)
-    bounds = {"fwd": bound(_nbytes(x, y) + small), "bwd": bound(_nbytes(dy, x, dres, x) + 2 * small)}
-    for n in ("fwd", "bwd"):
-        say(f"[rmsnorm] {n} at {list(RMSNORM_SHAPE)}: {t[n]:.4f} ms a call, bound {bounds[n]['bound_ms']:.4f} ms "
-            f"({bounds[n]['bound_by']}), {bounds[n]['bound_ms'] / t[n]:.3f} of it; plain {t[n + '_plain']:.4f} ms, "
-            f"yardstick {t[n + '_library']:.4f} ms ({t[n + '_library'] / t[n]:.2f}x the kernel)")
-    return [
-        {"name": "rmsnorm_fwd", "route": "cuda", "source": RMSNORM_SOURCE, "replaces": None, "launches": None,
-         "max_abs_err": errs["y"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"], **bounds["fwd"],
-         "library_ms": t["fwd_library"]},
-        {"name": "rmsnorm_bwd", "route": "cuda", "source": RMSNORM_SOURCE, "replaces": None, "launches": None,
-         "max_abs_err": errs["dx"][0], "ms": t["bwd"], "plain_ms": t["bwd_plain"], **bounds["bwd"],
-         "library_ms": t["bwd_library"]},
-    ]
-
-
-# ---------------------------------------------------------------- causal conv
-
-CONV_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/causal_conv.cu"
-CONV_SHAPE = (8, 4096, 5120, 4)  # mamba-2.8b at the benchmark's micro-batch: B, L, d_inner, d_conv
-# kernel vs plain version (as tests/test_torch_kernels.py): both in f32, in another order and with the
-# kernels' fast exp; out and dx within one rounding of x's dtype elementwise (2^-7 of the value in bf16)
-# plus 1e-5 of the largest entry, dw and db in f32 within 1e-5 of their norm, in bf16 one bf16 rounding
-TOL_CONV_ELEM_BF16 = 2.0**-7
-TOL_CONV_F32_NORM_REL = 1e-5
-TOL_CONV_BF16_NORM_REL = 4e-3
-
-
-def _conv_inputs(B: int, L: int, I: int, K: int, p_dtype, seed: int):
-    """bf16 x (the first half of [B, L, 2I]) and dout N(0, 1), the taps and
-    bias uniform in [-0.5, 0.5) in ``p_dtype``."""
-    g = torch.Generator(device="cuda").manual_seed(seed)
-    x = torch.randn(B, L, 2 * I, generator=g, device="cuda").to(torch.bfloat16)[..., :I]
-    w = (torch.rand(K, I, generator=g, device="cuda") - 0.5).to(p_dtype)
-    b = (torch.rand(I, generator=g, device="cuda") - 0.5).to(p_dtype)
-    dout = torch.randn(B, L, I, generator=g, device="cuda").to(torch.bfloat16)
-    return x, w, b, dout
-
-
-def _conv_chain(x, w, b):
-    """The pre-kernel chain on the card: the f32 composition, then the copy to
-    contiguous that ``x_proj``'s product made of its channel-first result."""
-    from multimodal_llm_pretraining_tpu_torch.ops.selective_scan import causal_conv1d
-
-    return torch.nn.functional.silu(causal_conv1d(x.float(), w.float(), b.float())).to(x.dtype).contiguous()
-
-
-def check_conv_at(B: int, L: int, I: int, K: int, p_dtype, seed: int) -> dict:
-    """Both conv kernels against their plain versions (PyTorch's native
-    depthwise conv, cuDNN off); a second launch of each must repeat the
-    first bit for bit."""
-    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv as cc
-
-    x, w, b, dout = _conv_inputs(B, L, I, K, p_dtype, seed)
-    with torch.backends.cudnn.flags(enabled=False):
-        ref = (cc.causal_conv_fwd_reference(x, w, b), *cc.causal_conv_bwd_reference(x, w, b, dout))
-    runs = [(cc.causal_conv_fwd_cuda(x, w, b), *cc.causal_conv_bwd_cuda(x, w, b, dout)) for _ in range(2)]
-    names = ("out", "dx", "dw", "db")
-    errs = {n: _errs(got, want) for n, got, want in zip(names, runs[0], ref)}
-    elem = {n: ((got.float() - want.float()).abs() - TOL_CONV_ELEM_BF16 * want.float().abs()).max().item()
-            / max(want.float().abs().max().item(), 1e-30) for n, got, want in zip(("out", "dx"), runs[0], ref)}
-    repeat = all(torch.equal(a, c) for a, c in zip(*runs))
-    say(f"[conv] kernels vs plain at [{B}, {L}, {I}] K {K} bf16, {str(p_dtype)[6:]} parameters: "
-        + ", ".join(f"{n} max_abs {e[0]:.1e} norm_rel {e[1]:.1e}" for n, e in errs.items())
-        + f"; out and dx past one bf16 rounding by at most {max(elem.values()):.1e} of the largest entry"
-        + f"; second run identical {repeat}")
-    p_tol = TOL_CONV_F32_NORM_REL if p_dtype == torch.float32 else TOL_CONV_BF16_NORM_REL
-    if not (max(elem.values()) <= 1e-5 and max(errs["dw"][1], errs["db"][1]) <= p_tol and repeat):
-        raise AssertionError(f"causal-conv kernels at [{B}, {L}, {I}]: {errs}, {elem}, repeat {repeat}")
-    return errs
-
-
-def phase_causal_conv() -> list[dict]:
-    """The conv kernels: against their plain versions at mamba's benchmark
-    micro-batch (the strided half, bf16 and f32 parameters) and at a ragged
-    shape; then timed at mamba's shape beside their bounds, their plain
-    versions and the pre-kernel chain (``_conv_chain``, and its autograd
-    backward). The kernels JSON line's entries ``causal_conv_fwd``,
-    ``causal_conv_bwd``."""
-    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv as cc
-
-    B, L, I, K = CONV_SHAPE
-    errs = check_conv_at(B, L, I, K, torch.bfloat16, seed=40)
-    check_conv_at(B, L, I, K, torch.float32, seed=41)
-    check_conv_at(2, 300, 100, 3, torch.bfloat16, seed=42)
-
-    x, w, b, dout = _conv_inputs(B, L, I, K, torch.bfloat16, seed=43)
-    xg, wg, bg = x.detach().requires_grad_(), w.clone().requires_grad_(), b.clone().requires_grad_()
-    out_chain = _conv_chain(xg, wg, bg)
-    t = {
-        "fwd": cuda_ms(lambda: cc.causal_conv_fwd_cuda(x, w, b)),
-        "fwd_plain": cuda_ms(lambda: cc.causal_conv_fwd_reference(x, w, b)),
-        "fwd_library": cuda_ms(lambda: _conv_chain(x, w, b)),
-        "bwd": cuda_ms(lambda: cc.causal_conv_bwd_cuda(x, w, b, dout)),
-        "bwd_plain": cuda_ms(lambda: cc.causal_conv_bwd_reference(x, w, b, dout)),
-        "bwd_library": cuda_ms(lambda: torch.autograd.grad(out_chain, (xg, wg, bg), dout, retain_graph=True)),
-    }
-    say(f"[conv] ms a call at {list(CONV_SHAPE)} bf16: " + ", ".join(f"{n} {ms:.4f}" for n, ms in t.items()))
-    # bytes: the forward reads x, the taps and the bias and writes out; the backward reads x, dout, the taps
-    # and the bias and writes dx and the f32 sums of dw and db
-    small = _nbytes(w, b)
-    bounds = {"fwd": bound(2 * _nbytes(dout) + small),
-              "bwd": bound(3 * _nbytes(dout) + small + (K + 1) * I * 4)}
-    for n in ("fwd", "bwd"):
-        say(f"[conv] {n} at {list(CONV_SHAPE)}: {t[n]:.4f} ms a call, bound {bounds[n]['bound_ms']:.4f} ms "
-            f"({bounds[n]['bound_by']}), {bounds[n]['bound_ms'] / t[n]:.3f} of it; plain {t[n + '_plain']:.4f} ms, "
-            f"pre-kernel chain {t[n + '_library']:.4f} ms ({t[n + '_library'] / t[n]:.2f}x the kernel)")
-    return [
-        {"name": "causal_conv_fwd", "route": "cuda", "source": CONV_SOURCE, "replaces": None, "launches": None,
-         "max_abs_err": errs["out"][0], "ms": t["fwd"], "plain_ms": t["fwd_plain"], **bounds["fwd"],
-         "library_ms": t["fwd_library"]},
-        {"name": "causal_conv_bwd", "route": "cuda", "source": CONV_SOURCE, "replaces": None, "launches": None,
-         "max_abs_err": errs["dx"][0], "ms": t["bwd"], "plain_ms": t["bwd_plain"], **bounds["bwd"],
-         "library_ms": t["bwd_library"]},
-    ]
-
-
 def families(card: str, add) -> list[dict]:
-    """Phases 22-25; returns the kernels line's entries at ViLT's and
+    """Phases 23-26; returns the kernels line's entries at ViLT's and
     RoBERTa's shapes, each with the launches of the main paths at that
     shape (which the ``flash_fwd`` and ``flash_bwd_fused`` totals include)."""
     phase_vilt_slice()
@@ -2626,10 +1590,8 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_env()
     phase_build()
-    xent_kernels = phase_xent()
-    norm_kernels = phase_rmsnorm()
-    conv_kernels = phase_causal_conv()
-    pythia_times, kernels = phase_kernels()
+    kernels = phase_xent() + phase_rmsnorm() + phase_causal_conv()
+    kernels += attention_entries(attention_at(SLICE_SHAPE, True, split=True, seed=3))
     phase_slice()
     launches: dict[str, int] = {}
 
@@ -2641,23 +1603,20 @@ def main() -> int:
     kernels += phase_scan_kernels()
     phase_scan_slice()
     add(phase_mamba_main_path())
-    decoder_times, varlen = phase_varlen_kernels()
-    kernels += varlen
+    kernels += attention_entries(attention_at(VARLEN_SHAPE, True, varlen=True, split=True, seed=20), "_varlen")
+    attention_at(TOWER_SHAPE, False, backward=False, seed=24)  # the tower's own call: the plain-mode forward
     phase_llava_slice()
     add(phase_llava_main_path())
-    kernels += phase_split_kernels(pythia_times, decoder_times)
+    attention_at(VIT_SHAPE, False, torch.float32, split=True, seed=31)
     phase_vit_slice()
     add(phase_vit_main_path())
     phase_head_dims()
-    phase_many_heads()
-    phase_repairs()
     remat_launches, bf16_sr_run = phase_remat(card)
     add(remat_launches)
     add(phase_remat_vit())
     add(phase_remat_llava())
     add(phase_harness(card, bf16_sr_run))
     shaped = families(card, add)
-    kernels += xent_kernels + norm_kernels + conv_kernels
     for k in kernels:
         k["launches"] = launches[k["name"]]
     kernels += shaped

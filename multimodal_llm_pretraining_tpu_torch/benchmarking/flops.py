@@ -4,8 +4,7 @@ Two counts of one example's forward and backward:
 
 - ``analytic_flops_per_example``: the JAX package's closed forms, copied
   (dense transformer for pythia, roberta and vit; LLaVA; ViLT; ConvNeXt);
-  Mamba has none (``None``), as in JAX. MFU in
-  ``bench.py`` divides these by the step time.
+  Mamba has none (``None``), as in JAX.
 - ``count_flops_per_example``: ``torch.utils.flop_counter.FlopCounterMode``
   over one micro-batch of 1 through the session's accumulate step (the
   reference's protocol, ``src/benchmarking/flops.py:9-37``). It counts what

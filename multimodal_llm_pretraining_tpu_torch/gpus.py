@@ -4,8 +4,8 @@ Counterpart of ``multimodal_llm_pretraining_tpu/tpus.py:15-126``, which
 holds the TPU generations; this one holds the NVIDIA H100 SXM 80GB, the
 card the port's kernels are written for (``sm_90a``). Peaks are NVIDIA's
 data sheet for the H100 SXM: dense rates without sparsity, at the card's
-full 700 W power limit (a card set below it runs slower under load). MFU
-divides by them (``bench.py``).
+full 700 W power limit (a card set below it runs slower under load).
+``bound`` holds a function's time on the card to them.
 """
 
 from dataclasses import dataclass
@@ -28,6 +28,7 @@ class GpuSpec:
     hbm_gb: float  # 10**9 bytes
     hbm_bandwidth_gbps: float  # GB/s
     nvlink_bandwidth_gbps: float  # GB/s to the other cards of the host, both ways together
+    exps_per_s: float  # the special-function units' exp results a second
 
     @property
     def hbm_bytes(self) -> int:
@@ -37,9 +38,12 @@ class GpuSpec:
 _SPECS: dict[GpuT, GpuSpec] = {
     s.name: s
     for s in [
-        # NVIDIA H100 Tensor Core GPU data sheet, H100 SXM column
+        # NVIDIA H100 Tensor Core GPU data sheet, H100 SXM column; the exp rate is 16 special-function
+        # results per SM per clock (CUDA C++ Programming Guide, arithmetic instruction throughput, compute
+        # capability 9.0) x 132 SMs x 1.98 GHz
         GpuSpec("h100-sxm", device_name="NVIDIA H100 80GB HBM3", peak_bf16_tflops=989.0, peak_tf32_tflops=494.7,
-                peak_fp32_tflops=67.0, hbm_gb=80.0, hbm_bandwidth_gbps=3350.0, nvlink_bandwidth_gbps=900.0),
+                peak_fp32_tflops=67.0, hbm_gb=80.0, hbm_bandwidth_gbps=3350.0, nvlink_bandwidth_gbps=900.0,
+                exps_per_s=16 * 132 * 1.98e9),
     ]
 }
 
@@ -60,6 +64,19 @@ def peak_tflops(gpu: GpuT, dtype: Literal["bf16", "tf32", "fp32"]) -> float:
         case "fp32":
             return spec.peak_fp32_tflops
     raise ValueError(f"unknown dtype {dtype}")
+
+
+def bound(nbytes: float, flops: float = 0.0, flop_rate: float | None = None, exps: float = 0.0) -> tuple[float, str]:
+    """The least time the H100 could take for a function, in ms, and what
+    sets it: the bytes it must move (each input read once, each output
+    written once) over the memory rate ("bytes"), or its operations
+    ("operations"): products at ``flop_rate`` FLOP/s (the bf16 tensor-core
+    peak if not given), exps at the special-function rate."""
+    spec = gpu_spec("h100-sxm")
+    rate = spec.peak_bf16_tflops * 1e12 if flop_rate is None else flop_rate
+    t_bytes = nbytes / (spec.hbm_bandwidth_gbps * 1e9)
+    t_ops = max(flops / rate, exps / spec.exps_per_s)
+    return max(t_bytes, t_ops) * 1e3, "bytes" if t_bytes >= t_ops else "operations"
 
 
 def supports_bf16(gpu: GpuT) -> bool:

@@ -30,8 +30,11 @@ import torch
 from .ops import _build
 from .ops import selective_scan_fused as ssf
 from .time_attention import card_line, ms_per_call
-from .time_scan import TOL_GRAD, TOL_Y, TOL_Y_BF16, norm_rel, scan_inputs
+from .time_scan import scan_inputs
 from .utils import require_cuda
+
+TOL_Y, TOL_GRAD = 1e-4, 1e-3
+TOL_Y_BF16 = 4e-3  # y with the skip in bf16: one bf16 rounding of values that differ by the f32 error
 
 # name -> (text in csrc/selective_scan.cu, its replacement), each text found exactly once
 VARIANTS = {
@@ -99,6 +102,10 @@ def build_variants(main: ctypes.CDLL, out_dir: Path, source: str, variants: dict
         print(f"[ptxas] {name}: " + " | ".join(regs), flush=True)
         libs[name] = VariantLib(out_dir / f"v{k}.so", main, names)
     return libs
+
+
+def norm_rel(got: torch.Tensor, want: torch.Tensor) -> float:
+    return ((got.float() - want.float()).norm() / want.float().norm().clamp_min(1e-30)).item()
 
 
 def _describe(entry: str) -> str:

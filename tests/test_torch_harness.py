@@ -35,7 +35,7 @@ from multimodal_llm_pretraining_tpu.benchmarking import flops as jflops
 from multimodal_llm_pretraining_tpu.models import get_model_class as jax_get_model_class
 from multimodal_llm_pretraining_tpu.parallel.mesh import MeshConfig as JaxMeshConfig
 from multimodal_llm_pretraining_tpu.train import TrainingPlan as JaxTrainingPlan
-from multimodal_llm_pretraining_tpu_torch import bench, gpus
+from multimodal_llm_pretraining_tpu_torch import gpus
 from multimodal_llm_pretraining_tpu_torch.benchmarking import flops as tflops
 from multimodal_llm_pretraining_tpu_torch.benchmarking import max_batch_size as mbs_search
 from multimodal_llm_pretraining_tpu_torch.benchmarking import probe_worker, step_time
@@ -44,6 +44,7 @@ from multimodal_llm_pretraining_tpu_torch.models import get_model_class
 from multimodal_llm_pretraining_tpu_torch.models.pythia import PYTHIA_SIZES
 from multimodal_llm_pretraining_tpu_torch.parallel.mesh import MeshConfig
 from multimodal_llm_pretraining_tpu_torch.parallel.sharding import ShardingPolicy
+from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
 from multimodal_llm_pretraining_tpu_torch.train import TrainingPlan
 
 torch.set_num_threads(2)
@@ -217,7 +218,7 @@ def test_subprocess_confirm_runs_a_worker():
 
 def test_worker_plan_round_trips():
     mc = get_model_class("pythia-1b")
-    plan = bench.make_plan(mc, 32)
+    plan = dataclasses.replace(make_plan(mc, 4, 32, True, "bf16_sr", "dots"), compile=True, unroll_layers=True)
     assert probe_worker.plan_from_dict(dataclasses.asdict(plan)) == plan
 
 
@@ -261,6 +262,28 @@ def test_gpu_registry_holds_the_h100_data_sheet():
     assert spec.hbm_bytes == 80 * 10**9 and spec.hbm_bandwidth_gbps == 3350.0 and spec.nvlink_bandwidth_gbps == 900.0
     with pytest.raises(ValueError):
         gpus.peak_tflops("h100-sxm", "fp8")  # type: ignore[arg-type]
+
+
+# (bytes, products, their rate, exps) -> (ms, what sets it), at two shapes of the kernel table: one LM-head
+# chunk's loss forward (f32 logits [1024, 50304] and int64 labels in, an f32 lse and nll a row out) and the
+# scan forward at mamba's [2, 4096, 5120] bf16, d_state 16 (u, delta, B, C, y in bf16; A, D and the
+# checkpoint of 16 chunks in f32), with one exp and 6 f32 operations a state-step
+XENT_FWD_BYTES = 1024 * 50304 * 4 + 1024 * 8 + 2 * 1024 * 4
+SCAN_STATE_STEPS = 2 * 4096 * 5120 * 16
+SCAN_FWD_BYTES = 3 * 2 * 4096 * 5120 * 2 + 2 * 2 * 4096 * 16 * 2 + 5120 * 16 * 4 + 5120 * 4 + 2 * 16 * 16 * 5120 * 4
+
+
+@pytest.mark.parametrize("work,expected", [
+    ((XENT_FWD_BYTES, 0.0, None, 1024 * 50304), (0.0615, "bytes")),
+    ((SCAN_FWD_BYTES, 6 * SCAN_STATE_STEPS, 67e12, SCAN_STATE_STEPS), (0.1605, "operations")),
+], ids=["xent_fwd", "scan_fwd"])
+def test_bound_is_the_slowest_of_bytes_products_and_exps(work, expected):
+    nbytes, flops, rate, exps = work
+    ms, by = gpus.bound(nbytes, flops, rate, exps)
+    assert (round(ms, 4), by) == expected
+    spec = gpus.gpu_spec("h100-sxm")
+    terms = (nbytes / 3.35e12, flops / (rate or 989e12), exps / spec.exps_per_s)
+    assert ms == max(terms) * 1e3 and spec.exps_per_s == 16 * 132 * 1.98e9
 
 
 def test_no_card_is_detected_without_one():

@@ -60,6 +60,8 @@ backward at head dim 256 takes any scale (0.07, and 200^-0.5 at D=200
 padded to 256).
 """
 
+import math
+
 import pytest
 import torch
 
@@ -116,7 +118,8 @@ def test_function_takes_plain_versions_on_cpu_without_launching():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("seq,head_dim,causal", [(77, 64, True), (130, 128, False), (257, 256, True), (64, 256, False)])
+@pytest.mark.parametrize("seq,head_dim,causal", [(77, 64, True), (77, 64, False), (130, 128, False), (257, 256, True),
+                                                  (64, 256, False), (197, 64, False), (577, 64, False)])
 def test_kernels_match_plain_versions(seq, head_dim, causal):
     _needs_cuda()
     q, k, v, do = (_rand(6, seq, head_dim, seed=i) for i in range(4))
@@ -299,16 +302,22 @@ def test_fused_backward_at_tile_edges(seq, head_dim, causal, dtype):
     _check_backward(q, k, v, do, causal, head_dim**-0.5)
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
-@pytest.mark.parametrize("q_seq,kv_seq,causal", [
+# (q_seq, kv_seq, causal): key counts other than the query count, both ways;
+# one query alone runs non-causal only (see above)
+OTHER_KEY_COUNTS = [
     (1, 129, False), (65, 200, True), (65, 200, False), (200, 65, True), (200, 65, False), (129, 130, True),
-    (2049, 300, True), (300, 2049, False),
-])
-def test_fused_backward_with_other_key_count(q_seq, kv_seq, causal, head_dim):
+    (129, 130, False), (2049, 300, True), (2049, 300, False), (300, 2049, True), (300, 2049, False),
+]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
+@pytest.mark.parametrize("q_seq,kv_seq,causal", OTHER_KEY_COUNTS)
+def test_fused_backward_with_other_key_count(q_seq, kv_seq, causal, head_dim, dtype):
     _needs_cuda()
-    q, do = (_rand(3, q_seq, head_dim, seed=100 + i) for i in range(2))
-    k, v = (_rand(3, kv_seq, head_dim, seed=102 + i) for i in range(2))
+    q, do = (_rand(3, q_seq, head_dim, seed=100 + i, dtype=dtype) for i in range(2))
+    k, v = (_rand(3, kv_seq, head_dim, seed=102 + i, dtype=dtype) for i in range(2))
     _check_backward(q, k, v, do, causal, head_dim**-0.5)
 
 
@@ -533,13 +542,22 @@ def _split_reference(q, k, v, out, lse, do, causal, scale, kv_lens=None):
     return fa.flash_bwd_split_reference(q, k, v, out, lse, do, causal, scale, kv_lens)
 
 
-def _check_split(q, k, v, do, causal, scale, kv_lens=None):
+def _check_split(q, k, v, do, causal, scale, kv_lens=None, against_fused=False):
     """The split pair against its plain versions (dq, dk, dv to NORM_REL of
     their norm, in the input dtype), all three bit for bit on a second run,
     dk and dv exactly 0 at and past each length, dq 0 on a row that sees no
-    key."""
+    key. With ``against_fused``, also against the fused kernel on the same
+    inputs: all three within NORM_REL of its, and dk and dv bit for bit
+    wherever both form k*scale from the same bf16 k (bf16 inputs, or a
+    power-of-two scale)."""
     out, lse = fa.flash_fwd_reference(q, k, v, causal, scale, kv_lens)
     grads = _split(q, k, v, out, lse, do, causal, scale, kv_lens)
+    if against_fused:
+        fused = fa.flash_bwd_cuda(q, k, v, out, lse, do, causal, scale, kv_lens)
+        for a, f in zip(grads, fused):
+            _close(a, f)
+        if q.dtype == torch.bfloat16 or math.frexp(scale)[0] == 0.5:
+            assert torch.equal(grads[1], fused[1]) and torch.equal(grads[2], fused[2])
     for got, want in zip(grads, _split_reference(q, k, v, out, lse, do, causal, scale, kv_lens)):
         assert got.dtype == q.dtype and got.shape == want.shape
         _close(got, want)
@@ -562,20 +580,18 @@ def test_split_backward_at_tile_edges(seq, head_dim, causal, dtype):
     blocks of both kernels."""
     _needs_cuda()
     q, k, v, do = (_rand(3, seq, head_dim, seed=140 + i, dtype=dtype) for i in range(4))
-    _check_split(q, k, v, do, causal, head_dim**-0.5)
+    _check_split(q, k, v, do, causal, head_dim**-0.5, against_fused=True)
 
 
 @pytest.mark.cuda
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 @pytest.mark.parametrize("head_dim", fa.KERNEL_HEAD_DIMS)
-@pytest.mark.parametrize("q_seq,kv_seq,causal", [
-    (1, 129, False), (65, 200, True), (65, 200, False), (200, 65, True), (200, 65, False), (129, 130, True),
-    (2049, 300, True), (300, 2049, False),
-])
-def test_split_backward_with_other_key_count(q_seq, kv_seq, causal, head_dim):
+@pytest.mark.parametrize("q_seq,kv_seq,causal", OTHER_KEY_COUNTS)
+def test_split_backward_with_other_key_count(q_seq, kv_seq, causal, head_dim, dtype):
     _needs_cuda()
-    q, do = (_rand(3, q_seq, head_dim, seed=150 + i) for i in range(2))
-    k, v = (_rand(3, kv_seq, head_dim, seed=152 + i) for i in range(2))
-    _check_split(q, k, v, do, causal, head_dim**-0.5)
+    q, do = (_rand(3, q_seq, head_dim, seed=150 + i, dtype=dtype) for i in range(2))
+    k, v = (_rand(3, kv_seq, head_dim, seed=152 + i, dtype=dtype) for i in range(2))
+    _check_split(q, k, v, do, causal, head_dim**-0.5, against_fused=True)
 
 
 @pytest.mark.cuda
@@ -588,7 +604,7 @@ def test_split_varlen_backward_at_tile_edges(head_dim, causal, dtype):
     _needs_cuda()
     kv_lens = _lens([0, 1, 63, 64, 65, 127, 128, 300], 2)
     q, k, v, do = (_rand(16, 300, head_dim, seed=160 + i, dtype=dtype) for i in range(4))
-    _check_split(q, k, v, do, causal, head_dim**-0.5, kv_lens)
+    _check_split(q, k, v, do, causal, head_dim**-0.5, kv_lens, against_fused=True)
 
 
 @pytest.mark.cuda
@@ -635,6 +651,7 @@ def test_split_dk_dv_equal_the_fused_kernels_bit_for_bit(head_dim, scale, dtype,
 @pytest.mark.parametrize("seq,kv_seq,head_dim,causal,dtype", [
     (77, 77, 64, True, torch.bfloat16), (130, 130, 128, False, torch.bfloat16), (257, 257, 256, True, torch.bfloat16),
     (197, 197, 64, False, torch.float32), (300, 150, 64, False, torch.bfloat16), (64, 64, 256, False, torch.float32),
+    (77, 77, 64, False, torch.bfloat16), (197, 197, 64, False, torch.bfloat16),
 ])
 def test_split_kernels_match_plain_versions_and_repeat(seq, kv_seq, head_dim, causal, dtype):
     """dq and dk/dv against their plain versions, a second run bit for bit,
@@ -735,23 +752,22 @@ def test_scan_function_takes_plain_versions_on_cpu_without_launching():
 
 
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape", [(2, 300, 96), (1, 64, 32), (2, 1000, 40), (1, 7, 5)])
+@pytest.mark.parametrize("shape", [(2, 300, 96), (1, 64, 32), (2, 1000, 40), (1, 7, 5), (2, 4096, 5120)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_scan_kernels_match_plain_versions(shape, dtype):
-    """Ragged L (not a multiple of 256 or of the kernels' tiles) and ragged I
-    (not a multiple of the kernels' channel tiles)."""
+    """Ragged L (not a multiple of 256 or of the kernels' tiles), ragged I
+    (not a multiple of the kernels' channel tiles) and mamba-2.8b's own
+    shape: ``_check_scan``, the checkpoint's first chunk exactly 0, and dD
+    through the autograd Function equal to the sum of dy * u."""
     _needs_cuda()
     u, delta, A, B, C, dy = _scan_inputs(*shape, seed=sum(shape), dtype=dtype)
-    y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
-    y_ref, ckpt_ref = ssf.selective_scan_fwd_reference(u, delta, A, B, C)
-    _close(y, y_ref, SCAN_Y_NORM_REL)
-    if ckpt.shape[1] > 1:
-        _close(ckpt[:, 1:], ckpt_ref[:, 1:], SCAN_GRAD_NORM_REL)
+    _check_scan(u, delta, A, B, C, dy)
+    _, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
     assert torch.equal(ckpt[:, 0], torch.zeros_like(ckpt[:, 0]))
-    grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref)
-    for got, want in zip(grads, ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt_ref)):
-        assert got.dtype == torch.float32 and got.shape == want.shape
-        _close(got, want, SCAN_GRAD_NORM_REL)
+    leaves = [t.clone().requires_grad_() for t in (u, delta, A, B, C, torch.randn(shape[-1], device="cuda"))]
+    g = dy.to(dtype)
+    ssf.selective_scan_fused(*leaves).backward(g)
+    _close(leaves[5].grad, (g.float() * u.float()).sum((0, 1)), SCAN_GRAD_NORM_REL)
 
 
 @pytest.mark.cuda
@@ -1376,6 +1392,7 @@ CONV_CASES = [
     (2, 1025, 64, 2, torch.bfloat16, torch.float32, False),  # K 2, one step past a backward block's 1024
     (3, 129, 40, 4, torch.bfloat16, torch.bfloat16, True),  # one step past a backward slice, 40 channels: a part warp
     (1, 33, 8, 1, torch.bfloat16, torch.bfloat16, True),  # K 1: no halo
+    (2, 300, 100, 3, torch.bfloat16, torch.bfloat16, True),  # K 3 with element loads
 ]
 
 
