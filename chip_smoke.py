@@ -12,13 +12,14 @@ failure exits non-zero:
 2. build: every ``csrc/`` source, one nvcc each, in parallel; a ``[ptxas]`` line per kernel.
 3. LM-head loss kernels at pythia-1b's chunk; the whole loss at the benchmark's micro-batch against the pre-change path.
 4. RMSNorm kernels at mamba-2.8b's micro-batch ([32768, 2560] f32 in, bf16 out, the residual's gradient).
-5. causal-conv kernels at mamba-2.8b's micro-batch ([8, 4096, 5120] bf16, x a strided half).
+5. causal-conv kernels at mamba-2.8b's micro-batch ([8, 4096, 5120] bf16, x a strided half), then the
+   gate kernels there (z a strided half).
 6. flash kernels at pythia-1b's attention ([4, 8, 2049, 256] bf16 causal): forward, fused and split backward.
 7. pythia slice: a 2-layer GPTNeoX, loss and grads with the kernels against the plain f32 attention.
 8. pythia-1b main path: the training step at full size, every attention call on the kernels.
 9. scan kernels at mamba-2.8b's [2, 4096, 5120] bf16, d_state 16.
 10. scan slice: a 2-layer narrow Mamba in f32 against the plain chunked scan.
-11. mamba-2.8b main path under block remat: every scan, norm and conv call on the kernels.
+11. mamba-2.8b main path under block remat: every scan, norm, conv and gate call on the kernels.
 12. flash kernels at the llava decoder's [16, 32, 1087, 64] (varlen mode) and the tower's [16, 16, 577, 64].
 13. llava slice: a 2-layer narrow LLaVA on a right-padded batch.
 14. llava-pretrain main path: frozen leaves bit for bit, the projector moving.
@@ -73,6 +74,7 @@ JAX_SCAN = "multimodal_llm_pretraining_tpu/ops/selective_scan_pallas.py"
 XENT_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/xent.cu"
 RMSNORM_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/rmsnorm.cu"
 CONV_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/causal_conv.cu"
+GATE_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/gate.cu"
 SCAN_SHAPE = (2, 4096, 5120)  # mamba-2.8b: mbs 2, seq 4096, d_inner 5120 (d_state 16)
 SLICE_SHAPE = (4, 8, 2049, 256)  # pythia-1b: mbs 4, 8 heads, seq 2049, head_dim 256
 # llava-pretrain at the main path's mbs 16: the decoder's attention (32
@@ -556,6 +558,44 @@ def phase_causal_conv() -> list[dict]:
                          bounds["bwd"], t["bwd_library"])]
 
 
+GATE_SHAPE = (8, 4096, 5120)  # mamba-2.8b at the benchmark's micro-batch: B, L, d_inner
+
+
+def phase_gate() -> list[dict]:
+    """The gate kernels at mamba's benchmark micro-batch (y contiguous, z the
+    strided half of [8, 4096, 10240] bf16, as in_proj's output is split):
+    against their plain versions (the pre-kernel f32 composition and its
+    autograd gradient), then timed beside their bounds (the forward reads y
+    and z and writes out; the backward reads dout, y and z and writes dy and
+    dz; one exp an element) and their plain versions. The kernels JSON
+    line's entries ``gate_silu_fwd``, ``gate_silu_bwd``."""
+    from multimodal_llm_pretraining_tpu_torch.ops import gate
+
+    B, L, I = GATE_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(44)
+    y = (torch.randn(B, L, I, generator=g, device="cuda") * 2).to(torch.bfloat16)
+    z = (torch.randn(B, L, 2 * I, generator=g, device="cuda") * 2).to(torch.bfloat16)[..., I:]
+    dout = torch.randn(B, L, I, generator=g, device="cuda").to(torch.bfloat16)
+    ref = (gate.gate_silu_fwd_reference(y, z), *gate.gate_silu_bwd_reference(y, z, dout))
+    got = (gate.gate_silu_fwd_cuda(y, z), *gate.gate_silu_bwd_cuda(y, z, dout))
+    what = f"{list(GATE_SHAPE)} bf16"
+    errs = held("[gate]", what, dict(zip(("out", "dy", "dz"), zip(got, ref))), dict.fromkeys(("out", "dy", "dz"),
+                                                                                             TOL_BF16))
+    del ref, got
+    t = {
+        "fwd": ms_per_call(lambda: gate.gate_silu_fwd_cuda(y, z)),
+        "fwd_plain": ms_per_call(lambda: gate.gate_silu_fwd_reference(y, z)),
+        "bwd": ms_per_call(lambda: gate.gate_silu_bwd_cuda(y, z, dout)),
+        "bwd_plain": ms_per_call(lambda: gate.gate_silu_bwd_reference(y, z, dout)),
+    }
+    bounds = {"fwd": bound(3 * nbytes(y), exps=y.numel()), "bwd": bound(5 * nbytes(y), exps=y.numel())}
+    say_times("[gate]", what, t, bounds, {})
+    return [kernel_entry("gate_silu_fwd", GATE_SOURCE, None, errs["out"][0], t["fwd"], t["fwd_plain"], bounds["fwd"],
+                         None),
+            kernel_entry("gate_silu_bwd", GATE_SOURCE, None, errs["dz"][0], t["bwd"], t["bwd_plain"], bounds["bwd"],
+                         None)]
+
+
 def phase_scan_kernels() -> list[dict]:
     """Both scan kernels at mamba's shape in bf16, the forward with D (the
     skip and the cast in its epilogue, as ``selective_scan_fused`` runs it):
@@ -641,8 +681,9 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     kernel module whose launch counts ``names`` are zeroed just before the
     steps and read just after, and so are the LM-head loss's
     (``ops/xent.py``), returned as ``xent``, RMSNorm's
-    (``ops/rmsnorm.py``), returned as ``rmsnorm``, and the causal conv's
-    (``ops/causal_conv.py``), returned as ``conv``. The first loss must lie in
+    (``ops/rmsnorm.py``), returned as ``rmsnorm``, the causal conv's
+    (``ops/causal_conv.py``), returned as ``conv``, and the gate's
+    (``ops/gate.py``), returned as ``gate``. The first loss must lie in
     ``loss_band``.
     For a model with a trainable mask, every frozen parameter must come out
     bit for bit and every trainable one must have moved; in the f32 layout
@@ -651,7 +692,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     the median step of each backward, the peak memory and the dropout
     generator's state after the steps."""
     from multimodal_llm_pretraining_tpu_torch.models import get_model_class
-    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv, rmsnorm, xent
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv, gate, rmsnorm, xent
     from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
     from multimodal_llm_pretraining_tpu_torch.utils import block_on
 
@@ -683,6 +724,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     xent.reset_launch_counts()
     rmsnorm.reset_launch_counts()
     causal_conv.reset_launch_counts()
+    gate.reset_launch_counts()
     attn.XLA_BRANCH_CALLS = 0
     losses, times = [], []
     try:
@@ -705,6 +747,7 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
     xent_launches = {"xent_fwd": xent.XENT_FWD_LAUNCHES, "xent_bwd": xent.XENT_BWD_LAUNCHES}
     norm_launches = {"rmsnorm_fwd": rmsnorm.RMSNORM_FWD_LAUNCHES, "rmsnorm_bwd": rmsnorm.RMSNORM_BWD_LAUNCHES}
     conv_launches = {"causal_conv_fwd": causal_conv.CONV_FWD_LAUNCHES, "causal_conv_bwd": causal_conv.CONV_BWD_LAUNCHES}
+    gate_launches = {"gate_silu_fwd": gate.GATE_FWD_LAUNCHES, "gate_silu_bwd": gate.GATE_BWD_LAUNCHES}
     peak = torch.cuda.max_memory_allocated()
     if attn.XLA_BRANCH_CALLS != 0:
         raise AssertionError(f"{model_type}: {attn.XLA_BRANCH_CALLS} attention calls took the xla branch")
@@ -744,12 +787,14 @@ def drive_training(model_type: str, mbs: int, acc: int, remat: bool, counters, *
         say(f"[main] {model_type} fused vs split backward, median step: {medians[True]:.4f} vs {medians[False]:.4f} s "
             f"(split / fused {medians[False] / medians[True]:.4f})")
     say(f"[main] {model_type} peak memory {peak} bytes ({peak / 2**30:.2f} GiB), launches "
-        + ", ".join(f"{n} {c}" for n, c in (launches | xent_launches | norm_launches | conv_launches).items())
+        + ", ".join(f"{n} {c}" for n, c in
+                    (launches | xent_launches | norm_launches | conv_launches | gate_launches).items())
         + ", xla-branch attention calls 0")
     if after is not None:
         after(sess, state)
     return {"module": sess.module, "launches": launches, "xent": xent_launches, "rmsnorm": norm_launches,
-            "conv": conv_launches, "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)},
+            "conv": conv_launches, "gate": gate_launches,
+            "micro_batches": {fused: acc * schedule.count(fused) for fused in (True, False)},
             "losses": losses, "medians": medians, "peak": peak, "dropout_state": sess.dropout_generator.get_state()}
 
 
@@ -846,8 +891,8 @@ def phase_scan_slice() -> None:
 
 
 def phase_mamba_main_path() -> dict:
-    """mamba-2.8b at full width and depth with block remat: every scan and
-    conv call on the kernels, the forward twice per block and micro-batch
+    """mamba-2.8b at full width and depth with block remat: every scan, norm,
+    conv and gate call on the kernels, the forward twice per block and micro-batch
     (the remat recompute runs it again) and the backward once."""
     run = drive_training("mamba", mbs=2, acc=2, remat=True, counters=ssf, loss_band=TEXT_LOSS_BAND)
     run["launches"] = tuple(run["launches"].values())
@@ -863,8 +908,12 @@ def phase_mamba_main_path() -> dict:
     convs = {"causal_conv_fwd": 2 * calls, "causal_conv_bwd": calls}
     if run["conv"] != convs:
         raise AssertionError(f"mamba: causal-conv launches {run['conv']}, expected {convs}")
+    # each block's gate forward twice (its replay) and backward once
+    gates = {"gate_silu_fwd": 2 * calls, "gate_silu_bwd": calls}
+    if run["gate"] != gates:
+        raise AssertionError(f"mamba: gate launches {run['gate']}, expected {gates}")
     return ({"scan_fwd": run["launches"][0], "scan_bwd": run["launches"][1]} | xent_launch_entries(run, "mamba")
-            | run["rmsnorm"] | run["conv"])
+            | run["rmsnorm"] | run["conv"] | run["gate"])
 
 
 LLAVA_COUNTERS = ("FWD_LAUNCHES", "BWD_LAUNCHES", "VARLEN_FWD_LAUNCHES", "VARLEN_BWD_LAUNCHES")
@@ -1590,7 +1639,7 @@ def main() -> int:
     t_start = time.perf_counter()
     card = phase_env()
     phase_build()
-    kernels = phase_xent() + phase_rmsnorm() + phase_causal_conv()
+    kernels = phase_xent() + phase_rmsnorm() + phase_causal_conv() + phase_gate()
     kernels += attention_entries(attention_at(SLICE_SHAPE, True, split=True, seed=3))
     phase_slice()
     launches: dict[str, int] = {}

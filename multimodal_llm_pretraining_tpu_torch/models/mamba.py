@@ -25,7 +25,9 @@ state-spaces/mamba runs the published configuration:
   selective-scan kernels compute them. The conv with its bias and SiLU is
   ``ops/causal_conv.py``'s op: on the card its kernel pair, which reads the
   strided half of ``in_proj``'s output uncopied and writes u contiguous; on
-  the CPU its plain version, the f32 ``causal_conv1d`` composition. Rounding each step to bf16, as the
+  the CPU its plain version, the f32 ``causal_conv1d`` composition. The gate
+  is ``ops/gate.py``'s op: on the card its kernel pair, which reads z, the
+  other strided half, uncopied; on the CPU the f32 composition. Rounding each step to bf16, as the
   JAX package does, moves mamba-2.8b's first loss (8 x 4096 tokens, on an
   H100) by about +2.3e-4 of itself against a reference that keeps them in
   f32, more than the residual stream's precision moves it.
@@ -47,6 +49,7 @@ import torch.nn.functional as F
 from torch import nn
 
 from ..ops.causal_conv import causal_conv_silu
+from ..ops.gate import gate_silu
 from ..ops.selective_scan import causal_conv1d, selective_scan
 from ..ops.xent import lm_head_loss, matmul_f32
 from . import LanguageModelClass, MambaT, ModelBundle, SchedulerType
@@ -108,7 +111,6 @@ class MambaBlock(nn.Module):
             h, x = self.norm(x.float(), residual=True)
         else:
             h = self.norm(x)
-        wide = torch.float32 if self.residual_in_fp32 else cdt  # where mamba_ssm's kernels compute in f32
         u, z = self.in_proj(h).chunk(2, dim=-1)
         if self.residual_in_fp32:
             # the strided half of in_proj's output, uncopied: the kernel pair on the card
@@ -119,7 +121,9 @@ class MambaBlock(nn.Module):
         delta = F.softplus(self.dt_proj(dt))
         A = -torch.exp(self.A_log)
         y = selective_scan(u, delta, A, B, C, self.D, use_custom_kernels=self.use_custom_kernels)
-        return x + self.out_proj((y * F.silu(z.to(wide))).to(cdt))
+        # the published gate reads z where it lies, too: its kernel pair on the card
+        gated = gate_silu(y, z) if self.residual_in_fp32 else y * F.silu(z)
+        return x + self.out_proj(gated)
 
 
 class MambaLM(nn.Module):

@@ -26,7 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dq.cu", "selective_scan.cu", "xent.cu", "rmsnorm.cu",
-           "causal_conv.cu")
+           "causal_conv.cu", "gate.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -161,6 +161,10 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.mlpt_causal_conv_bwd.restype = i32
             lib.mlpt_causal_conv_bwd_partials.argtypes = [i32, i32]
             lib.mlpt_causal_conv_bwd_partials.restype = i32
+            lib.mlpt_gate_silu_fwd.argtypes = [ptr, i64, ptr, i64, ptr, i64] + [i32] * 3 + [ptr]
+            lib.mlpt_gate_silu_fwd.restype = i32
+            lib.mlpt_gate_silu_bwd.argtypes = [ptr, ptr, i64, ptr, i64, ptr, ptr, i64] + [i32] * 3 + [ptr]
+            lib.mlpt_gate_silu_bwd.restype = i32
             lib.mlpt_error_string.argtypes = [i32]
             lib.mlpt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -1,6 +1,7 @@
 """The port's CUDA kernels (flash attention: forward, fused backward and the
 split dq and dk/dv backward; selective scan; the LM-head loss; RMSNorm;
-mamba's causal conv with its SiLU) against their plain versions.
+mamba's causal conv with its SiLU and its gate y * SiLU(z)) against their
+plain versions.
 
 This file imports no JAX, so it runs on a GPU machine without it:
 
@@ -1500,6 +1501,109 @@ def test_mamba_micro_batch_runs_its_conv_on_the_kernels(monkeypatch):
     kernels = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
     assert sum("causal_conv_fwd_kernel" in k for k in kernels) and sum("causal_conv_bwd_kernel" in k for k in kernels)
     assert not [k for k in kernels if "conv_depthwise" in k], kernels
+    assert 10.0 < float(loss) < 12.0
+    del sess, state
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- gate
+
+# (B, L, I, dtype, z a strided half of [B, L, 2I], view offset in elements)
+GATE_CASES = [
+    (8, 4096, 5120, torch.bfloat16, True, 0),  # mamba-2.8b's micro-batch, as the block hands it over
+    (2, 300, 100, torch.bfloat16, True, 0),  # I = 100 not a multiple of 8: element loads and stores
+    (3, 1, 64, torch.bfloat16, True, 0),  # L = 1
+    (2, 77, 64, torch.bfloat16, False, 3),  # y and z views 3 elements into their storage: unaligned
+    (2, 129, 96, torch.float32, True, 0),  # f32: 4 channels a piece
+    (2, 550_000, 8, torch.bfloat16, True, 0),  # 1.1 M rows: more row tiles than the grid's 65,535
+]
+
+
+def _gate_inputs(B, L, I, dtype, strided, offset, seed=0):
+    """y, z and dout N(0, 2^2) (both SiLU tails); z the second half of a [B,
+    L, 2I] tensor where ``strided``; y and z ``offset`` elements into their
+    storage."""
+    g = torch.Generator(device="cuda").manual_seed(seed)
+    y = (torch.randn(B * L * I + offset, generator=g, device="cuda") * 2).to(dtype)[offset:].view(B, L, I)
+    width = 2 * I if strided else I
+    base = (torch.randn(B * L * width + offset, generator=g, device="cuda") * 2).to(dtype)[offset:].view(B, L, width)
+    dout = (torch.randn(B, L, I, generator=g, device="cuda") * 2).to(dtype)
+    return y, base[..., width - I:], dout
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("B,L,I,dtype,strided,offset", GATE_CASES)
+def test_gate_kernels_match_plain_versions(B, L, I, dtype, strided, offset):
+    """Both gate kernels against their plain versions (PyTorch's f32 SiLU
+    and its backward): out, dy and dz within one rounding of their dtype, in
+    their dtypes and contiguous; a second launch repeats the first bit for
+    bit."""
+    from multimodal_llm_pretraining_tpu_torch.ops import gate
+
+    _needs_cuda()
+    y, z, dout = _gate_inputs(B, L, I, dtype, strided, offset)
+    out_ref = gate.gate_silu_fwd_reference(y, z)
+    dy_ref, dz_ref = gate.gate_silu_bwd_reference(y, z, dout)
+    runs = [(gate.gate_silu_fwd_cuda(y, z), *gate.gate_silu_bwd_cuda(y, z, dout)) for _ in range(2)]
+    for got, want in zip(runs[0], (out_ref, dy_ref, dz_ref)):
+        assert got.is_contiguous()
+        _within_one_rounding(got, want)
+    assert all(torch.equal(a, c) for a, c in zip(*runs))
+
+
+@pytest.mark.cuda
+def test_gate_ops_pass_opcheck_on_the_card():
+    """``torch.library.opcheck`` of ``mlpt::gate_silu_fwd`` (with its
+    autograd rule, z a strided half) and ``mlpt::gate_silu_bwd``."""
+    from multimodal_llm_pretraining_tpu_torch.ops import gate
+
+    _needs_cuda()
+    y, z, dout = _gate_inputs(2, 70, 48, torch.bfloat16, True, 0)
+    torch.library.opcheck(gate.gate_silu_fwd, (y.clone().requires_grad_(), z.detach().requires_grad_()))
+    torch.library.opcheck(gate.gate_silu_bwd, (y, z, dout))
+
+
+@pytest.mark.cuda
+def test_gate_kernels_refuse_what_they_do_not_take():
+    """fp16, two dtypes, two shapes, a 2-d tensor, a CPU tensor or a dout
+    of another shape raise: there is no plain fallback on the card."""
+    from multimodal_llm_pretraining_tpu_torch.ops import gate
+
+    _needs_cuda()
+    y, z, dout = _gate_inputs(1, 16, 32, torch.bfloat16, True, 0)
+    for args in ((y.half(), z.half()), (y, z.float()), (y, z[:, :8]), (y[0], z[0]), (y.cpu(), z.cpu())):
+        with pytest.raises(ValueError, match="gate kernels take"):
+            gate.gate_silu_fwd_cuda(*args)
+    with pytest.raises(ValueError, match="dout must be"):
+        gate.gate_silu_bwd_cuda(y, z, dout[:, :8])
+
+
+@pytest.mark.cuda
+def test_mamba_micro_batch_runs_its_gate_on_the_kernels(monkeypatch):
+    """A mamba micro-batch at full width, depth and sequence under block
+    remat in ``bf16_sr``: each block's gate forward twice (the replay runs
+    it again) and backward once, all on the kernels (128 and 64 launches),
+    and no PyTorch SiLU kernel in its trace."""
+    from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+    from multimodal_llm_pretraining_tpu_torch.ops import gate
+    from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
+
+    _needs_cuda()
+    mc = get_model_class("mamba")
+    sess = make_plan(mc, 1, 1, True, "bf16_sr").build_session(mc, device="cuda")
+    state = sess.init_state()
+    batch = {k: v[0] for k, v in sess.make_train_batch(seed=0).items()}
+    accumulate = sess.accumulate_fn()
+    accumulate(state, batch)
+    torch.cuda.synchronize()
+    gate.reset_launch_counts()
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        loss = accumulate(state, batch)
+        torch.cuda.synchronize()
+    assert (gate.GATE_FWD_LAUNCHES, gate.GATE_BWD_LAUNCHES) == (128, 64)
+    kernels = [e.key for e in prof.key_averages() if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert sum("gate_silu_fwd_kernel" in k for k in kernels) and sum("gate_silu_bwd_kernel" in k for k in kernels)
+    assert not [k for k in kernels if "silu" in k.lower() and "gate_silu" not in k], kernels
     assert 10.0 < float(loss) < 12.0
     del sess, state
     torch.cuda.empty_cache()
