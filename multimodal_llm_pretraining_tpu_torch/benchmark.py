@@ -17,7 +17,8 @@ methods: naive      -> f32 products ("highest"), no custom kernels
 ``--cmd`` is one of run, count, print-incomplete and print-results. The
 grid is the JAX CLI's (``scripts/benchmark.py:46-99``); ``unroll_layers``
 stays in it, and the validity rule drops its arms, since no port model
-unrolls. ``--model`` offers the ported families. There is no ``--slurm``
+unrolls. ``--model`` offers the ported families and the port's own model
+types (``PORT_ONLY_MODEL_TYPES``). There is no ``--slurm``
 (ROADMAP Queue 1 item 10) and no ``--tensor-parallel`` (item 7).
 """
 
@@ -29,7 +30,7 @@ import sys
 from .experiments.base_classes import Sweep
 from .experiments.sweeps import TrainingTimeEmpiricalSweep
 from .gpus import GPU_TYPES, supports_bf16
-from .models import MODEL_TYPES, get_model_class
+from .models import MODEL_TYPES, PORT_ONLY_MODEL_TYPES, get_model_class
 
 
 def validate_arguments(num_hosts: int, chips_per_host: int, gpu_type: str, model: str) -> None:
@@ -96,7 +97,7 @@ def main(argv: list[str] | None = None) -> None:
     p.add_argument("--num-hosts", type=int, required=True)
     p.add_argument("--chips-per-host", type=int, required=True)
     p.add_argument("--gpu-type", choices=GPU_TYPES, required=True)
-    p.add_argument("--model", choices=MODEL_TYPES, required=True)
+    p.add_argument("--model", choices=MODEL_TYPES + PORT_ONLY_MODEL_TYPES, required=True)
     p.add_argument("--methods", choices=["naive", "free-lunch", "all"], default="all")
     p.add_argument("--cmd", choices=["run", "count", "print-incomplete", "print-results"], default="run")
     a = p.parse_args(argv)

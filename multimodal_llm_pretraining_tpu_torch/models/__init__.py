@@ -4,7 +4,9 @@ Same model-type literals, in the same order, and per-model recipe
 properties as the JAX package; ``build_model`` returns a :class:`ModelBundle`
 holding a ``torch.nn.Module`` and its loss function. Every family of the
 JAX package is ported: RoBERTa, Pythia, Mamba, ConvNeXt, ViT, LLaVA and
-ViLT (the CLIP-g trunk and the original B/32 one).
+ViLT (the CLIP-g trunk and the original B/32 one). ``MODEL_TYPES`` stays the
+JAX package's; ``PORT_ONLY_MODEL_TYPES`` holds what the port adds beside it
+(AI21-Jamba2-3B, ``models/jamba.py``).
 """
 
 import enum
@@ -53,6 +55,11 @@ ModelT = str
 MODEL_TYPES: tuple[str, ...] = tuple(
     t for family in (RobertaT, PythiaT, MambaT, ConvNextT, ViTT, LlavaT, ViltT) for t in get_args(family)
 )
+
+JambaT = Literal["jamba2-3b"]
+
+# the port's own model types, which the JAX package does not have
+PORT_ONLY_MODEL_TYPES: tuple[str, ...] = get_args(JambaT)
 
 
 class SchedulerType(str, enum.Enum):
@@ -287,12 +294,17 @@ def get_model_class(model_type: ModelT) -> BaseModelClass:
         from .vilt_original import ViltOriginalFinetuneModelClass
 
         return ViltOriginalFinetuneModelClass(model_type)
+    if model_type == "jamba2-3b":
+        from .jamba import JambaModelClass
+
+        return JambaModelClass(model_type)
     raise ValueError(f"unknown model type: {model_type}")
 
 
 __all__ = [
     "ModelT",
     "MODEL_TYPES",
+    "PORT_ONLY_MODEL_TYPES",
     "RobertaT",
     "PythiaT",
     "MambaT",
@@ -300,6 +312,7 @@ __all__ = [
     "ViTT",
     "LlavaT",
     "ViltT",
+    "JambaT",
     "ModelBundle",
     "SchedulerType",
     "OptimizerT",

@@ -24,7 +24,7 @@ from torch.utils.checkpoint import CheckpointPolicy, checkpoint, create_selectiv
 from ..ops import rmsnorm
 from ..ops.attention import AttnImpl, dot_product_attention
 from ..ops.flash_attention import flash_fwd
-from ..tracing import profiling, span
+from ..tracing import backward_span, profiling, replay_span, span
 
 # ------------------------------------------------------------------ rotary
 
@@ -169,7 +169,9 @@ class SelfAttention(nn.Module):
     optionally causal and rotary. The qkv output is laid out [q (h*d) | k
     (kvh*d) | v], head-major, like the JAX module's. GQA repeats each kv head
     ``h // kvh`` times in place (``repeat_interleave``, as ``jnp.repeat``
-    does), so q head i reads kv head ``i // (h // kvh)``."""
+    does), so q head i reads kv head ``i // (h // kvh)``. The forward runs in
+    the span ``attn.forward`` and its backward in ``attn.backward``
+    (``tracing.py``)."""
 
     def __init__(
         self,
@@ -199,24 +201,29 @@ class SelfAttention(nn.Module):
         """``mask``: [B, S] keep-mask over the keys (1 = attend)."""
         b, s, _ = x.shape
         h, kvh, d = self.num_heads, self.num_kv_heads, self.head_dim
-        q, k, v = self.qkv(x).split([h * d, kvh * d, kvh * d], dim=-1)
-        q = q.reshape(b, s, h, d).transpose(1, 2)
-        k, v = (t.reshape(b, s, kvh, d).transpose(1, 2) for t in (k, v))
-        if self.rotary_dim:
-            cos, sin = rotary_angles(torch.arange(s, device=x.device), self.rotary_dim, self.rotary_base, self.rope_scaling)
-            q = apply_rotary(q, cos, sin)
-            k = apply_rotary(k, cos, sin)
-        if kvh != h:
-            k = k.repeat_interleave(h // kvh, dim=1)
-            v = v.repeat_interleave(h // kvh, dim=1)
-        out = dot_product_attention(q, k, v, causal=self.causal, mask=mask, impl=self.attn_impl)
-        return self.out(out.transpose(1, 2).reshape(b, s, h * d))
+        with span("attn.forward"):
+            q, k, v = self.qkv(x).split([h * d, kvh * d, kvh * d], dim=-1)
+            q = q.reshape(b, s, h, d).transpose(1, 2)
+            k, v = (t.reshape(b, s, kvh, d).transpose(1, 2) for t in (k, v))
+            if self.rotary_dim:
+                cos, sin = rotary_angles(torch.arange(s, device=x.device), self.rotary_dim, self.rotary_base,
+                                         self.rope_scaling)
+                q = apply_rotary(q, cos, sin)
+                k = apply_rotary(k, cos, sin)
+            if kvh != h:
+                k = k.repeat_interleave(h // kvh, dim=1)
+                v = v.repeat_interleave(h // kvh, dim=1)
+            out = dot_product_attention(q, k, v, causal=self.causal, mask=mask, impl=self.attn_impl)
+            out = self.out(out.transpose(1, 2).reshape(b, s, h * d))
+        backward_span("attn.backward", out, x)
+        return out
 
 
 class Mlp(nn.Module):
     """up -> activation -> down, then ``dropout`` (drawn from the generator
     handed to ``forward``). The default is flax's ``nn.gelu``, the tanh
-    approximation, not the exact GELU."""
+    approximation, not the exact GELU. The forward runs in the span
+    ``mlp.forward`` and its backward in ``mlp.backward``."""
 
     def __init__(
         self,
@@ -234,12 +241,16 @@ class Mlp(nn.Module):
         self.down = Dense(intermediate, hidden, bias=use_bias, dtype=dtype, feeds_residual=True)
 
     def forward(self, x: torch.Tensor, generator: torch.Generator | None = None) -> torch.Tensor:
-        return dropout(self.down(self.activation(self.up(x))), self.dropout, generator)
+        with span("mlp.forward"):
+            out = dropout(self.down(self.activation(self.up(x))), self.dropout, generator)
+        backward_span("mlp.backward", out, x)
+        return out
 
 
 class GatedMlp(nn.Module):
     """SwiGLU (Llama-style): a fused bias-free gate+up projection laid out
-    [gate | up], then silu(gate) * up and the bias-free down projection."""
+    [gate | up], then silu(gate) * up and the bias-free down projection, in
+    the spans ``mlp.forward`` and ``mlp.backward``."""
 
     def __init__(self, hidden: int, intermediate: int, dtype: torch.dtype = torch.float32):
         super().__init__()
@@ -247,8 +258,11 @@ class GatedMlp(nn.Module):
         self.down = Dense(intermediate, hidden, bias=False, dtype=dtype, feeds_residual=True)
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        gate, up = self.gate_up(x).chunk(2, dim=-1)
-        return self.down(F.silu(gate) * up)
+        with span("mlp.forward"):
+            gate, up = self.gate_up(x).chunk(2, dim=-1)
+            out = self.down(F.silu(gate) * up)
+        backward_span("mlp.backward", out, x)
+        return out
 
 
 # ------------------------------------------------------------------ remat
@@ -331,7 +345,7 @@ class _Replay:
         self.span = None
 
     def __enter__(self):
-        self.span = span("remat.replay")
+        self.span = replay_span()
         self.span.__enter__()
         return self.inner.__enter__()
 

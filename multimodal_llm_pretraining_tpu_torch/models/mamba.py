@@ -39,6 +39,11 @@ of the conv and the gate, where mamba_ssm's setting of the same name selects
 the stream's alone (its kernels keep the conv and the gate in f32 either
 way). False exists for the tests that hold the port to the JAX package;
 they set it through ``RESIDUAL_IN_FP32``.
+
+``MambaMixer`` is the block without its norm and residual, the mixer that
+``models/jamba.py`` runs between its own norms: there the conv and the gate
+are always computed in f32 (``f32_conv_gate``) over a stream in the compute
+dtype, and the mixer has Jamba's inner norms over dt, B and C.
 """
 
 import math
@@ -52,6 +57,7 @@ from ..ops.causal_conv import causal_conv_silu
 from ..ops.gate import gate_silu
 from ..ops.selective_scan import causal_conv1d, selective_scan
 from ..ops.xent import lm_head_loss, matmul_f32
+from ..tracing import backward_span, span
 from . import LanguageModelClass, MambaT, ModelBundle, SchedulerType
 from .layers import Dense, RMSNorm, remat
 from .pythia import _lecun_normal_
@@ -68,14 +74,90 @@ LN_EPS = 1e-5
 RESIDUAL_IN_FP32 = True  # state-spaces/mamba-2.8b's config.json
 
 
-class MambaBlock(nn.Module):
-    """RMSNorm -> in_proj (u | z) -> causal conv + SiLU on u -> x_proj (dt |
-    B | C) -> dt_proj + softplus -> selective scan -> * SiLU(z) -> out_proj,
-    plus the residual. ``conv_weight`` keeps the JAX layout [d_conv, d_inner].
-    With ``residual_in_fp32`` the block takes and returns the residual
-    stream in f32, its own work in the compute dtype but for the conv with
-    its SiLU and the gate, each computed in f32 and rounded once (see
-    above); without, all of it is in the compute dtype."""
+class MambaMixer(nn.Module):
+    """The Mamba (S6) mixer: in_proj (u | z) -> causal conv + SiLU on u ->
+    x_proj (dt | B | C) -> dt_proj + softplus -> selective scan -> * SiLU(z)
+    -> out_proj, in the compute dtype. ``conv_weight`` keeps the JAX layout
+    [d_conv, d_inner].
+
+    - ``f32_conv_gate``: the conv with its SiLU and the gate are computed in
+      f32 and rounded once, as mamba_ssm's kernels compute them: the conv on
+      ``ops/causal_conv.py``'s op, which reads the strided half of
+      ``in_proj``'s output uncopied, and the gate on ``ops/gate.py``'s, which
+      reads z, the other half, where it lies (their kernel pairs on the card).
+      Without it both run in the compute dtype, as the JAX package runs them.
+    - ``inner_norm_eps``: Jamba's RMSNorms over dt, B and C between x_proj and
+      dt_proj / the scan (``dt_layernorm``, ``b_layernorm``, ``c_layernorm``),
+      each computing as ``layers.RMSNorm``; None leaves them out, as Mamba
+      has none. B and C reach the scan as the norms' new tensors.
+
+    The mixer runs in the span ``mamba.forward`` and its backward in
+    ``mamba.backward`` (``tracing.py``)."""
+
+    def __init__(
+        self,
+        d_model: int = D_MODEL,
+        d_inner: int = D_INNER,
+        d_state: int = D_STATE,
+        d_conv: int = D_CONV,
+        dt_rank: int = DT_RANK,
+        use_custom_kernels: bool = True,
+        dtype: torch.dtype = torch.float32,
+        f32_conv_gate: bool = True,
+        inner_norm_eps: float | None = None,
+    ):
+        super().__init__()
+        self._build(d_model, d_inner, d_state, d_conv, dt_rank, use_custom_kernels, dtype, f32_conv_gate,
+                    inner_norm_eps)
+
+    def _build(self, d_model, d_inner, d_state, d_conv, dt_rank, use_custom_kernels, dtype, f32_conv_gate,
+               inner_norm_eps) -> None:
+        """Register the mixer's modules and parameters, in leaf order."""
+        self.d_inner, self.d_state, self.dt_rank = d_inner, d_state, dt_rank
+        self.f32_conv_gate = f32_conv_gate
+        self.use_custom_kernels = use_custom_kernels
+        self.compute_dtype = dtype
+        self.in_proj = Dense(d_model, 2 * d_inner, bias=False, dtype=dtype)
+        self.conv_weight = nn.Parameter(torch.empty(d_conv, d_inner))
+        self.conv_bias = nn.Parameter(torch.empty(d_inner))
+        self.x_proj = Dense(d_inner, dt_rank + 2 * d_state, bias=False, dtype=dtype)
+        self.dt_proj = Dense(dt_rank, d_inner, dtype=dtype)
+        self.A_log = nn.Parameter(torch.empty(d_inner, d_state))
+        self.D = nn.Parameter(torch.empty(d_inner))
+        self.out_proj = Dense(d_inner, d_model, bias=False, dtype=dtype)
+        self.inner_norms = inner_norm_eps is not None
+        if self.inner_norms:
+            self.dt_layernorm = RMSNorm(dt_rank, eps=inner_norm_eps, dtype=dtype)
+            self.b_layernorm = RMSNorm(d_state, eps=inner_norm_eps, dtype=dtype)
+            self.c_layernorm = RMSNorm(d_state, eps=inner_norm_eps, dtype=dtype)
+
+    def forward(self, h: torch.Tensor) -> torch.Tensor:
+        """The mixer's output [B, L, d_model] from the normalised h."""
+        cdt = self.compute_dtype
+        with span("mamba.forward"):
+            u, z = self.in_proj(h).chunk(2, dim=-1)
+            if self.f32_conv_gate:
+                u = causal_conv_silu(u, self.conv_weight, self.conv_bias)
+            else:
+                u = F.silu(causal_conv1d(u, self.conv_weight.to(cdt), self.conv_bias.to(cdt)))
+            dt, B, C = self.x_proj(u).split([self.dt_rank, self.d_state, self.d_state], dim=-1)
+            if self.inner_norms:
+                dt, B, C = self.dt_layernorm(dt), self.b_layernorm(B), self.c_layernorm(C)
+            delta = F.softplus(self.dt_proj(dt))
+            A = -torch.exp(self.A_log)
+            y = selective_scan(u, delta, A, B, C, self.D, use_custom_kernels=self.use_custom_kernels)
+            out = self.out_proj(gate_silu(y, z) if self.f32_conv_gate else y * F.silu(z))
+        backward_span("mamba.backward", out, h)
+        return out
+
+
+class MambaBlock(MambaMixer):
+    """RMSNorm -> the mixer, plus the residual. With ``residual_in_fp32``
+    the block takes and returns the residual stream in f32, its own work in
+    the compute dtype but for the conv with its SiLU and the gate, each
+    computed in f32 and rounded once (see above); without, all of it is in
+    the compute dtype. The norm is registered ahead of the mixer's leaves,
+    the order the optimizer's global norm sums them in."""
 
     def __init__(
         self,
@@ -89,41 +171,18 @@ class MambaBlock(nn.Module):
         dtype: torch.dtype = torch.float32,
         residual_in_fp32: bool = True,
     ):
-        super().__init__()
-        self.d_inner, self.d_state, self.dt_rank = d_inner, d_state, dt_rank
-        self.residual_in_fp32 = residual_in_fp32
-        self.use_custom_kernels = use_custom_kernels
-        self.compute_dtype = dtype
+        nn.Module.__init__(self)
         self.norm = RMSNorm(d_model, eps=eps, dtype=dtype)
-        self.in_proj = Dense(d_model, 2 * d_inner, bias=False, dtype=dtype)
-        self.conv_weight = nn.Parameter(torch.empty(d_conv, d_inner))
-        self.conv_bias = nn.Parameter(torch.empty(d_inner))
-        self.x_proj = Dense(d_inner, dt_rank + 2 * d_state, bias=False, dtype=dtype)
-        self.dt_proj = Dense(dt_rank, d_inner, dtype=dtype)
-        self.A_log = nn.Parameter(torch.empty(d_inner, d_state))
-        self.D = nn.Parameter(torch.empty(d_inner))
-        self.out_proj = Dense(d_inner, d_model, bias=False, dtype=dtype)
+        self._build(d_model, d_inner, d_state, d_conv, dt_rank, use_custom_kernels, dtype, residual_in_fp32, None)
+        self.residual_in_fp32 = residual_in_fp32
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
-        cdt = self.compute_dtype
         if self.residual_in_fp32:
             # x comes back as the add's operand, so that its gradient reaches the norm's backward
             h, x = self.norm(x.float(), residual=True)
         else:
             h = self.norm(x)
-        u, z = self.in_proj(h).chunk(2, dim=-1)
-        if self.residual_in_fp32:
-            # the strided half of in_proj's output, uncopied: the kernel pair on the card
-            u = causal_conv_silu(u, self.conv_weight, self.conv_bias)
-        else:
-            u = F.silu(causal_conv1d(u, self.conv_weight.to(cdt), self.conv_bias.to(cdt)))
-        dt, B, C = self.x_proj(u).split([self.dt_rank, self.d_state, self.d_state], dim=-1)
-        delta = F.softplus(self.dt_proj(dt))
-        A = -torch.exp(self.A_log)
-        y = selective_scan(u, delta, A, B, C, self.D, use_custom_kernels=self.use_custom_kernels)
-        # the published gate reads z where it lies, too: its kernel pair on the card
-        gated = gate_silu(y, z) if self.residual_in_fp32 else y * F.silu(z)
-        return x + self.out_proj(gated)
+        return x + super().forward(h)
 
 
 class MambaLM(nn.Module):

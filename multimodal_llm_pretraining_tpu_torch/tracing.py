@@ -19,13 +19,33 @@ The spans the port records:
 - ``scan.forward``, ``scan.backward``: the selective scan, its forward in
   a block's replay included (``ops/selective_scan.py``), and the kernels'
   backward with its f32 epilogue (``ops/selective_scan_fused.py``);
+- ``attn.forward``, ``attn.backward``: a ``SelfAttention``, its
+  projections included (``models/layers.py``);
+- ``mlp.forward``, ``mlp.backward``: an ``Mlp`` or a ``GatedMlp``
+  (``models/layers.py``);
+- ``mamba.forward``, ``mamba.backward``: a Mamba mixer, ``in_proj``
+  through ``out_proj``, with the scan's spans inside (``models/mamba.py``);
 - ``ipot``: ViLT's optimal-transport iterations (``models/vilt.py``).
+
+Under remat a block's forward spans fire again inside its
+``remat.replay``, and the replay itself runs inside the backward span of
+the first region whose backward reads a recomputed tensor.
 """
 
 import contextlib
+import threading
 
 import torch
 import torch.autograd.profiler as _autograd_profiler
+
+
+class _Replaying(threading.local):
+    """How many block recomputes this thread is inside (``replay_span``)."""
+
+    depth = 0
+
+
+_REPLAYING = _Replaying()
 
 
 def profiling() -> bool:
@@ -39,13 +59,27 @@ def span(name: str):
     return torch.profiler.record_function(name) if profiling() else contextlib.nullcontext()
 
 
+@contextlib.contextmanager
+def replay_span():
+    """The span ``remat.replay`` around one block's recompute in the
+    backward (``models/layers.py`` ``remat``). Inside it ``backward_span``
+    registers nothing: the recompute's tensors only fill what the first
+    pass's graph saved, and no gradient flows through them."""
+    _REPLAYING.depth += 1
+    try:
+        with span("remat.replay"):
+            yield
+    finally:
+        _REPLAYING.depth -= 1
+
+
 def backward_span(name: str, out: torch.Tensor, inp: torch.Tensor) -> None:
     """Span ``name`` over the backward of the region that computed ``out``
     from ``inp``: a hook on ``out``'s gradient opens it, one on ``inp``'s
     closes it, both on the thread autograd runs the backward on. Only while
-    a profiler is recording, and only where both need a gradient; otherwise
-    nothing is registered."""
-    if not (profiling() and out.requires_grad and inp.requires_grad):
+    a profiler is recording, outside a block's recompute, and only where
+    both need a gradient; otherwise nothing is registered."""
+    if not (profiling() and not _REPLAYING.depth and out.requires_grad and inp.requires_grad):
         return
     opened = []
 

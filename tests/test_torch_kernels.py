@@ -59,12 +59,19 @@ around both kernels' 80-channel tiles and not a multiple of 8.
 Batches above 65,535 launch in chunks, one launch counted each. The fused
 backward at head dim 256 takes any scale (0.07, and 200^-0.5 at D=200
 padded to 256).
+
+Jamba: its Mamba mixer (inner dt/B/C norms, the conv and the gate in f32)
+at [2, 4096, 5120] on the kernels against the same mixer's plain path on the
+card, MQA attention (20 query heads of 128, one KV head repeated) on flash
+against the plain versions, and a full-width micro-batch of one Mamba and
+one attention layer counting its launches.
 """
 
 import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 
 from multimodal_llm_pretraining_tpu_torch.ops import flash_attention as fa
 from multimodal_llm_pretraining_tpu_torch.ops import selective_scan_fused as ssf
@@ -1605,5 +1612,139 @@ def test_mamba_micro_batch_runs_its_gate_on_the_kernels(monkeypatch):
     assert sum("gate_silu_fwd_kernel" in k for k in kernels) and sum("gate_silu_bwd_kernel" in k for k in kernels)
     assert not [k for k in kernels if "silu" in k.lower() and "gate_silu" not in k], kernels
     assert 10.0 < float(loss) < 12.0
+    del sess, state
+    torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- Jamba on the card
+
+
+def _plain_rmsnorm(x, weight, eps, dtype, residual=False):
+    """``layers.RMSNorm``'s plain math, on any device."""
+    xf = x.float()
+    y = (xf * (torch.rsqrt(xf.square().mean(-1, keepdim=True) + eps) * weight.float())).to(dtype)
+    return (y, x) if residual else y
+
+
+@pytest.mark.cuda
+def test_jamba_mamba_mixer_runs_on_the_kernels_as_its_plain_path(monkeypatch):
+    """Jamba's Mamba mixer (inner dt/B/C norms, the conv and the gate in
+    f32) at [2, 4096, 5120], d_state 16, bf16 compute and bf16 parameters,
+    as ``bf16_sr`` holds them: on the kernels (one launch each of the scan,
+    conv and gate pairs, three norm forwards and backwards) against the same
+    mixer on its plain path on the card (the plain chunked scan, the conv's
+    and the gate's f32 compositions, the norms' plain math). Both round the
+    same bf16 operands and differ in summation order and in where the scan's
+    y and the products' bf16 results land: the output and every gradient
+    within 1e-2 of its norm."""
+    from multimodal_llm_pretraining_tpu_torch.models import mamba as tmamba
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv, gate, rmsnorm
+    from multimodal_llm_pretraining_tpu_torch.ops.selective_scan import causal_conv1d
+
+    _needs_cuda()
+    torch.manual_seed(0)
+    mixer = tmamba.MambaMixer(2560, 5120, 16, 4, 160, use_custom_kernels=True, dtype=torch.bfloat16,
+                              f32_conv_gate=True, inner_norm_eps=1e-6).cuda()
+    with torch.no_grad():
+        for name, p in mixer.named_parameters():
+            if name == "A_log":
+                p.copy_(torch.log(torch.arange(1, 17.0)).expand_as(p))
+            elif name.endswith("norm.weight") or name == "D":
+                p.fill_(1.0)
+            elif name.endswith("bias"):
+                p.zero_()
+            else:
+                p.normal_(0.0, 0.02)
+    mixer.to(torch.bfloat16)
+    h = _rand(2, 4096, 2560, seed=1)
+    dout = _rand(2, 4096, 2560, seed=2)
+
+    def run():
+        mixer.zero_grad(set_to_none=True)
+        x = h.clone().requires_grad_()
+        out = mixer(x)
+        out.backward(dout)
+        return [out.detach(), x.grad] + [p.grad for p in mixer.parameters()]
+
+    for mod in (ssf, causal_conv, gate, rmsnorm):
+        mod.reset_launch_counts()
+    got = run()
+    launches = (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES, causal_conv.CONV_FWD_LAUNCHES, causal_conv.CONV_BWD_LAUNCHES,
+                gate.GATE_FWD_LAUNCHES, gate.GATE_BWD_LAUNCHES, rmsnorm.RMSNORM_FWD_LAUNCHES,
+                rmsnorm.RMSNORM_BWD_LAUNCHES)
+    assert launches == (1, 1, 1, 1, 1, 1, 3, 3)
+    monkeypatch.setattr(tmamba, "causal_conv_silu",
+                        lambda u, w, b: F.silu(causal_conv1d(u.float(), w.float(), b.float())).to(u.dtype))
+    monkeypatch.setattr(tmamba, "gate_silu", lambda y, z: (y.float() * F.silu(z.float())).to(y.dtype))
+    monkeypatch.setattr(rmsnorm, "rmsnorm", _plain_rmsnorm)
+    mixer.use_custom_kernels = False
+    want = run()
+    names = ["out", "dh"] + [n for n, _ in mixer.named_parameters()]
+    errs = {n: float((a.float() - b.float()).norm() / b.float().norm()) for n, a, b in zip(names, got, want)}
+    assert all(e <= NORM_REL for e in errs.values()), errs
+
+
+@pytest.mark.cuda
+def test_mqa_attention_at_20_to_1_heads_of_128_on_flash():
+    """Jamba's attention: 20 query heads of 128 and one KV head repeated for
+    each, causal, at 4096 positions, through ``SelfAttention``'s path onto
+    the flash kernels (D=128, scale 128^-0.5), against ``flash_fwd_reference``
+    on the same repeated heads: out within 1e-2 of its norm, lse within
+    1e-3. Backward through the repeat: dq, and dk and dv summed over the 20
+    heads, within 1e-2 of the plain backward's."""
+    _needs_cuda()
+    b, h, s, d = 2, 20, 4096, 128
+    q = _rand(b, h, s, d, seed=3)
+    k1, v1 = _rand(b, 1, s, d, seed=4), _rand(b, 1, s, d, seed=5)
+    scale = d**-0.5
+    qq, kk, vv = (t.clone().requires_grad_() for t in (q, k1, v1))
+    out = fa.flash_attention(qq, kk.repeat_interleave(h, 1), vv.repeat_interleave(h, 1), causal=True, sm_scale=scale)
+    dout = _rand(b, h, s, d, seed=6)
+    out.backward(dout)
+    flat = [t.reshape(b * h, s, d) for t in (q, k1.repeat_interleave(h, 1), v1.repeat_interleave(h, 1))]
+    want, lse = fa.flash_fwd_reference(*flat, True, scale)
+    _close(out.reshape(b * h, s, d), want)
+    got_lse = fa.flash_fwd_cuda(*flat, True, scale)[1]
+    assert (got_lse - lse).abs().max() <= LSE_ABS
+    dq, dk, dv = fa.flash_bwd_reference(*flat, want, lse, dout.reshape(b * h, s, d), True, scale)
+    _close(qq.grad.reshape(b * h, s, d), dq)
+    _close(kk.grad, dk.float().reshape(b, h, s, d).sum(1, keepdim=True))
+    _close(vv.grad, dv.float().reshape(b, h, s, d).sum(1, keepdim=True))
+
+
+@pytest.mark.cuda
+def test_jamba_micro_batch_runs_on_the_kernels(monkeypatch):
+    """A Jamba micro-batch at full width and sequence (one row of 16,384
+    tokens), narrowed to one Mamba and one attention layer, under
+    whole-layer remat in ``bf16_sr``: the scan, conv and gate pairs and the
+    flash kernels each launch twice forward (the replay runs them again) and
+    once backward; the norm kernels launch 15 times forward (each layer's
+    two stream norms and the Mamba layer's three inner norms, twice, and the
+    final norm) and 8 backward; and the first loss sits near log(65536)."""
+    from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+    from multimodal_llm_pretraining_tpu_torch.models import jamba as tjamba
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv, gate, rmsnorm
+    from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
+
+    _needs_cuda()
+    for name, value in (("N_LAYER", 2), ("ATTN_LAYER_PERIOD", 2), ("ATTN_LAYER_OFFSET", 1)):
+        monkeypatch.setattr(tjamba, name, value)
+    mc = get_model_class("jamba2-3b")
+    sess = make_plan(mc, 1, 1, True, "bf16_sr").build_session(mc, device="cuda")
+    state = sess.init_state()
+    batch = {k: v[0] for k, v in sess.make_train_batch(seed=0).items()}
+    accumulate = sess.accumulate_fn()
+    accumulate(state, batch)
+    torch.cuda.synchronize()
+    for mod in (ssf, causal_conv, gate, fa, rmsnorm):
+        mod.reset_launch_counts()
+    loss = accumulate(state, batch)
+    torch.cuda.synchronize()
+    assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES) == (2, 1)
+    assert (rmsnorm.RMSNORM_FWD_LAUNCHES, rmsnorm.RMSNORM_BWD_LAUNCHES) == (15, 8)
+    assert (causal_conv.CONV_FWD_LAUNCHES, causal_conv.CONV_BWD_LAUNCHES) == (2, 1)
+    assert (gate.GATE_FWD_LAUNCHES, gate.GATE_BWD_LAUNCHES) == (2, 1)
+    assert fa.FWD_LAUNCHES == 2 and fa.BWD_LAUNCHES + fa.DQ_LAUNCHES == 1
+    assert 10.5 < float(loss) < 12.5
     del sess, state
     torch.cuda.empty_cache()

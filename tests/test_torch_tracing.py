@@ -1,8 +1,9 @@
 """The port's spans (``tracing.py``) under ``torch.profiler`` on the CPU: a
 tiny pythia (2 layers of 64, the port's plain kernels, f32) trained one
 micro-batch at a time through the session, with no remat and under the
-"flash" and "dots" policies, and a tiny mamba under its whole-block remat,
-whose selective scan has spans of its own.
+"flash" and "dots" policies, a tiny mamba under its whole-block remat,
+whose selective scan has spans of its own, and a tiny Jamba, whose
+attention, Mamba mixers and MLPs each have theirs.
 
 Each span appears as often as the micro-batch has such regions, and holds
 the ops it names: the loss's backward inside ``xent.backward`` and the
@@ -173,14 +174,15 @@ def _accumulate(sess, state, batch, profiled, monkeypatch, tmp_path):
 def test_no_profiler_no_hooks_same_graph_same_bits(remat, tiny_pythia, monkeypatch, tmp_path):
     """With no profiler recording, the spans register no hook and hand
     ``checkpoint`` the block and the policy's context as they are; under
-    the profiler the loss's two hooks and the replay's context are the only
-    additions. The graph is the same node for node, and loss and every
-    gradient are bit-identical."""
+    the profiler the hooks of the loss's backward span and of each block's
+    ``attn.backward`` and ``mlp.backward`` (two a span, none in a replay),
+    and the replay's context, are the only additions. The graph is the same
+    node for node, and loss and every gradient are bit-identical."""
     sess, state = tiny_pythia(remat)
     batch = _batch()
     plain = _accumulate(sess, state, batch, False, monkeypatch, tmp_path)
     traced = _accumulate(sess, state, batch, True, monkeypatch, tmp_path)
-    assert plain[2]["hooks"] == 0 and traced[2]["hooks"] == 2
+    assert plain[2]["hooks"] == 0 and traced[2]["hooks"] == 2 + 2 * 2 * len(sess.module.layers)
     assert len(plain[2]["checkpoint"]) == len(traced[2]["checkpoint"]) == (0 if remat is None else 2)
     for (fn, ctx), block in zip(plain[2]["checkpoint"], sess.module.layers):
         assert fn is block and ctx.func is tlayers.create_selective_checkpoint_contexts
@@ -278,3 +280,57 @@ def test_span_is_a_no_op_without_a_profiler(monkeypatch, tmp_path):
     assert torch.equal(x.grad, torch.full((3,), 3.0))
     assert len(_spans(events, "x.backward")) == 1
     assert all(_inside(ts, _spans(events, "x.backward")) for ts in _starts(events, "MulBackward0"))
+
+
+def _tiny_jamba(remat: bool):
+    from multimodal_llm_pretraining_tpu_torch.models.jamba import JambaLM
+
+    model = JambaLM(32, 4, 64, 16, 4, 4, 2, 1, 16, 64, 64, 4, 1, remat=remat)
+    model.reset_parameters(torch.Generator().manual_seed(0))
+    return model
+
+
+@pytest.mark.parametrize("remat", [False, True])
+def test_layer_spans_of_a_hybrid(remat, monkeypatch, tmp_path):
+    """A tiny Jamba (layer 1 attention, layers 0, 2 and 3 Mamba, each with
+    its SwiGLU MLP) under the profiler: ``attn.forward``, ``mamba.forward``
+    and ``mlp.forward`` once a call, again in each layer's replay under
+    remat; their backward spans once a call, each holding the backward of
+    its own ops (the flash backward in ``attn.backward``, the scan's in
+    ``mamba.backward``), the scan's spans inside the mixer's. Without a
+    profiler no hook is registered, and loss and gradients equal a profiled
+    run's bit for bit."""
+    ids = torch.randint(0, 64, (2, 24), generator=torch.Generator().manual_seed(2))
+    hooks = []
+    register_hook = torch.Tensor.register_hook
+    monkeypatch.setattr(torch.Tensor, "register_hook", lambda self, hook: hooks.append(hook) or register_hook(self, hook))
+    runs = []
+    for profiled in (False, True):
+        model = _tiny_jamba(remat)
+        hooks.clear()
+
+        def step():
+            loss = model(ids, labels=ids)
+            loss.backward()
+            runs.append((loss.detach(), {n: p.grad for n, p in model.named_parameters()}))
+
+        if profiled:
+            events = _traced(step, tmp_path)
+            assert len(hooks) == 2 + 2 * (1 + 3 + 4)
+        else:
+            step()
+            assert hooks == []
+    (loss, grads), (loss_p, grads_p) = runs
+    assert torch.equal(loss, loss_p) and all(torch.equal(grads[n], grads_p[n]) for n in grads)
+    counts = collections.Counter(e["name"] for e in events if e.get("cat") == "user_annotation")
+    again = 2 if remat else 1
+    assert {n: counts[n] for n in ("attn.forward", "mamba.forward", "mlp.forward", "remat.replay")} == {
+        "attn.forward": again, "mamba.forward": 3 * again, "mlp.forward": 4 * again, "remat.replay": 4 if remat else 0}
+    assert {n: counts[n] for n in ("attn.backward", "mamba.backward", "mlp.backward")} == {
+        "attn.backward": 1, "mamba.backward": 3, "mlp.backward": 4}
+    ab, mb = _spans(events, "attn.backward"), _spans(events, "mamba.backward")
+    flash_bwd, scan_bwd = _starts(events, "mlpt::flash_bwd"), _starts(events, "mlpt::scan_bwd")
+    assert len(flash_bwd) == 1 and all(_inside(ts, ab) for ts in flash_bwd)
+    assert len(scan_bwd) == 3 and all(_inside(ts, mb) for ts in scan_bwd)
+    assert all(_inside(t0, _spans(events, "mamba.forward")) for t0, _ in _spans(events, "scan.forward"))
+    assert all(_inside(t0, mb) for t0, _ in _spans(events, "scan.backward"))
