@@ -19,7 +19,8 @@ failure exits non-zero:
 8. pythia-1b main path: the training step at full size, every attention call on the kernels.
 9. scan kernels at mamba-2.8b's [2, 4096, 5120] bf16, d_state 16.
 10. scan slice: a 2-layer narrow Mamba in f32 against the plain chunked scan.
-11. mamba-2.8b main path under block remat: every scan, norm, conv and gate call on the kernels.
+11. mamba-2.8b main path under block remat: every scan, norm, conv and gate call on the kernels, every
+    scan backward in its skip mode.
 12. flash kernels at the llava decoder's [16, 32, 1087, 64] (varlen mode) and the tower's [16, 16, 577, 64].
 13. llava slice: a 2-layer narrow LLaVA on a right-padded batch.
 14. llava-pretrain main path: frozen leaves bit for bit, the projector moving.
@@ -112,6 +113,7 @@ VIT_LOSS_BAND = (10.19, 10.79)
 TOL_NORM_REL = 1e-2
 TOL_SCAN_Y_BF16 = 4e-3
 TOL_SCAN_GRAD = 1e-3
+TOL_SCAN_DD = 1e-6  # dD's f32 summation order, of its largest value
 TOL_F32 = 1e-5
 TOL_BF16 = 4e-3
 TOL_XENT_LSE_ABS = 1e-4  # the loss's lse and each row's nll, absolute (f32)
@@ -597,11 +599,18 @@ def phase_gate() -> list[dict]:
 
 
 def phase_scan_kernels() -> list[dict]:
-    """Both scan kernels at mamba's shape in bf16, the forward with D (the
-    skip and the cast in its epilogue, as ``selective_scan_fused`` runs it):
-    against their plain versions, then timed beside their bounds
-    (``time_scan.scan_bounds``) and their plain versions."""
+    """Both scan kernels at mamba's shape in bf16 with D, as the autograd
+    rule runs them: the forward with the skip and the cast in its epilogue,
+    the backward in its skip mode (bf16 dy in; du and ddelta out in bf16
+    with the skip's D * dy; dD). The forward and the backward's f32 mode
+    against their plain versions; the skip mode's du, ddelta, dA, dB and dC
+    bit for bit the f32 mode followed by the PyTorch epilogue it replaced
+    (``skip_bwd``), dD within ``TOL_SCAN_DD`` of its largest value. Then
+    each timed beside its bound (``time_scan.scan_bounds``), the forward
+    beside its plain version and the skip mode beside the f32 mode and its
+    epilogue."""
     u, delta, A, B, C, D, dy = scan_inputs(*SCAN_SHAPE, 16, torch.bfloat16, seed=12)
+    dy = dy.to(torch.bfloat16)
     y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
     y_ref, ckpt_ref = ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)
     grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt_ref)
@@ -610,13 +619,27 @@ def phase_scan_kernels() -> list[dict]:
     what = f"{list(SCAN_SHAPE)} N16 bf16"
     errs = held("[scan]", what, {"y+skip": (y, y_ref), "ckpt": (ckpt, ckpt_ref), **dict(zip(names, zip(grads, grads_ref)))},
                 {"y+skip": TOL_SCAN_Y_BF16} | dict.fromkeys(("ckpt", *names), TOL_SCAN_GRAD))
+    del grads, grads_ref
+
+    def unfused():
+        return ssf.skip_bwd(*ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt), u, delta, D, dy)
+
+    fused = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt, D)
+    old = unfused()
+    differ = [n for n, a, b in zip(names, fused, old) if not (a.dtype == b.dtype and torch.equal(a, b))]
+    dD_gap = ((fused[5] - old[5]).abs().max() / old[5].abs().max()).item()
+    say(f"[scan] skip mode vs the f32 mode and its epilogue at {what}: {', '.join(names)} "
+        f"{'bit for bit' if not differ else 'differ in ' + ', '.join(differ)}; dD {dD_gap:.3e} of its largest value")
+    if differ or not dD_gap <= TOL_SCAN_DD:
+        raise AssertionError(f"[scan] skip mode: {differ} not bit for bit, dD gap {dD_gap:.3e}")
+    del old
     t = {
         "fwd": ms_per_call(lambda: ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)),
         "fwd_plain": ms_per_call(lambda: ssf.selective_scan_fwd_reference(u, delta, A, B, C, D)),
-        "bwd": ms_per_call(lambda: ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)),
-        "bwd_plain": ms_per_call(lambda: ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt)),
+        "bwd": ms_per_call(lambda: ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt, D)),
+        "bwd_plain": ms_per_call(unfused),
     }
-    bounds = scan_bounds(u, delta, A, B, C, D, dy, y, ckpt, grads)
+    bounds = scan_bounds(u, delta, A, B, C, D, dy, y, ckpt, fused)
     say_times("[scan]", what, t, bounds, {})
     return [kernel_entry("scan_fwd", SCAN_SOURCE, f"{JAX_SCAN}:47", errs["y+skip"][0], t["fwd"], t["fwd_plain"],
                          bounds["fwd"], None),
@@ -894,12 +917,14 @@ def phase_mamba_main_path() -> dict:
     """mamba-2.8b at full width and depth with block remat: every scan, norm,
     conv and gate call on the kernels, the forward twice per block and micro-batch
     (the remat recompute runs it again) and the backward once."""
-    run = drive_training("mamba", mbs=2, acc=2, remat=True, counters=ssf, loss_band=TEXT_LOSS_BAND)
+    run = drive_training("mamba", mbs=2, acc=2, remat=True, counters=ssf, loss_band=TEXT_LOSS_BAND,
+                         names=("FWD_LAUNCHES", "BWD_LAUNCHES", "BWD_SKIP_LAUNCHES"))
     run["launches"] = tuple(run["launches"].values())
     micro_batches = sum(run["micro_batches"].values())
     calls = len(run["module"].layers) * micro_batches
-    if run["launches"] != (2 * calls, calls):
-        raise AssertionError(f"scan launches {run['launches']}, expected ({2 * calls}, {calls})")
+    # every backward launch folds the D skip
+    if run["launches"] != (2 * calls, calls, calls):
+        raise AssertionError(f"scan launches {run['launches']}, expected ({2 * calls}, {calls}, {calls})")
     # each block's norm forward twice (its replay), backward once, and the final norm's once each
     norms = {"rmsnorm_fwd": 2 * calls + micro_batches, "rmsnorm_bwd": calls + micro_batches}
     if run["rmsnorm"] != norms:

@@ -8,8 +8,8 @@
 //   da_t = exp(delta_t[i] * A[i, n]),   h_t = da_t * h_{t-1} + (delta_t[i] * u_t[i]) * B_t[n]
 //   y_t[i] = sum_n C_t[n] * h_t[n]                                   (before the D skip)
 // Layout: u, delta [B, L, I] and B, C [B, L, N] row-major, bf16 or f32 (one dtype
-// for the four); A f32 [I, N]; D f32 [I]; dy, du, ddelta f32 [B, L, I]. The
-// state checkpoint is f32 [B, ceil(L / 256), N, I]: the state entering each
+// for the four); A f32 [I, N]; D f32 [I]; dy, du, ddelta [B, L, I] in u's dtype
+// with D (the backward's skip mode), else f32. The state checkpoint is f32 [B, ceil(L / 256), N, I]: the state entering each
 // 256-step chunk, as the TPU kernel's with_checkpoints output. Both kernels
 // take N = 16 states a launch, I a multiple of 8 (their tensor maps need rows
 // of whole 16 bytes) and at most 65,535 batch elements (the grid's y); the
@@ -74,10 +74,12 @@
 // ring's depth, y buffers; PERF.md).
 //
 // The backward, scan_bwd_kernel. It reads u, delta, dy, B, C and the
-// checkpoint and writes du, ddelta and the dA, dB, dC partials; its bound at
-// mamba-2.8b's [2, 4096, 5120] bf16 is its bytes, 684 MB over 3.35 TB/s =
-// 0.204 ms. The states are recomputed from the checkpoint in two levels, as
-// the TPU kernel does with hmid: pass 1 runs a 256-step chunk forward and
+// checkpoint and writes du, ddelta and the dA, dB, dC partials (and with D
+// the dD partials, see the last point below). Its bytes at mamba-2.8b's
+// [2, 4096, 5120] bf16 are 684 MB with an f32 dy, du and ddelta (0.204 ms at
+// 3.35 TB/s) and 432 MB in the skip mode (0.129 ms). The states are
+// recomputed from the checkpoint in two levels, as the TPU kernel does with
+// hmid: pass 1 runs a 256-step chunk forward and
 // keeps each 8-step group's entry state in shared memory; pass 2 walks the
 // groups backwards, recomputes the group's 8 states into registers and walks
 // them back accumulating every cotangent. Each state-step thus takes 2 exps,
@@ -120,13 +122,26 @@
 //   however it is tiled; 40-channel tiles, two blocks an SM, were 5% slower
 //   in the same run (twice the partials; PERF.md).
 // * Registers and shared memory (ptxas -v): 146 registers (bf16) and 156
-//   (f32) of the 168 __launch_bounds__(384, 1) allows, 0 bytes of spills;
-//   the walk back keeps the group's 8 states and 8 decays for its 4 chains
-//   (64 floats). Shared memory 227,552 bytes (bf16, 4 stages) or 222,400
-//   (f32, 2 stages) of the 232,448 a block may use.
+//   (f32) of the 168 __launch_bounds__(384, 1) allows, 158 each in the skip
+//   mode below, 0 bytes of spills; the walk back keeps the group's 8 states
+//   and 8 decays for its 4 chains (64 floats). Shared memory (BwdLayout's
+//   launch_bytes) 217,312 bytes (bf16, 4 stages), 212,192 in the skip mode
+//   (a bf16 dy), or 212,160 (f32, 2 stages) of the 232,448 a block may use.
 // * No float atomics: du and ddelta belong to one block; dA is one partial
 //   per batch element ([B, N, I]) and dB, dC one per tile, all summed in a
 //   fixed order, so a second run repeats the first bit for bit.
+// * The D skip in its epilogue (template argument SKIP, D given). y = scan +
+//   D * u adds D * dy to du and carries dD = sum dy * u. dy comes in u's
+//   dtype (a bf16 dy halves the ring's dy box; the consumers widen it); the
+//   lane that ends with du adds __fmul_rn(D, dy) by __fadd_rn, the f32
+//   expression of the plain skip; every lane of a channel sums dy * u (each
+//   product rounded, as the plain sum's terms are) over a group's 8 steps and
+//   adds the group's sum to the block's by a compensated (Kahan) add, lane 0
+//   writing one dD partial per batch element, [B, I]; the storer rounds du
+//   and ddelta once to their dtype and writes 8-byte (bf16) or 16-byte rows.
+//   Those were five f32 passes of the wrapper over [B, L, I] (about 2.5 GB a
+//   call at [2, 4096, 5120]). Without D, dy, du and ddelta are f32: the
+//   grouped launches of a d_state above 16 sum du and ddelta over the groups.
 
 #include <type_traits>
 
@@ -249,6 +264,14 @@ __device__ __forceinline__ float reduce_scatter(float (&p)[N], int q) {
 
 __device__ __forceinline__ void store_y(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store_y(bf16* p, float v) { *p = __float2bfloat16_rn(v); }
+
+// Four consecutive values to global memory in p's type, each rounded once.
+__device__ __forceinline__ void store4(float* p, float4 v) { *reinterpret_cast<float4*>(p) = v; }
+__device__ __forceinline__ void store4(bf16* p, float4 v) {
+  const __nv_bfloat162 lo = __floats2bfloat162_rn(v.x, v.y), hi = __floats2bfloat162_rn(v.z, v.w);
+  *reinterpret_cast<uint2*>(p) =
+      make_uint2(*reinterpret_cast<const uint32_t*>(&lo), *reinterpret_cast<const uint32_t*>(&hi));
+}
 
 template <typename T, bool SKIP>
 __global__ void __launch_bounds__(FW_THREADS, 1)
@@ -449,12 +472,14 @@ constexpr int BW_GROUPS = CHUNK / BW_G;
 static_assert(BW_CONSUMERS % 32 == 0 && BW_SPT == 4, "whole warps, 4 states a thread");
 static_assert(2 * BW_G * BW_CH % (4 * BW_CONSUMERS) == 0 && BW_CH % 8 == 0, "whole float4s of du, ddelta a thread");
 
-// Shared memory of the backward block, in bytes from a 128-byte aligned base.
-template <typename T>
+// Shared memory of the backward block, in bytes from a 128-byte aligned base;
+// DYT is dy's type (T with the D skip, f32 without).
+template <typename T, bool SKIP>
 struct BwdLayout {
+  using DYT = std::conditional_t<SKIP, T, float>;
   static constexpr int STAGES = sizeof(T) == 2 ? 4 : 2;
   static constexpr int CHAN = BW_G * BW_CH * (int)sizeof(T);  // one group of delta (or u)
-  static constexpr int DY = BW_G * BW_CH * 4;                 // one group of dy (f32)
+  static constexpr int DY = BW_G * BW_CH * (int)sizeof(DYT);  // one group of dy
   static constexpr int ST = BW_G * NS * (int)sizeof(T);       // one group of B (or C)
   static constexpr int s_delta = 0, s_u = CHAN, s_dy = 2 * CHAN, s_B = s_dy + DY, s_C = s_B + ST;
   static constexpr int STAGE = s_C + ST;
@@ -486,15 +511,18 @@ __device__ __forceinline__ Item item_at(int j, int n_chunks, int last_groups) {
 }
 
 
-template <typename T>
+template <typename T, bool SKIP>
 __global__ void __launch_bounds__(BW_THREADS, 1)
     scan_bwd_kernel(const __grid_constant__ CUtensorMap tm_u, const __grid_constant__ CUtensorMap tm_delta,
                     const __grid_constant__ CUtensorMap tm_dy, const __grid_constant__ CUtensorMap tm_B,
                     const __grid_constant__ CUtensorMap tm_C, const float* __restrict__ A,
-                    const float* __restrict__ ckpt, float* __restrict__ du, float* __restrict__ ddelta,
-                    float* __restrict__ dA_part, float* __restrict__ dB_part, float* __restrict__ dC_part,
+                    const float* __restrict__ D, const float* __restrict__ ckpt,
+                    std::conditional_t<SKIP, T, float>* __restrict__ du,
+                    std::conditional_t<SKIP, T, float>* __restrict__ ddelta, float* __restrict__ dA_part,
+                    float* __restrict__ dB_part, float* __restrict__ dC_part, float* __restrict__ dD_part,
                     int batch, int L, int I) {
-  using S = BwdLayout<T>;
+  using S = BwdLayout<T, SKIP>;
+  using DYT = typename S::DYT;
   constexpr int STAGES = S::STAGES;
   extern __shared__ unsigned char smem_raw[];
   const uint32_t raw = static_cast<uint32_t>(__cvta_generic_to_shared(smem_raw));
@@ -539,8 +567,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
         const int e = lane + r * 32;
         const int which = e / (BW_G * BW_CH / 4), t = (e / (BW_CH / 4)) % BW_G, cc = 4 * (e % (BW_CH / 4));
         if (t0 + t < L && i0 + cc < I)
-          *reinterpret_cast<float4*>((which ? du : ddelta) + ((size_t)b * L + t0 + t) * I + i0 + cc) =
-              *reinterpret_cast<const float4*>(outs + 4 * e);
+          store4((which ? du : ddelta) + ((size_t)b * L + t0 + t) * I + i0 + cc,
+                 *reinterpret_cast<const float4*>(outs + 4 * e));
       }
 #pragma unroll
       for (int r = 0; r < BW_G * NS / 32; ++r) {
@@ -603,6 +631,8 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   }
   const float* ck = ckpt + ((size_t)b * n_chunks * NS + q * BW_SPT) * I + i;  // chunk k, state j: [(k*NS + j)*I]
   float G[BW_SPT], dA_acc[BW_SPT], h[BW_SPT], h0[BW_SPT], h0_next[BW_SPT];
+  const float d_skip = SKIP && active ? D[i] : 0.f;
+  float dD_sum = 0.f, dD_comp = 0.f;  // dD over the block's steps, and its compensation
 #pragma unroll
   for (int j = 0; j < BW_SPT; ++j) {
     G[j] = dA_acc[j] = 0.f;  // G = da_{t+1} gh_{t+1}, the reverse carry
@@ -626,7 +656,7 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     const unsigned char* st = smem + s * S::STAGE;
     const T* s_delta = reinterpret_cast<const T*>(st + S::s_delta);
     const T* s_u = reinterpret_cast<const T*>(st + S::s_u);
-    const float* s_dy = reinterpret_cast<const float*>(st + S::s_dy);
+    const DYT* s_dy = reinterpret_cast<const DYT*>(st + S::s_dy);
     const T* s_B = reinterpret_cast<const T*>(st + S::s_B) + q * BW_SPT;
     const T* s_C = reinterpret_cast<const T*>(st + S::s_C) + q * BW_SPT;
     mbar_wait(bar_full + 8 * s, (j / STAGES) & 1);
@@ -673,9 +703,10 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
     float* s_part = reinterpret_cast<float*>(smem + S::part) + (buf * BW_NW + warp) * BW_G * 32;
     float* s_out = reinterpret_cast<float*>(smem + S::out) + buf * 2 * BW_G * BW_CH;
     const bool b4 = lane & 16, b3 = lane & 8, b2 = lane & 4;
+    float dD_group = 0.f;
 #pragma unroll
     for (int t = BW_G - 1; t >= 0; --t) {
-      const float d = to_f(s_delta[t * BW_CH + c]), uu = to_f(s_u[t * BW_CH + c]), gy = s_dy[t * BW_CH + c];
+      const float d = to_f(s_delta[t * BW_CH + c]), uu = to_f(s_u[t * BW_CH + c]), gy = to_f(s_dy[t * BW_CH + c]);
       const float du_ = d * uu;
       const float4 Bv = load4(s_B + t * NS), Cv = load4(s_C + t * NS);
       const float Bn[4] = {Bv.x, Bv.y, Bv.z, Bv.w}, Cn[4] = {Cv.x, Cv.y, Cv.z, Cv.w};
@@ -696,6 +727,10 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       // delta over the channel's 4 lanes: even lanes end with ddelta, odd with du
       float r = rs_pair(fmaf(sb, uu, sa), sb * d, q & 1, 1);
       r += __shfl_xor_sync(FULL, r, 2);
+      if constexpr (SKIP) {
+        if (q == 1) r = __fadd_rn(r, __fmul_rn(d_skip, gy));  // du + D * dy
+        dD_group = __fadd_rn(dD_group, __fmul_rn(gy, uu));
+      }
       if (q < 2) s_out[(q * BW_G + t) * BW_CH + c] = r;
       // dB and dC over the warp's 8 channels: the lane keeps (dB if !b4 else
       // dC) of state 4q + (cw & 3)
@@ -706,6 +741,11 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
       for (int k = 0; k < 2; ++k) x[k] = rs_pair(w[k], w[k + 2], b3, 8);
       s_part[t * 32 + (b4 ? NS : 0) + q * BW_SPT + (cw & 3)] = rs_pair(x[0], x[1], b2, 4);
     }
+    if constexpr (SKIP) {  // the group's dD into the block's, compensated
+      const float y = __fsub_rn(dD_group, dD_comp), sum = __fadd_rn(dD_sum, y);
+      dD_comp = __fsub_rn(__fsub_rn(sum, dD_sum), y);
+      dD_sum = sum;
+    }
     __syncwarp();
     if (lane == 0) {
       mbar_arrive(bar_empty + 8 * s);
@@ -715,14 +755,16 @@ __global__ void __launch_bounds__(BW_THREADS, 1)
   if (active) {
 #pragma unroll
     for (int jj = 0; jj < BW_SPT; ++jj) dA_part[((size_t)b * NS + q * BW_SPT + jj) * I + i] = dA_acc[jj];
+    if (SKIP && q == 0) dD_part[(size_t)b * I + i] = dD_sum;
   }
 }
 
-template <typename T>
-int launch_bwd(const void* u, const void* delta, const float* A, const void* Bm, const void* Cm, const float* dy,
-               const float* ckpt, float* du, float* ddelta, float* dA_part, float* dB_part, float* dC_part, int batch,
-               int L, int I, cudaStream_t stream) {
-  using S = BwdLayout<T>;
+template <typename T, bool SKIP>
+int launch_bwd(const void* u, const void* delta, const float* A, const void* Bm, const void* Cm, const float* D,
+               const void* dy, const float* ckpt, void* du, void* ddelta, float* dA_part, float* dB_part,
+               float* dC_part, float* dD_part, int batch, int L, int I, cudaStream_t stream) {
+  using S = BwdLayout<T, SKIP>;
+  using O = std::conditional_t<SKIP, T, float>;
   static_assert(S::launch_bytes <= 232448, "the backward's shared memory exceeds the 227 KB a block may use");
   const EncodeTiled fn = encode_tiled();
   if (fn == nullptr) return (int)cudaErrorNotSupported;
@@ -731,15 +773,16 @@ int launch_bwd(const void* u, const void* delta, const float* A, const void* Bm,
   CUtensorMap tu, td, tdy, tB, tC;
   if (!encode_3d(fn, &tu, u, ty, es, I, L, batch, BW_CH, BW_G) ||
       !encode_3d(fn, &td, delta, ty, es, I, L, batch, BW_CH, BW_G) ||
-      !encode_3d(fn, &tdy, dy, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 4, I, L, batch, BW_CH, BW_G) ||
+      !encode_3d(fn, &tdy, dy, tma_type<typename S::DYT>(), (int)sizeof(typename S::DYT), I, L, batch, BW_CH, BW_G) ||
       !encode_3d(fn, &tB, Bm, ty, es, NS, L, batch, NS, BW_G) || !encode_3d(fn, &tC, Cm, ty, es, NS, L, batch, NS, BW_G))
     return (int)cudaErrorInvalidValue;
   cudaError_t err =
-      cudaFuncSetAttribute(scan_bwd_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::launch_bytes);
+      cudaFuncSetAttribute(scan_bwd_kernel<T, SKIP>, cudaFuncAttributeMaxDynamicSharedMemorySize, S::launch_bytes);
   if (err != cudaSuccess) return (int)err;
   dim3 grid(cdiv(I, BW_CH), batch);
-  scan_bwd_kernel<T><<<grid, BW_THREADS, S::launch_bytes, stream>>>(tu, td, tdy, tB, tC, A, ckpt, du, ddelta, dA_part,
-                                                                     dB_part, dC_part, batch, L, I);
+  scan_bwd_kernel<T, SKIP><<<grid, BW_THREADS, S::launch_bytes, stream>>>(
+      tu, td, tdy, tB, tC, A, D, ckpt, static_cast<O*>(du), static_cast<O*>(ddelta), dA_part, dB_part, dC_part,
+      dD_part, batch, L, I);
   return (int)cudaGetLastError();
 }
 
@@ -753,7 +796,10 @@ int launch_bwd(const void* u, const void* delta, const float* A, const void* Bm,
 // forward takes a nullable D: given, y is y_scan + D * u in u's dtype, else
 // f32 y before the skip. The backward writes dB and dC as one partial per
 // 80-channel tile, [ceil(I / 80), B, L, 16], and dA as one per batch element,
-// [B, 16, I]. Return a cudaError_t code, 0 on success.
+// [B, 16, I]. It takes a nullable D too: given, dy, du and ddelta are in u's
+// dtype, du holds the skip's D * dy, and dD is written as one partial per
+// batch element, [B, I]; without, dy, du and ddelta are f32 of y before the
+// skip and dD_part is not read. Return a cudaError_t code, 0 on success.
 
 extern "C" {
 
@@ -771,16 +817,23 @@ int mlpt_scan_fwd(const void* u, const void* delta, const float* A, const void* 
   return (int)cudaErrorInvalidValue;
 }
 
-int mlpt_scan_bwd(const void* u, const void* delta, const float* A, const void* Bm, const void* Cm, const float* dy,
-                  const float* ckpt, float* du, float* ddelta, float* dA_part, float* dB_part, float* dC_part,
-                  int batch, int L, int I, int N, int dtype, void* stream) {
+int mlpt_scan_bwd(const void* u, const void* delta, const float* A, const void* Bm, const void* Cm, const float* D,
+                  const void* dy, const float* ckpt, void* du, void* ddelta, float* dA_part, float* dB_part,
+                  float* dC_part, float* dD_part, int batch, int L, int I, int N, int dtype, void* stream) {
   (void)cudaGetLastError();
-  if (N != NS || batch <= 0 || L <= 0 || I <= 0 || I % 8 != 0 || batch > 65535) return (int)cudaErrorInvalidValue;
+  if (N != NS || batch <= 0 || L <= 0 || I <= 0 || I % 8 != 0 || batch > 65535 || (D != nullptr && dD_part == nullptr))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch_bwd<bf16>(u, delta, A, Bm, Cm, dy, ckpt, du, ddelta, dA_part, dB_part, dC_part, batch, L, I, s);
+    return D != nullptr ? launch_bwd<bf16, true>(u, delta, A, Bm, Cm, D, dy, ckpt, du, ddelta, dA_part, dB_part,
+                                                 dC_part, dD_part, batch, L, I, s)
+                        : launch_bwd<bf16, false>(u, delta, A, Bm, Cm, D, dy, ckpt, du, ddelta, dA_part, dB_part,
+                                                  dC_part, dD_part, batch, L, I, s);
   if (dtype == 1)
-    return launch_bwd<float>(u, delta, A, Bm, Cm, dy, ckpt, du, ddelta, dA_part, dB_part, dC_part, batch, L, I, s);
+    return D != nullptr ? launch_bwd<float, true>(u, delta, A, Bm, Cm, D, dy, ckpt, du, ddelta, dA_part, dB_part,
+                                                  dC_part, dD_part, batch, L, I, s)
+                        : launch_bwd<float, false>(u, delta, A, Bm, Cm, D, dy, ckpt, du, ddelta, dA_part, dB_part,
+                                                   dC_part, dD_part, batch, L, I, s);
   return (int)cudaErrorInvalidValue;
 }
 

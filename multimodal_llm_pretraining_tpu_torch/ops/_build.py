@@ -143,7 +143,7 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.mlpt_flash_bwd_dkv.restype = i32
             lib.mlpt_scan_fwd.argtypes = [ptr] * 8 + [i32] * 5 + [ptr]
             lib.mlpt_scan_fwd.restype = i32
-            lib.mlpt_scan_bwd.argtypes = [ptr] * 12 + [i32] * 5 + [ptr]
+            lib.mlpt_scan_bwd.argtypes = [ptr] * 14 + [i32] * 5 + [ptr]
             lib.mlpt_scan_bwd.restype = i32
             lib.mlpt_xent_fwd.argtypes = [ptr] * 4 + [i32, i32, i64, i64, ptr]
             lib.mlpt_xent_fwd.restype = i32

@@ -14,7 +14,8 @@
   slow-path parity branch.
 
 The scan's forward records the span ``scan.forward`` (a block's replay under
-remat too); the kernels' backward records ``scan.backward``
+remat too); the kernels' backward, the D skip's terms included (in the
+backward kernel's epilogue at d_state 16), records ``scan.backward``
 (``selective_scan_fused``), ``tracing.py``.
 
 The JAX dispatcher sends only TPU runs with L > ``chunk_size`` to its Pallas

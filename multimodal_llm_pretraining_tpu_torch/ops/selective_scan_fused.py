@@ -13,16 +13,20 @@ ceil(L / 256), N, I] (the TPU kernel's ``with_checkpoints`` output at its
 default ``block_l``). Given D, y is ``selective_scan_pallas_fwd``'s: the scan
 plus the skip D * u, in f32, rounded to u's dtype (``:154-155``; the kernel
 computes it in its epilogue); without D, y is f32 before the skip. The
-backward returns (du, ddelta, dA, dB, dC) of y before the D skip, all f32;
-the skip's ``du += D * g`` term and ``dD`` stay in the autograd rule, in
-f32, as in the JAX custom VJP.
+backward without D returns (du, ddelta, dA, dB, dC) of y before the D skip,
+all f32. Given D it also carries the skip's backward, as the JAX custom VJP
+does in f32: du gains D * dy, dD = sum dy * u, and du and ddelta come
+rounded to u's and delta's dtypes (``skip_bwd``; the kernel computes it in
+its epilogue, from dy in u's dtype).
 
 The kernels run 16 states a launch. Any other d_state N is zero-padded to a
 multiple of 16, as the JAX kernels pad it to a multiple of 8
 (``selective_scan_pallas.py:96-100``), and each group of 16 states is one
 launch on its own copies of A, B and C (``state_groups``, ``grouped_fwd``,
 ``grouped_bwd``); at N = 16 that is one launch on the inputs as given, with
-the skip fused. The kernels' tensor maps take I a multiple of 8: the
+the skip fused, forward and backward (the backward's skip mode also needs dy
+in u's dtype; otherwise the skip's backward runs after the f32 launches,
+in PyTorch). The kernels' tensor maps take I a multiple of 8: the
 wrappers zero-pad it and slice the outputs back (``padded_fwd``,
 ``padded_bwd``). A launch takes at most 65,535 batch elements (the grid's
 y): larger batches launch in contiguous chunks, one counted launch each, and
@@ -55,15 +59,18 @@ CHANNEL_MULTIPLE = 8  # the kernels' tensor maps take rows of whole 16 bytes: I 
 _DTYPE_CODE = {torch.bfloat16: 0, torch.float32: 1}
 
 # Kernel launches in this process, counted by the wrappers right where they
-# launch; plain-version calls do not count.
+# launch; plain-version calls do not count. BWD_SKIP_LAUNCHES counts the
+# backward launches that folded the D skip (they count in BWD_LAUNCHES too).
 FWD_LAUNCHES = 0
 BWD_LAUNCHES = 0
+BWD_SKIP_LAUNCHES = 0
 
 
 def reset_launch_counts() -> None:
-    global FWD_LAUNCHES, BWD_LAUNCHES
+    global FWD_LAUNCHES, BWD_LAUNCHES, BWD_SKIP_LAUNCHES
     FWD_LAUNCHES = 0
     BWD_LAUNCHES = 0
+    BWD_SKIP_LAUNCHES = 0
 
 
 # ---------------------------------------------------------------- plain versions
@@ -157,15 +164,27 @@ def selective_scan_bwd_by_batch_reference(u, delta, A, B, C, dy, ckpt):
     return du, ddelta, dA, dB, dC
 
 
-def sum_dA(du, ddelta, dA, dB, dC):
-    """A backward's outputs with dA summed over its batch dim, in one fixed order."""
-    return du, ddelta, dA.sum(0), dB, dC
+def sum_dA(du, ddelta, dA, dB, dC, *dD):
+    """A backward's outputs with dA (and dD, where given) summed over its
+    batch dim, in one fixed order."""
+    return du, ddelta, dA.sum(0), dB, dC, *(d.sum(0) for d in dD)
 
 
-def selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt):
+def skip_bwd(du, ddelta, dA, dB, dC, u, delta, D, dy):
+    """The D skip's backward after the scan's, in f32 as in the JAX custom
+    VJP: y = scan + D * u adds D * dy to du and carries dD = sum dy * u.
+    (du in u's dtype, ddelta in delta's, dA, dB, dC, dD f32)."""
+    g32 = dy.float()
+    du = du + D.float() * g32
+    dD = (g32 * u.float()).sum((0, 1))
+    return du.to(u.dtype), ddelta.to(delta.dtype), dA, dB, dC, dD
+
+
+def selective_scan_bwd_reference(u, delta, A, B, C, dy, ckpt, D=None):
     """Plain version of the backward kernel: (du, ddelta, dA, dB, dC) of y
-    before the D skip, f32."""
-    return sum_dA(*selective_scan_bwd_by_batch_reference(u, delta, A, B, C, dy, ckpt))
+    before the D skip, f32; given D, ``skip_bwd``'s six after them."""
+    grads = sum_dA(*selective_scan_bwd_by_batch_reference(u, delta, A, B, C, dy, ckpt))
+    return grads if D is None else skip_bwd(*grads, u, delta, D, dy)
 
 
 # ---------------------------------------------------------------- state groups
@@ -244,16 +263,16 @@ def padded_fwd(fwd, u, delta, A, B, C, D=None):
     return y[..., :I], ckpt[..., :I]
 
 
-def padded_bwd(bwd, u, delta, A, B, C, dy, ckpt):
-    """``bwd`` on I zero-padded as ``padded_fwd`` pads it (and dy and the
-    checkpoint), du, ddelta and dA sliced back."""
+def padded_bwd(bwd, u, delta, A, B, C, dy, ckpt, *D):
+    """``bwd`` on I zero-padded as ``padded_fwd`` pads it (and dy, the
+    checkpoint and D, where given), du, ddelta, dA (and dD) sliced back."""
     I = u.shape[-1]
     pad = -I % CHANNEL_MULTIPLE
     if not pad:
-        return bwd(u, delta, A, B, C, dy, ckpt)
-    u, delta, dy, ckpt = (F.pad(t, (0, pad)) for t in (u, delta, dy, ckpt))
-    du, ddelta, dA, dB, dC = bwd(u, delta, F.pad(A, (0, 0, 0, pad)), B, C, dy, ckpt)
-    return du[..., :I], ddelta[..., :I], dA[:I], dB, dC
+        return bwd(u, delta, A, B, C, dy, ckpt, *D)
+    u, delta, dy, ckpt, *D = (F.pad(t, (0, pad)) for t in (u, delta, dy, ckpt, *D))
+    du, ddelta, dA, dB, dC, *dD = bwd(u, delta, F.pad(A, (0, 0, 0, pad)), B, C, dy, ckpt, *D)
+    return du[..., :I], ddelta[..., :I], dA[:I], dB, dC, *(d[:I] for d in dD)
 
 
 def batch_chunked(fn, *args, limit: int = MAX_GRID_Y):
@@ -330,30 +349,39 @@ def _launch_fwd(u, delta, A, B, C, D=None):
     return y, ckpt
 
 
-def _launch_bwd(u, delta, A, B, C, dy, ckpt):
+def _launch_bwd(u, delta, A, B, C, dy, ckpt, D=None):
     """One backward launch at 16 states, I a multiple of 8, at most
     ``MAX_GRID_Y`` batch elements: (du, ddelta, dA [B, I, 16] per batch
-    element, dB, dC). dB and dC come from the kernel as one partial per
-    80-channel tile and are summed here in a fixed order."""
-    global BWD_LAUNCHES
+    element, dB, dC), du and ddelta f32 of y before the skip; given D (and
+    dy in u's dtype), the skip mode: du and ddelta in u's dtype with the
+    skip, and dD [B, I] per batch element after them. dB and dC come from
+    the kernel as one partial per 80-channel tile and are summed here in a
+    fixed order."""
+    global BWD_LAUNCHES, BWD_SKIP_LAUNCHES
     bsz, L, I = u.shape
     n_tiles = -(-I // BWD_CHANNELS_PER_BLOCK)
     lib = _build.load()
     f32 = dict(dtype=torch.float32, device=u.device)
-    du = torch.empty(bsz, L, I, **f32)
-    ddelta = torch.empty(bsz, L, I, **f32)
+    du = torch.empty(bsz, L, I, dtype=torch.float32 if D is None else u.dtype, device=u.device)
+    ddelta = torch.empty_like(du)
     dA_part = torch.empty(bsz, KERNEL_D_STATE, I, **f32)
     dB_part = torch.empty(n_tiles, bsz, L, KERNEL_D_STATE, **f32)
     dC_part = torch.empty(n_tiles, bsz, L, KERNEL_D_STATE, **f32)
+    dD_part = None if D is None else torch.empty(bsz, I, **f32)
     with torch.cuda.device(u.device):
         err = lib.mlpt_scan_bwd(
-            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(), dy.data_ptr(), ckpt.data_ptr(),
-            du.data_ptr(), ddelta.data_ptr(), dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(),
+            u.data_ptr(), delta.data_ptr(), A.data_ptr(), B.data_ptr(), C.data_ptr(),
+            None if D is None else D.data_ptr(), dy.data_ptr(), ckpt.data_ptr(), du.data_ptr(), ddelta.data_ptr(),
+            dA_part.data_ptr(), dB_part.data_ptr(), dC_part.data_ptr(), None if D is None else dD_part.data_ptr(),
             bsz, L, I, KERNEL_D_STATE, _DTYPE_CODE[u.dtype], torch.cuda.current_stream(u.device).cuda_stream,
         )
     _build.check(lib, err, "selective-scan backward kernel")
     BWD_LAUNCHES += 1
-    return du, ddelta, dA_part.transpose(1, 2), dB_part.sum(0), dC_part.sum(0)
+    grads = (du, ddelta, dA_part.transpose(1, 2), dB_part.sum(0), dC_part.sum(0))
+    if D is None:
+        return grads
+    BWD_SKIP_LAUNCHES += 1
+    return (*grads, dD_part)
 
 
 def selective_scan_fwd_cuda(u, delta, A, B, C, D=None):
@@ -365,25 +393,32 @@ def selective_scan_fwd_cuda(u, delta, A, B, C, D=None):
     return padded_fwd(fwd, *_kernel_inputs(u, delta, A, B, C, D))
 
 
-def _bwd_launches(u, delta, A, B, C, dy, ckpt):
-    return sum_dA(*batch_chunked(_launch_bwd, u, delta, A, B, C, dy, ckpt))
+def _bwd_launches(u, delta, A, B, C, dy, ckpt, *D):
+    return sum_dA(*batch_chunked(_launch_bwd, u, delta, A, B, C, dy, ckpt, *D))
 
 
-def selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt):
+def selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt, D=None):
     """Launch the backward kernel, once per group of 16 states and chunk of
     at most 65,535 batch elements; returns (du, ddelta, dA, dB, dC) f32 of y
-    before the D skip. dA comes from the kernel as one partial per batch
-    element and dB, dC as one partial per 80-channel tile; they are summed
-    here, so two runs give identical results."""
-    u, delta, A, B, C, _ = _kernel_inputs(u, delta, A, B, C)
+    before the D skip, or given D ``skip_bwd``'s six. With D, one group of
+    states and dy in u's dtype, each launch runs the skip mode (the skip's
+    terms in its epilogue); otherwise the launches take an f32 dy and the
+    skip's backward follows them. dA and dD come from the kernel as one
+    partial per batch element and dB, dC as one partial per 80-channel
+    tile; they are summed here, so two runs give identical results."""
+    u, delta, A, B, C, D = _kernel_inputs(u, delta, A, B, C, D)
     bsz, L, I = u.shape
     N = A.shape[1]
     if dy.shape != u.shape or dy.device != u.device:
         raise ValueError(f"dy must be [B, L, I] on {u.device}, got {tuple(dy.shape)} on {dy.device}")
     if ckpt.shape != (bsz, _n_chunks(L), N, I) or ckpt.device != u.device:
         raise ValueError(f"checkpoint must be [B, ceil(L / {SCAN_CHUNK}), N, I] on {u.device}, got {tuple(ckpt.shape)}")
+    ckpt = _aligned(ckpt.float())
+    if D is not None and N == KERNEL_D_STATE and dy.dtype == u.dtype:
+        return padded_bwd(_bwd_launches, u, delta, A, B, C, _aligned(dy), ckpt, D)
     bwd = functools.partial(grouped_bwd, _bwd_launches)
-    return padded_bwd(bwd, u, delta, A, B, C, _aligned(dy.float()), _aligned(ckpt.float()))
+    grads = padded_bwd(bwd, u, delta, A, B, C, _aligned(dy.float()), ckpt)
+    return grads if D is None else skip_bwd(*grads, u, delta, D, dy)
 
 
 # ---------------------------------------------------------------- custom ops
@@ -406,16 +441,29 @@ def scan_fwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, B: torch.Ten
 
 @torch.library.custom_op("mlpt::scan_bwd", mutates_args=())
 def scan_bwd(u: torch.Tensor, delta: torch.Tensor, A: torch.Tensor, B: torch.Tensor, C: torch.Tensor,
-             dy: torch.Tensor, ckpt: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor,
-                                                             torch.Tensor]:
-    """The scan backward: (du, ddelta, dA, dB, dC) f32 of y before the D skip."""
+             dy: torch.Tensor, ckpt: torch.Tensor, D: Optional[torch.Tensor] = None
+             ) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor, torch.Tensor]:
+    """The scan backward: (du, ddelta, dA, dB, dC) f32 of y before the D
+    skip and an empty dD; given D, with the skip's terms: du in u's dtype,
+    ddelta in delta's, dA, dB, dC and dD f32 (``skip_bwd``)."""
     _no_kernel(u)
+
+
+def _six_outputs(bwd):
+    """``bwd`` (a backward wrapper or plain version) with ``scan_bwd``'s six
+    outputs: dD empty without D."""
+
+    def run(u, delta, A, B, C, dy, ckpt, D=None):
+        grads = bwd(u, delta, A, B, C, dy, ckpt, D)
+        return grads if D is not None else (*grads, u.new_empty(0, dtype=torch.float32))
+
+    return run
 
 
 scan_fwd.register_kernel("cuda")(selective_scan_fwd_cuda)
 scan_fwd.register_kernel("cpu")(selective_scan_fwd_reference)
-scan_bwd.register_kernel("cuda")(selective_scan_bwd_cuda)
-scan_bwd.register_kernel("cpu")(selective_scan_bwd_reference)
+scan_bwd.register_kernel("cuda")(_six_outputs(selective_scan_bwd_cuda))
+scan_bwd.register_kernel("cpu")(_six_outputs(selective_scan_bwd_reference))
 
 
 @scan_fwd.register_fake
@@ -426,10 +474,12 @@ def _(u, delta, A, B, C, D=None):
 
 
 @scan_bwd.register_fake
-def _(u, delta, A, B, C, dy, ckpt):
+def _(u, delta, A, B, C, dy, ckpt, D=None):
     f32 = dict(dtype=torch.float32)
-    return (u.new_empty(u.shape, **f32), u.new_empty(u.shape, **f32), A.new_empty(A.shape, **f32),
-            B.new_empty(B.shape, **f32), C.new_empty(C.shape, **f32))
+    skip = D is not None
+    return (u.new_empty(u.shape, dtype=u.dtype if skip else torch.float32),
+            delta.new_empty(delta.shape, dtype=delta.dtype if skip else torch.float32), A.new_empty(A.shape, **f32),
+            B.new_empty(B.shape, **f32), C.new_empty(C.shape, **f32), u.new_empty(D.shape if skip else (0,), **f32))
 
 
 def _scan_setup_context(ctx, inputs, output) -> None:
@@ -443,18 +493,15 @@ def _scan_setup_context(ctx, inputs, output) -> None:
 
 
 def _scan_backward(ctx, g, _dckpt):
-    """The backward op, then the D skip's terms in f32, as in the JAX
-    custom VJP: y = scan(...) + D * u adds D * g to du and carries dD. All
-    of it in the span ``scan.backward``."""
+    """The backward op, the D skip's terms included as in the JAX custom
+    VJP (y = scan(...) + D * u adds D * g to du and carries dD), in the span
+    ``scan.backward``. The op returns du and ddelta in their dtypes given D;
+    only the small dA, dB, dC and dD are cast here."""
     u, delta, A, B, C, D, ckpt = ctx.saved_tensors
     with span("scan.backward"):
-        g32 = g.float()
-        du, ddelta, dA, dB, dC = scan_bwd(u, delta, A, B, C, g32, ckpt)
-        dD = None
-        if D is not None:
-            du = du + D.float() * g32
-            dD = (g32 * u.float()).sum((0, 1)).to(D.dtype)
-        return du.to(u.dtype), ddelta.to(delta.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype), dD
+        du, ddelta, dA, dB, dC, dD = scan_bwd(u, delta, A, B, C, g, ckpt, D)
+        return (du.to(u.dtype), ddelta.to(delta.dtype), dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype),
+                None if D is None else dD.to(D.dtype))
 
 
 scan_fwd.register_autograd(_scan_backward, setup_context=_scan_setup_context)

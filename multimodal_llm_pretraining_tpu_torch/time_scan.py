@@ -4,12 +4,14 @@
 
 A shape is B,L,I or B,L,I,N (d_state, 16 if left out), optionally followed
 by ``:f32`` (f32 u, delta, B, C; bf16 otherwise). For each shape: the
-milliseconds a call of ``selective_scan_fwd_cuda`` with D (the skip and the
-cast in its epilogue, as ``selective_scan_fused`` runs it) and of
-``selective_scan_bwd_cuda`` takes in a run of 10 launches back to back (the
-median of 3 runs), each one's bound (``scan_bounds``) and its share of it,
-and the device time of each kernel a call launches (``torch.profiler``): the
-backward's time holds the wrapper's sums of the dA, dB and dC partials. The
+milliseconds a call of ``selective_scan_fwd_cuda`` and of
+``selective_scan_bwd_cuda`` takes, both with D and the backward with dy in
+u's dtype, as ``selective_scan_fused`` runs them (the skip's terms and the
+casts in the kernels' epilogues at d_state 16), in a run of 10 launches back
+to back (the median of 3 runs), each one's bound (``scan_bounds``) and its
+share of it, and the device time of each kernel a call launches
+(``torch.profiler``): the backward's time holds the wrapper's sums of the
+dA, dB, dC and dD partials. The
 kernels' correctness is the card tests' (``tests/test_torch_kernels.py -m
 cuda -k scan``). ``--ptxas`` has the build print one ``ptxas -v`` line per
 kernel first (registers, static shared memory where there is any, spills).
@@ -71,11 +73,12 @@ def main() -> int:
         b, L, I, *n = (int(x) for x in dims.split(","))
         dtype = torch.float32 if "f32" in flags else torch.bfloat16
         u, delta, A, B, C, D, dy = scan_inputs(b, L, I, n[0] if n else 16, dtype)
+        dy = dy.to(dtype)
         y, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)
-        grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt)
+        grads = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt, D)
         bounds = scan_bounds(u, delta, A, B, C, D, dy, y, ckpt, grads)
         for key, name, fn in (("fwd", "forward", lambda: ssf.selective_scan_fwd_cuda(u, delta, A, B, C, D)),
-                              ("bwd", "backward", lambda: ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt))):
+                              ("bwd", "backward", lambda: ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt, D))):
             ms = ms_per_call(fn)
             kernels = ", ".join(f"{k[:50]} {us:.1f} us" for k, us in kernel_us(fn).items())
             bnd, what = bounds[key]

@@ -17,8 +17,9 @@ The spans the port records:
 - ``xent.forward``, ``xent.backward``: the chunked LM-head loss, its chunk
   recomputes included (``ops/xent.py``);
 - ``scan.forward``, ``scan.backward``: the selective scan, its forward in
-  a block's replay included (``ops/selective_scan.py``), and the kernels'
-  backward with its f32 epilogue (``ops/selective_scan_fused.py``);
+  a block's replay included (``ops/selective_scan.py``), and the backward
+  op with the D skip's terms, at d_state 16 in the kernel's epilogue
+  (``ops/selective_scan_fused.py``);
 - ``attn.forward``, ``attn.backward``: a ``SelfAttention``, its
   projections included (``models/layers.py``);
 - ``mlp.forward``, ``mlp.backward``: an ``Mlp`` or a ``GatedMlp``

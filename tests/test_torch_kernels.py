@@ -56,7 +56,13 @@ launch: other d_states (1, 8, 12, 24, 64 here) go in zero-padded groups of
 16. Both are held at their tile edges: L around the backward's 8-step and
 the forward's 64-step groups and 192-step ring, and the 256-step chunks; I
 around both kernels' 80-channel tiles and not a multiple of 8.
-Batches above 65,535 launch in chunks, one launch counted each. The fused
+Batches above 65,535 launch in chunks, one launch counted each. The
+backward's skip mode (D given, dy in u's dtype, du and ddelta out in it)
+equals the f32 mode followed by the PyTorch epilogue it replaced: du,
+ddelta, dA, dB and dC bit for bit, and dD, summed in another f32 order,
+within 1e-6 of its largest value; a full-depth mamba and Jamba micro-batch
+run every scan backward in it, with no PyTorch pass over [B, L, I] inside
+``scan.backward``. The fused
 backward at head dim 256 takes any scale (0.07, and 200^-0.5 at D=200
 padded to 256).
 
@@ -81,6 +87,7 @@ LSE_ABS = 1e-3
 SCAN_Y_NORM_REL = 1e-4
 SCAN_Y_BF16_NORM_REL = 4e-3  # y with the skip in bf16: one bf16 rounding
 SCAN_GRAD_NORM_REL = 1e-3
+SCAN_DD_OF_MAX = 1e-6  # dD in the skip mode: its f32 sum in another order
 
 
 def _needs_cuda():
@@ -950,6 +957,114 @@ def test_scan_kernels_take_batches_above_the_grid_limit(dtype):
     _check_scan(*_scan_inputs(65536, 3, 8, seed=65536, dtype=dtype))
     # _check_scan: 3 forward calls (before the skip, with it, once more) and 2 backward calls
     assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES) == (3 * 2, 2 * 2)
+
+
+# the backward's skip mode (D given, dy in u's dtype): mamba's micro-batch, L
+# off the 8-step groups and the 256-step chunks, I padded to a multiple of 8,
+# f32, and a batch above the grid's limit
+SCAN_SKIP_CASES = {"mamba": ((8, 4096, 5120), torch.bfloat16), "ragged L": ((2, 1003, 96), torch.bfloat16),
+                   "I 100": ((2, 300, 100), torch.bfloat16), "f32": ((2, 1003, 100), torch.float32),
+                   "batch 65536": ((65536, 3, 8), torch.bfloat16)}
+
+
+def _scan_bwd_then_epilogue(u, delta, A, B, C, dy, ckpt, D):
+    """The backward as the autograd rule composed it before the kernel took
+    D: the f32 mode on an f32 dy, then the skip's terms in PyTorch, dD
+    summed over batch and length, and the casts (dD f32)."""
+    g32 = dy.float()
+    du, ddelta, dA, dB, dC = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, g32, ckpt)
+    du = du + D.float() * g32
+    dD = (g32 * u.float()).sum((0, 1))
+    return du.to(u.dtype), ddelta.to(delta.dtype), dA, dB, dC, dD
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(SCAN_SKIP_CASES))
+def test_scan_skip_mode_is_the_f32_mode_and_its_epilogue(case):
+    """The backward in its skip mode, one launch per batch chunk, against
+    the f32 mode followed by the PyTorch epilogue it replaced: du and ddelta
+    in u's dtype and dA, dB and dC bit for bit; dD, whose f32 sum runs in
+    another order, within ``SCAN_DD_OF_MAX`` of its largest value; a second
+    call repeats the first bit for bit, dD included."""
+    _needs_cuda()
+    shape, dtype = SCAN_SKIP_CASES[case]
+    u, delta, A, B, C, dy = _scan_inputs(*shape, seed=sum(shape), dtype=dtype)
+    dy = dy.to(dtype)
+    D = torch.randn(shape[-1], generator=torch.Generator(device="cuda").manual_seed(9), device="cuda")
+    _, ckpt = ssf.selective_scan_fwd_cuda(u, delta, A, B, C)
+    ssf.reset_launch_counts()
+    got = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt, D)
+    chunks = -(-shape[0] // fa.MAX_GRID_Y)
+    assert (ssf.BWD_LAUNCHES, ssf.BWD_SKIP_LAUNCHES) == (chunks, chunks)
+    want = _scan_bwd_then_epilogue(u, delta, A, B, C, dy, ckpt, D)
+    assert [t.dtype for t in got] == [dtype, dtype] + [torch.float32] * 4
+    for name, g, w in zip(("du", "ddelta", "dA", "dB", "dC"), got, want):
+        assert g.shape == w.shape and torch.equal(g, w), name
+    gap = (got[5] - want[5]).abs().max() / want[5].abs().max()
+    assert got[5].shape == D.shape and gap <= SCAN_DD_OF_MAX, gap.item()
+    again = ssf.selective_scan_bwd_cuda(u, delta, A, B, C, dy, ckpt, D)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+def _scan_backward_ops(prof, rows: int, seq: int, width: int) -> list[str]:
+    """The PyTorch ops named aten::mul, add, copy_ or sum whose inputs
+    include a [rows, seq, width] tensor, launched inside a span
+    ``scan.backward`` of ``prof`` (recorded with ``record_shapes``)."""
+
+    def in_span(e):
+        while e is not None:
+            if e.name == "scan.backward":
+                return True
+            e = e.cpu_parent
+        return False
+
+    names = {"aten::mul", "aten::add", "aten::copy_", "aten::sum"}
+    return [e.name for e in prof.events()
+            if e.name in names and [rows, seq, width] in e.input_shapes and in_span(e)]
+
+
+def _skip_mode_micro_batch(model: str) -> tuple[int, int, list[str], int]:
+    """One full-size micro-batch of one row of ``model`` under its remat in
+    ``bf16_sr``, after a warmup, profiled with shapes: (backward launches,
+    of them in the skip mode, the elementwise ops over [1, L, d_inner]
+    inside ``scan.backward``, the spans ``scan.backward`` on the host)."""
+    from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+    from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
+
+    mc = get_model_class(model)
+    sess = make_plan(mc, 1, 1, True, "bf16_sr").build_session(mc, device="cuda")
+    state = sess.init_state()
+    batch = {k: v[0] for k, v in sess.make_train_batch(seed=0).items()}
+    accumulate = sess.accumulate_fn()
+    accumulate(state, batch)
+    torch.cuda.synchronize()
+    ssf.reset_launch_counts()
+    activities = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    with torch.profiler.profile(activities=activities, record_shapes=True) as prof:
+        loss = accumulate(state, batch)
+        torch.cuda.synchronize()
+    assert math.isfinite(float(loss))
+    mixer = next(m for m in sess.module.modules() if hasattr(m, "d_inner"))
+    seq = batch["input_ids"].shape[-1]
+    ops = _scan_backward_ops(prof, 1, seq, mixer.d_inner)
+    spans = sum(e.name == "scan.backward" and e.device_type == torch.autograd.DeviceType.CPU for e in prof.events())
+    launches = (ssf.BWD_LAUNCHES, ssf.BWD_SKIP_LAUNCHES)
+    del sess, state, prof
+    torch.cuda.empty_cache()
+    return (*launches, ops, spans)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("model,mixers", [("mamba", 64), ("jamba2-3b", 26)])
+def test_micro_batch_folds_the_skip_into_every_scan_backward(model, mixers):
+    """A full-depth micro-batch of mamba-2.8b (64 blocks) and of Jamba2-3B
+    (26 Mamba mixers), one row at full sequence: every scan backward
+    launches once, in its skip mode, and its span ``scan.backward`` holds no
+    PyTorch mul, add, copy or sum over a [1, L, d_inner] tensor."""
+    _needs_cuda()
+    bwd, skip, ops, spans = _skip_mode_micro_batch(model)
+    assert (bwd, skip, spans) == (mixers, mixers, mixers)
+    assert not ops, ops
 
 
 # ---------------------------------------------------------------- the custom ops on the card

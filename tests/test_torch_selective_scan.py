@@ -229,3 +229,129 @@ def test_scan_ops_pass_opcheck_on_the_cpu(with_d):
     leaves = [t.clone().requires_grad_() for t in (u, delta)]
     torch.library.opcheck(ssf.scan_fwd, (*leaves, A, B, C, None if D is None else D.clone().requires_grad_()))
     torch.library.opcheck(ssf.scan_bwd, (u, delta, A, B, C, dy, ckpt))
+
+
+# ---------------------------------------------------------------- the backward's skip mode
+
+
+def _old_composition(u, delta, A, B, C, D, dy, ckpt):
+    """The backward as the autograd rule composed it before ``mlpt::scan_bwd``
+    took D: the plain backward on an f32 dy, then the skip's terms in f32,
+    dD summed over batch and length, and the casts (du, ddelta to the
+    inputs' dtypes; dD f32, before the cast to D's dtype)."""
+    g32 = dy.float()
+    du, ddelta, dA, dB, dC = ssf.selective_scan_bwd_reference(u, delta, A, B, C, g32, ckpt)
+    du = du + D.float() * g32
+    dD = (g32 * u.float()).sum((0, 1))
+    return du.to(u.dtype), ddelta.to(delta.dtype), dA, dB, dC, dD
+
+
+def _skip_inputs(dtype, seed, shape=(2, 300, 24, 16)):
+    u, delta, A, B, C, D, dy = _inputs(*shape, seed=seed)
+    tu, td, tB, tC, tdy = (torch.from_numpy(a).to(dtype) for a in (u, delta, B, C, dy))
+    tA, tD = torch.from_numpy(A), torch.from_numpy(D)
+    _, ckpt = ssf.selective_scan_fwd_reference(tu, td, tA, tB, tC)
+    return tu, td, tA, tB, tC, tD, tdy, ckpt
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_op_with_d_is_the_old_composition(dtype):
+    """``mlpt::scan_bwd`` with D on CPU tensors: du and ddelta in the inputs'
+    dtype, dA, dB, dC and dD in f32, and every output bit for bit the old
+    composition's, with dy in the inputs' dtype as autograd hands it over."""
+    u, delta, A, B, C, D, dy, ckpt = _skip_inputs(dtype, seed=12)
+    got = ssf.scan_bwd(u, delta, A, B, C, dy, ckpt, D)
+    want = _old_composition(u, delta, A, B, C, D, dy, ckpt)
+    assert [t.dtype for t in got] == [dtype, dtype] + [torch.float32] * 4
+    assert got[5].shape == D.shape
+    for name, g, w in zip(("du", "ddelta", "dA", "dB", "dC", "dD"), got, want):
+        assert g.dtype == w.dtype and torch.equal(g, w), name
+
+
+def test_scan_bwd_op_without_d_is_unchanged():
+    """Without D the op returns the plain backward's five f32 outputs bit for
+    bit, from dy in any dtype, and an empty dD."""
+    u, delta, A, B, C, _, dy, ckpt = _skip_inputs(torch.bfloat16, seed=13)
+    got = ssf.scan_bwd(u, delta, A, B, C, dy, ckpt)
+    want = ssf.selective_scan_bwd_reference(u, delta, A, B, C, dy.float(), ckpt)
+    assert len(got) == 6 and got[5].shape == (0,) and got[5].dtype == torch.float32
+    for g, w in zip(got, want):
+        assert g.dtype == torch.float32 and torch.equal(g, w)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_scan_bwd_op_with_d_passes_opcheck_on_the_cpu(dtype):
+    """``torch.library.opcheck`` of ``mlpt::scan_bwd`` on its new signature
+    (D given, dy in the inputs' dtype): schema and fake, the fake's dtypes
+    and shapes those of the outputs."""
+    u, delta, A, B, C, D, dy, ckpt = _skip_inputs(dtype, seed=14, shape=(2, 40, 12, 16))
+    torch.library.opcheck(ssf.scan_bwd, (u, delta, A, B, C, dy, ckpt, D))
+
+
+class _OldScanRule(torch.autograd.Function):
+    """The forward op under the autograd rule it had before the backward op
+    took D: the rule ran ``_old_composition`` itself, then cast dA, dB, dC
+    and dD to their parameters' dtypes."""
+
+    @staticmethod
+    def forward(ctx, u, delta, A, B, C, D):
+        y, ckpt = ssf.scan_fwd(u, delta, A, B, C, D)
+        ctx.save_for_backward(u, delta, A, B, C, D, ckpt)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        u, delta, A, B, C, D, ckpt = ctx.saved_tensors
+        du, ddelta, dA, dB, dC, dD = _old_composition(u, delta, A, B, C, D, g, ckpt)
+        return du, ddelta, dA.to(A.dtype), dB.to(B.dtype), dC.to(C.dtype), dD.to(D.dtype)
+
+
+def _mixer_grads(mixer, x, dout):
+    mixer.zero_grad(set_to_none=True)
+    xx = x.clone().requires_grad_()
+    out = mixer(xx)
+    out.backward(dout)
+    return [out.detach(), xx.grad] + [p.grad for p in mixer.parameters()]
+
+
+@pytest.mark.parametrize("kind", ["mamba published", "mamba jax arithmetic", "mamba f32", "jamba"])
+def test_mixer_gradients_through_the_op_equal_the_old_rule(kind, monkeypatch):
+    """A ``MambaBlock`` (published arithmetic in bf16 and f32, and the JAX
+    package's) and a Jamba mixer (inner norms, bf16 parameters) on the CPU:
+    the output, the input's gradient and every parameter's gradient through
+    ``selective_scan_fused`` bit for bit those of the old autograd rule."""
+    from multimodal_llm_pretraining_tpu_torch.models import mamba as tmamba
+    from multimodal_llm_pretraining_tpu_torch.ops import selective_scan as tscan
+
+    torch.manual_seed(0)
+    dtype = torch.float32 if kind == "mamba f32" else torch.bfloat16
+    if kind == "jamba":
+        mixer = tmamba.MambaMixer(32, 64, 16, 4, 4, dtype=dtype, f32_conv_gate=True, inner_norm_eps=1e-6)
+    else:
+        mixer = tmamba.MambaBlock(32, 64, 16, 4, 4, dtype=dtype, residual_in_fp32=kind != "mamba jax arithmetic")
+    with torch.no_grad():
+        for name, p in mixer.named_parameters():
+            p.copy_(torch.log(torch.arange(1, 17.0)).expand_as(p) if name == "A_log" else torch.randn(p.shape) * 0.3)
+    mixer.to(dtype)
+    g = torch.Generator().manual_seed(1)
+    x, dout = (torch.randn(2, 40, 32, generator=g).to(dtype) for _ in range(2))
+    got = _mixer_grads(mixer, x, dout)
+    monkeypatch.setattr(tscan, "selective_scan_fused", _OldScanRule.apply)
+    want = _mixer_grads(mixer, x, dout)
+    names = ["out", "dx"] + [n for n, _ in mixer.named_parameters()]
+    assert all(p.grad is not None for p in mixer.parameters())
+    for name, a, b in zip(names, got, want):
+        assert a.dtype == b.dtype and torch.equal(a, b), name
+
+
+def test_skip_mode_counts_no_launch_on_the_cpu():
+    """On the CPU the op and the autograd rule take the plain versions:
+    ``BWD_SKIP_LAUNCHES`` (like ``BWD_LAUNCHES``) stays 0, and
+    ``reset_launch_counts`` zeroes it."""
+    ssf.reset_launch_counts()
+    u, delta, A, B, C, D, dy, ckpt = _skip_inputs(torch.bfloat16, seed=15, shape=(1, 30, 8, 16))
+    ssf.scan_bwd(u, delta, A, B, C, dy, ckpt, D)
+    leaves = [t.clone().requires_grad_() for t in (u, delta, A, B, C, D)]
+    ssf.selective_scan_fused(*leaves).float().sum().backward()
+    assert (ssf.FWD_LAUNCHES, ssf.BWD_LAUNCHES, ssf.BWD_SKIP_LAUNCHES) == (0, 0, 0)
+    assert all(t.grad is not None for t in leaves)
