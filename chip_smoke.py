@@ -20,7 +20,8 @@ failure exits non-zero:
 9. scan kernels at mamba-2.8b's [2, 4096, 5120] bf16, d_state 16.
 10. scan slice: a 2-layer narrow Mamba in f32 against the plain chunked scan.
 11. mamba-2.8b main path under block remat: every scan, norm, conv and gate call on the kernels, every
-    scan backward in its skip mode.
+    scan backward in its skip mode; then the SSD (Mamba-2's chunk scan) at granite-4.0-h-micro's micro-batch
+    and a 2-layer granite-4.0-h-micro micro-batch counting its SSD launches.
 12. flash kernels at the llava decoder's [16, 32, 1087, 64] (varlen mode) and the tower's [16, 16, 577, 64].
 13. llava slice: a 2-layer narrow LLaVA on a right-padded batch.
 14. llava-pretrain main path: frozen leaves bit for bit, the projector moving.
@@ -76,6 +77,9 @@ XENT_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/xent.cu"
 RMSNORM_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/rmsnorm.cu"
 CONV_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/causal_conv.cu"
 GATE_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/gate.cu"
+SSD_SOURCE = "multimodal_llm_pretraining_tpu_torch/csrc/ssd.cu"
+SSD_SHAPE = (8, 16384, 64, 64, 128)  # granite-4.0-h-micro: mbs 8, seq 16384, 64 heads of 64, N 128, one group
+SSD_CHUNK = 256
 SCAN_SHAPE = (2, 4096, 5120)  # mamba-2.8b: mbs 2, seq 4096, d_inner 5120 (d_state 16)
 SLICE_SHAPE = (4, 8, 2049, 256)  # pythia-1b: mbs 4, 8 heads, seq 2049, head_dim 256
 # llava-pretrain at the main path's mbs 16: the decoder's attention (32
@@ -114,6 +118,8 @@ TOL_NORM_REL = 1e-2
 TOL_SCAN_Y_BF16 = 4e-3
 TOL_SCAN_GRAD = 1e-3
 TOL_SCAN_DD = 1e-6  # dD's f32 summation order, of its largest value
+# The SSD: the card's steps take bf16 operands where the plain chunked form keeps f32 (tests/test_torch_kernels.py)
+TOL_SSD = 1e-2
 TOL_F32 = 1e-5
 TOL_BF16 = 4e-3
 TOL_XENT_LSE_ABS = 1e-4  # the loss's lse and each row's nll, absolute (f32)
@@ -645,6 +651,110 @@ def phase_scan_kernels() -> list[dict]:
                          bounds["fwd"], None),
             kernel_entry("scan_bwd", SCAN_SOURCE, f"{JAX_SCAN}:161", max(errs[n][0] for n in names), t["bwd"],
                          t["bwd_plain"], bounds["bwd"], None)]
+
+
+def phase_ssd() -> list[dict]:
+    """Mamba-2's SSD at granite-4.0-h-micro's micro-batch (x a view of the
+    conv's [8, 16384, 4352] bf16 output, chunks of 256): the op forward and
+    backward against the plain chunked form on one row, then timed: each
+    kernel alone, the whole op (the PyTorch and cuBLAS steps around the
+    kernel), beside the op's bound (x, dt, B, C, A, D in and y out; the
+    backward those and dy in, their gradients out; the decomposition's
+    products at the bf16 rate) and the plain form, a row at a time. The
+    kernels JSON line's entries ``ssd_fwd`` and ``ssd_bwd`` are the ops."""
+    from multimodal_llm_pretraining_tpu_torch.ops import ssd
+    from multimodal_llm_pretraining_tpu_torch.benchmarking.flops import ssd_products
+
+    b, L, H, P, N = SSD_SHAPE
+    g = torch.Generator(device="cuda").manual_seed(45)
+    wide = (torch.randn(b, L, H * P + 2 * N, generator=g, device="cuda") * 0.5).to(torch.bfloat16)
+    x = wide[..., :H * P].unflatten(-1, (H, P))
+    B = wide[..., H * P:H * P + N].unflatten(-1, (1, N))
+    C = wide[..., H * P + N:].unflatten(-1, (1, N))
+    dt = torch.nn.functional.softplus(torch.randn(b, L, H, generator=g, device="cuda") + 0.5)
+    A = -torch.exp(torch.randn(H, generator=g, device="cuda"))
+    D = torch.randn(H, generator=g, device="cuda")
+    dy = torch.randn(b, L, H, P, generator=g, device="cuda").to(torch.bfloat16)
+    args = (x, dt, A, B, C, D)
+    y, states = ssd.ssd_fwd_cuda(*args, SSD_CHUNK)
+    grads = ssd.ssd_bwd_cuda(*args, states, dy, SSD_CHUNK)
+    one = [t[:1] for t in (x, dt)] + [A] + [t[:1] for t in (B, C)] + [D]
+    y_ref, states_ref = ssd.ssd_fwd_reference(*one, SSD_CHUNK)
+    grads_ref = ssd.ssd_bwd_reference(*one, states_ref, dy[:1], SSD_CHUNK)
+    names = ("dx", "ddt", "dB", "dC")
+    what = f"{list(SSD_SHAPE[:4])} N{N} bf16, row 0"
+    errs = held("[ssd]", what, {"y": (y[:1], y_ref), **{n: (grads[i][:1], grads_ref[i]) for n, i in
+                                                         zip(names, (0, 1, 3, 4))}},
+                dict.fromkeys(("y", *names), TOL_SSD))
+    del y_ref, states_ref, grads_ref, grads
+    s = ssd._Setup(x, dt, A, B, C, SSD_CHUNK)
+    cb = ssd._bmm(s.C, s.B.transpose(1, 2))
+    cbt = ssd._bmm(s.B, s.C.transpose(1, 2))
+    z = torch.bmm(s.B, states.view(-1, H * P, N).transpose(1, 2))
+    yi = torch.bmm(s.C, states.view(-1, H * P, N).transpose(1, 2))
+    Df = D.float()
+
+    def plain(fwd: bool):
+        for i in range(b):
+            one = [t[i:i + 1] for t in (x, dt)] + [A] + [t[i:i + 1] for t in (B, C)] + [D]
+            if fwd:
+                ssd.ssd_fwd_reference(*one, SSD_CHUNK)
+            else:
+                ssd.ssd_bwd_reference(*one, states[i:i + 1], dy[i:i + 1], SSD_CHUNK)
+
+    t = {
+        "fwd": ms_per_call(lambda: ssd.ssd_fwd_cuda(*args, SSD_CHUNK)),
+        "fwd_kernel": ms_per_call(lambda: ssd._launch_fwd(x, s, cb, states, Df)),
+        "fwd_plain": ms_per_call(lambda: plain(True), warmup=1, iters=1, reps=1),
+        "bwd": ms_per_call(lambda: ssd.ssd_bwd_cuda(*args, states, dy, SSD_CHUNK)),
+        "bwd_kernel": ms_per_call(lambda: ssd._launch_bwd(x, dy, z, yi, s, cbt, Df)),
+        "bwd_plain": ms_per_call(lambda: plain(False), warmup=1, iters=1, reps=1),
+    }
+    t["fwd_kernel_plain"], t["bwd_kernel_plain"] = t["fwd_plain"], t["bwd_plain"]
+    io = nbytes(x) * 2 + nbytes(dt) + nbytes(B) + nbytes(C) + nbytes(A) + nbytes(D)
+    flops = ssd_products(x.shape, B.shape, SSD_CHUNK)
+    bounds = {"fwd": bound(io, flops), "bwd": bound(io + nbytes(x) + nbytes(dt) + nbytes(B) + nbytes(C) + nbytes(A)
+                                                   + nbytes(D), 2 * flops)}
+    bounds["fwd_kernel"], bounds["bwd_kernel"] = bounds["fwd"], bounds["bwd"]
+    say_times("[ssd]", what.removesuffix(", row 0"), t, bounds, {},
+              {"fwd": flops, "bwd": 2 * flops, "fwd_kernel": flops, "bwd_kernel": 2 * flops})
+    return [kernel_entry("ssd_fwd", SSD_SOURCE, None, errs["y"][0], t["fwd"], t["fwd_plain"], bounds["fwd"], None,
+                         kernel_ms=t["fwd_kernel"]),
+            kernel_entry("ssd_bwd", SSD_SOURCE, None, max(errs[n][0] for n in names), t["bwd"], t["bwd_plain"],
+                         bounds["bwd"], None, kernel_ms=t["bwd_kernel"])]
+
+
+def phase_granite_slice() -> dict:
+    """A granite-4.0-h-micro micro-batch at full width and sequence (one row
+    of 16,384 tokens) narrowed to one Mamba-2 and one attention layer, under
+    whole-layer remat in ``bf16_sr``: its loss near ln 100352 and its SSD
+    launches, two forward (the replay) and one backward, for the kernels
+    JSON line."""
+    from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+    from multimodal_llm_pretraining_tpu_torch.models import granite as tgranite
+    from multimodal_llm_pretraining_tpu_torch.ops import ssd
+    from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
+
+    saved = tgranite.LAYER_TYPES
+    tgranite.LAYER_TYPES = ("mamba", "attention")
+    try:
+        mc = get_model_class("granite-4.0-h-micro")
+        sess = make_plan(mc, 1, 1, True, "bf16_sr").build_session(mc, device="cuda")
+    finally:
+        tgranite.LAYER_TYPES = saved
+    state = sess.init_state()
+    batch = {k: v[0] for k, v in sess.make_train_batch(seed=0).items()}
+    ssd.reset_launch_counts()
+    loss = float(sess.accumulate_fn()(state, batch))
+    torch.cuda.synchronize()
+    launches = {"ssd_fwd": ssd.SSD_FWD_LAUNCHES, "ssd_bwd": ssd.SSD_BWD_LAUNCHES}
+    say(f"[granite] 2-layer micro-batch (mamba, attention) at 16384 tokens: loss {loss:.4f} "
+        f"(ln 100352 = {math.log(100352):.4f}), SSD launches {launches}")
+    if launches != {"ssd_fwd": 2, "ssd_bwd": 1} or not abs(loss - math.log(100352)) < 1.0:
+        raise AssertionError(f"[granite] launches {launches}, loss {loss}")
+    del sess, state
+    torch.cuda.empty_cache()
+    return launches
 
 
 # ---------------------------------------------------------------- main paths
@@ -1677,6 +1787,8 @@ def main() -> int:
     kernels += phase_scan_kernels()
     phase_scan_slice()
     add(phase_mamba_main_path())
+    kernels += phase_ssd()
+    add(phase_granite_slice())
     kernels += attention_entries(attention_at(VARLEN_SHAPE, True, varlen=True, split=True, seed=20), "_varlen")
     attention_at(TOWER_SHAPE, False, backward=False, seed=24)  # the tower's own call: the plain-mode forward
     phase_llava_slice()

@@ -10,8 +10,9 @@ Two counts of one example's forward and backward:
   reference's protocol, ``src/benchmarking/flops.py:9-37``). It counts what
   runs: the products (``mm``, ``addmm``, ``bmm``, convolutions, the
   backward's through ``_conv_backward_flops``), the three flash attention
-  ops, the two selective-scan ops and the two causal-conv ops, each through
-  the formula registered below; elementwise work counts nothing.
+  ops, the two selective-scan ops, the two causal-conv ops and the two SSD
+  ops, each through the formula registered below; elementwise work counts
+  nothing.
 
 The flash formulas count the model's FLOPs for the visible (query, key)
 pairs of the call, causal masking and varlen lengths included: 4·D a pair
@@ -40,6 +41,15 @@ The causal-conv formulas count the depthwise conv's products as PyTorch
 counts a convolution: 2·K·B·L·I forward, and twice that backward (the input's
 gradient and the taps'), what ``F.conv1d`` and its backward counted before
 the kernels; the bias, the SiLU and its derivative count nothing.
+
+The SSD formulas (Mamba-2's chunked scan, ``ops/ssd.py``) count the
+products of the published decomposition, on chunks of Q steps: C B^T once a
+chunk and group (2 Q^2 N), a head's chunk state and its entering state's
+outputs (2 Q N P each a chunk), and the intra-chunk product over the causal
+pairs, diagonal included (2 P Q (Q + 1) / 2 a chunk); a ragged last chunk
+counts whole, as it runs. The backward counts twice the forward, as the
+closed forms count a backward; the state passing between chunks and the
+decay's exps count nothing.
 """
 
 import math
@@ -49,7 +59,7 @@ import torch
 from torch.utils.flop_counter import FlopCounterMode, register_flop_formula
 
 from ..models import BaseModelClass
-from ..ops import causal_conv, flash_attention, selective_scan_fused  # noqa: F401  (register the mlpt:: ops the formulas name)
+from ..ops import causal_conv, flash_attention, selective_scan_fused, ssd  # noqa: F401  (register the mlpt:: ops the formulas name)
 
 
 def transformer_flops_per_token(
@@ -219,6 +229,25 @@ def _causal_conv_fwd_flops(x, weight, bias, *args, **kwargs) -> int:
 @register_flop_formula(torch.ops.mlpt.causal_conv_bwd, get_raw=True)
 def _causal_conv_bwd_flops(x, weight, bias, dout, *args, **kwargs) -> int:
     return 4 * weight.shape[0] * x.numel()
+
+
+def ssd_products(x_shape, state_shape, chunk: int) -> int:
+    """Products of one SSD forward on x [B, L, H, P] and B, C [B, L, G, N]
+    in chunks of ``chunk`` steps (see the module docstring)."""
+    bsz, L, H, P = x_shape
+    G, N = state_shape[-2:]
+    chunks = bsz * -(-L // chunk)
+    return chunks * (2 * chunk * chunk * N * G + H * (4 * chunk * N * P + P * chunk * (chunk + 1)))
+
+
+@register_flop_formula(torch.ops.mlpt.ssd_fwd, get_raw=True)
+def _ssd_fwd_flops(x, dt, A, B, C, D, chunk, *args, **kwargs) -> int:
+    return ssd_products(x.shape, B.shape, chunk)
+
+
+@register_flop_formula(torch.ops.mlpt.ssd_bwd, get_raw=True)
+def _ssd_bwd_flops(x, dt, A, B, C, D, states, dy, chunk, *args, **kwargs) -> int:
+    return 2 * ssd_products(x.shape, B.shape, chunk)
 
 
 def _conv_backward_flops(grad_out_shape, x_shape, w_shape, _bias, _stride, _padding, _dilation, transposed,

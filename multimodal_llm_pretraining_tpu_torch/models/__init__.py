@@ -6,7 +6,8 @@ holding a ``torch.nn.Module`` and its loss function. Every family of the
 JAX package is ported: RoBERTa, Pythia, Mamba, ConvNeXt, ViT, LLaVA and
 ViLT (the CLIP-g trunk and the original B/32 one). ``MODEL_TYPES`` stays the
 JAX package's; ``PORT_ONLY_MODEL_TYPES`` holds what the port adds beside it
-(AI21-Jamba2-3B, ``models/jamba.py``).
+(AI21-Jamba2-3B, ``models/jamba.py``; IBM granite-4.0-h-micro,
+``models/granite.py``).
 """
 
 import enum
@@ -58,8 +59,10 @@ MODEL_TYPES: tuple[str, ...] = tuple(
 
 JambaT = Literal["jamba2-3b"]
 
+GraniteT = Literal["granite-4.0-h-micro"]
+
 # the port's own model types, which the JAX package does not have
-PORT_ONLY_MODEL_TYPES: tuple[str, ...] = get_args(JambaT)
+PORT_ONLY_MODEL_TYPES: tuple[str, ...] = get_args(JambaT) + get_args(GraniteT)
 
 
 class SchedulerType(str, enum.Enum):
@@ -298,6 +301,10 @@ def get_model_class(model_type: ModelT) -> BaseModelClass:
         from .jamba import JambaModelClass
 
         return JambaModelClass(model_type)
+    if model_type == "granite-4.0-h-micro":
+        from .granite import GraniteModelClass
+
+        return GraniteModelClass(model_type)
     raise ValueError(f"unknown model type: {model_type}")
 
 
@@ -313,6 +320,7 @@ __all__ = [
     "LlavaT",
     "ViltT",
     "JambaT",
+    "GraniteT",
     "ModelBundle",
     "SchedulerType",
     "OptimizerT",

@@ -169,9 +169,10 @@ class SelfAttention(nn.Module):
     optionally causal and rotary. The qkv output is laid out [q (h*d) | k
     (kvh*d) | v], head-major, like the JAX module's. GQA repeats each kv head
     ``h // kvh`` times in place (``repeat_interleave``, as ``jnp.repeat``
-    does), so q head i reads kv head ``i // (h // kvh)``. The forward runs in
-    the span ``attn.forward`` and its backward in ``attn.backward``
-    (``tracing.py``)."""
+    does), so q head i reads kv head ``i // (h // kvh)``. ``sm_scale`` is the
+    softmax scale handed to ``dot_product_attention``; None is its 1/sqrt(d).
+    The forward runs in the span ``attn.forward`` and its backward in
+    ``attn.backward`` (``tracing.py``)."""
 
     def __init__(
         self,
@@ -187,9 +188,11 @@ class SelfAttention(nn.Module):
         attn_impl: AttnImpl = "flash",
         use_bias: bool = True,
         dtype: torch.dtype = torch.float32,
+        sm_scale: float | None = None,
     ):
         super().__init__()
         self.num_heads, self.head_dim = num_heads, head_dim
+        self.sm_scale = sm_scale
         self.num_kv_heads = num_kv_heads or num_heads
         self.causal, self.rotary_dim, self.rotary_base = causal, rotary_dim, rotary_base
         self.rope_scaling = rope_scaling
@@ -213,7 +216,8 @@ class SelfAttention(nn.Module):
             if kvh != h:
                 k = k.repeat_interleave(h // kvh, dim=1)
                 v = v.repeat_interleave(h // kvh, dim=1)
-            out = dot_product_attention(q, k, v, causal=self.causal, mask=mask, impl=self.attn_impl)
+            out = dot_product_attention(q, k, v, causal=self.causal, mask=mask, impl=self.attn_impl,
+                                        sm_scale=self.sm_scale)
             out = self.out(out.transpose(1, 2).reshape(b, s, h * d))
         backward_span("attn.backward", out, x)
         return out

@@ -26,7 +26,7 @@ PACKAGE_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PACKAGE_DIR / "csrc"
 BUILD_DIR = PACKAGE_DIR / "_build"
 SOURCES = ("flash_fwd.cu", "flash_bwd.cu", "flash_bwd_dq.cu", "selective_scan.cu", "xent.cu", "rmsnorm.cu",
-           "causal_conv.cu", "gate.cu")
+           "causal_conv.cu", "gate.cu", "ssd.cu")
 HEADERS = ("hopper.cuh",)  # included by the sources: part of the build's hash
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -165,6 +165,18 @@ def load(verbose: bool = False) -> ctypes.CDLL:
             lib.mlpt_gate_silu_fwd.restype = i32
             lib.mlpt_gate_silu_bwd.argtypes = [ptr, ptr, i64, ptr, i64, ptr, ptr, i64] + [i32] * 3 + [ptr]
             lib.mlpt_gate_silu_bwd.restype = i32
+            lib.mlpt_ssd_fwd.argtypes = [ptr, i64, i64] + [ptr] * 7 + [i32] * 6 + [ptr]
+            lib.mlpt_ssd_fwd.restype = i32
+            lib.mlpt_ssd_bwd.argtypes = [ptr, i64, i64] + [ptr] * 14 + [i32] * 5 + [ptr]
+            lib.mlpt_ssd_bwd.restype = i32
+            lib.mlpt_ssd_scale.argtypes = [ptr, i64, i64, ptr, ptr] + [i32] * 4 + [ptr]
+            lib.mlpt_ssd_scale.restype = i32
+            lib.mlpt_ssd_state_fwd.argtypes = [ptr] * 3 + [i32] * 4 + [ptr]
+            lib.mlpt_ssd_state_fwd.restype = i32
+            lib.mlpt_ssd_state_bwd_parts.argtypes = [i32]
+            lib.mlpt_ssd_state_bwd_parts.restype = i32
+            lib.mlpt_ssd_state_bwd.argtypes = [ptr] * 5 + [i32] * 4 + [ptr]
+            lib.mlpt_ssd_state_bwd.restype = i32
             lib.mlpt_error_string.argtypes = [i32]
             lib.mlpt_error_string.restype = ctypes.c_char_p
             _lib = lib

@@ -25,7 +25,10 @@ The spans the port records:
 - ``mlp.forward``, ``mlp.backward``: an ``Mlp`` or a ``GatedMlp``
   (``models/layers.py``);
 - ``mamba.forward``, ``mamba.backward``: a Mamba mixer, ``in_proj``
-  through ``out_proj``, with the scan's spans inside (``models/mamba.py``);
+  through ``out_proj``, with the scan's spans inside (``models/mamba.py``),
+  or a Mamba-2 mixer with the SSD's spans inside (``models/mamba2.py``);
+- ``ssd.forward``, ``ssd.backward``: Mamba-2's chunked scan, its forward
+  op in a layer's replay included, and its backward op (``ops/ssd.py``);
 - ``ipot``: ViLT's optimal-transport iterations (``models/vilt.py``).
 
 Under remat a block's forward spans fire again inside its

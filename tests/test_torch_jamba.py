@@ -181,7 +181,7 @@ def test_recipe_and_registry():
     """The port-only type sits beside the JAX package's, which stay equal to
     its own; the recipe is the one the configuration file states."""
     assert MODEL_TYPES == JAX_MODEL_TYPES and "jamba2-3b" not in MODEL_TYPES
-    assert PORT_ONLY_MODEL_TYPES == ("jamba2-3b",)
+    assert PORT_ONLY_MODEL_TYPES == ("jamba2-3b", "granite-4.0-h-micro")
     mc = get_model_class("jamba2-3b")
     assert (mc.batch_size, mc.sequence_length, mc.vocab_size, mc.mixed_precision) == (32, 16384, 65536, "bf16")
     assert mc.optimizer == "adamw" and mc.optimizer_kwargs == {"lr": 3e-4, "weight_decay": 0.1, "betas": (0.9, 0.95)}

@@ -1863,3 +1863,213 @@ def test_jamba_micro_batch_runs_on_the_kernels(monkeypatch):
     assert 10.5 < float(loss) < 12.5
     del sess, state
     torch.cuda.empty_cache()
+
+
+# ---------------------------------------------------------------- SSD (Mamba-2's chunk scan)
+
+# y, the entering states, dx, dB, dC, ddt and dA within 1e-2 of their norm: the kernels and the cuBLAS steps
+# take bf16 operands (the decay-masked C B^T, x, C, the states, dy exp(acs), B dS) where the plain version
+# computes in f32, a few roundings of 2^-9 each (about 3e-3 at these shapes when the kernels are emulated
+# on the CPU); dD, an f32 sum of dy x on both sides in another order, within 1e-4.
+SSD_NORM_REL = 1e-2
+SSD_DD_NORM_REL = 1e-4
+SSD_CASES = [  # B, L, H, G, N, chunk, strided x
+    (2, 300, 8, 2, 64, 256, True),  # L not a multiple of the chunk, two groups, x a view of a wider row
+    (1, 200, 4, 1, 128, 64, False),
+    (3, 96, 2, 1, 16, 32, True),
+]
+
+
+def _ssd_inputs(b, L, H, G, N, strided, seed=0):
+    """bf16 x (a view of a wider row when ``strided``, as the mixer hands it
+    over), B and C; dt a softplus in f32; A -exp of a normal draw; D."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+
+    def rand(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda")
+
+    wide = (rand(b, L, H * 64 + 2 * G * N) * 0.5).to(torch.bfloat16)
+    x = wide[..., :H * 64].unflatten(-1, (H, 64)) if strided else wide[..., :H * 64].reshape(b, L, H, 64)
+    B = (rand(b, L, G, N) * 0.3).to(torch.bfloat16)
+    C = (rand(b, L, G, N) * 0.3).to(torch.bfloat16)
+    dt = F.softplus(rand(b, L, H) + 0.5)
+    A = -torch.exp(rand(H))
+    D = rand(H)
+    return x, dt, A, B, C, D
+
+
+def _ssd_against_plain(args, chunk, dy, got_y, got_states, got_grads, rows=None):
+    from multimodal_llm_pretraining_tpu_torch.ops import ssd
+
+    x, dt, A, B, C, D = args
+    rows = range(x.shape[0]) if rows is None else rows
+    dA = dD = 0
+    for i in rows:
+        one = [t[i:i + 1] for t in (x, dt)] + [A] + [t[i:i + 1] for t in (B, C)] + [D]
+        y, states = ssd.ssd_fwd_reference(*one, chunk)
+        _close(got_y[i:i + 1], y, SSD_NORM_REL)
+        _close(got_states[i:i + 1], states, SSD_NORM_REL)
+        grads = ssd.ssd_bwd_reference(*one, states, dy[i:i + 1], chunk)
+        for got, want in zip((got_grads[0], got_grads[1], got_grads[3], got_grads[4]),
+                             (grads[0], grads[1], grads[3], grads[4])):
+            _close(got[i:i + 1], want, SSD_NORM_REL)
+        dA, dD = dA + grads[2], dD + grads[5]
+        del y, states, grads
+    _close(got_grads[2], dA, SSD_NORM_REL)
+    _close(got_grads[5], dD, SSD_DD_NORM_REL)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("b,L,H,G,N,chunk,strided", SSD_CASES)
+def test_ssd_kernels_match_plain_versions(b, L, H, G, N, chunk, strided):
+    """The card's SSD (the kernel pair between its PyTorch and cuBLAS steps)
+    against the plain chunked form at ragged and small shapes: y and the
+    entering states, then dx, ddt, dA, dB, dC and dD, each within its
+    tolerance (``SSD_NORM_REL``, ``SSD_DD_NORM_REL``); outputs in their
+    inputs' dtypes, dx and y contiguous; one launch each way."""
+    from multimodal_llm_pretraining_tpu_torch.ops import ssd
+
+    _needs_cuda()
+    args = _ssd_inputs(b, L, H, G, N, strided)
+    ssd.reset_launch_counts()
+    y, states = ssd.ssd_fwd_cuda(*args, chunk)
+    dy = _rand(b, L, H, 64, seed=7)
+    grads = ssd.ssd_bwd_cuda(*args, states, dy, chunk)
+    torch.cuda.synchronize()
+    assert (ssd.SSD_FWD_LAUNCHES, ssd.SSD_BWD_LAUNCHES) == (1, 1)
+    assert y.is_contiguous() and grads[0].is_contiguous()
+    assert [g.dtype for g in grads] == [t.dtype for t in args]
+    _ssd_against_plain(args, chunk, dy, y, states, grads)
+
+
+@pytest.mark.cuda
+def test_ssd_at_the_cells_shape_without_a_chunk_mask_tensor():
+    """granite-4.0-h-micro's micro-batch, [8, 16384, 64, 64] with N 128,
+    one group, chunks of 256, x a view of the conv's [8, 16384, 4352]
+    output: forward and backward against the plain chunked form, a row at a
+    time, each within its tolerance. No tensor the size of [B, H, chunks,
+    256, 256] is made: the largest any op of the forward or the backward
+    returns is the size of x."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    from multimodal_llm_pretraining_tpu_torch.ops import ssd
+
+    class Largest(TorchDispatchMode):
+        numel = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            out = func(*args, **(kwargs or {}))
+            for t in out if isinstance(out, (tuple, list)) else (out,):
+                if isinstance(t, torch.Tensor):
+                    Largest.numel = max(Largest.numel, t.numel())
+            return out
+
+    _needs_cuda()
+    b, L, H, N, chunk = 8, 16384, 64, 128, 256
+    args = _ssd_inputs(b, L, H, 1, N, True)
+    dy = _rand(b, L, H, 64, seed=8)
+    with Largest():
+        y, states = ssd.ssd_fwd_cuda(*args, chunk)
+        grads = ssd.ssd_bwd_cuda(*args, states, dy, chunk)
+    torch.cuda.synchronize()
+    assert Largest.numel == b * L * H * 64 < b * H * (L // chunk) * chunk * chunk
+    _ssd_against_plain(args, chunk, dy, y, states, grads)
+
+
+@pytest.mark.cuda
+def test_ssd_ops_pass_opcheck_on_the_card():
+    """``torch.library.opcheck`` of ``mlpt::ssd_fwd`` (with its autograd
+    rule, x a view) and ``mlpt::ssd_bwd``."""
+    from multimodal_llm_pretraining_tpu_torch.ops import ssd
+
+    _needs_cuda()
+    x, dt, A, B, C, D = _ssd_inputs(1, 70, 2, 1, 16, True)
+    torch.library.opcheck(ssd.ssd_fwd, (x.detach().requires_grad_(), dt.requires_grad_(), A.requires_grad_(),
+                                        B.requires_grad_(), C.requires_grad_(), D.requires_grad_(), 32))
+    args = [t.detach() for t in (x, dt, A, B, C, D)]
+    y, states = ssd.ssd_fwd(*args, 32)
+    torch.library.opcheck(ssd.ssd_bwd, (*args, states, torch.randn_like(y), 32))
+
+
+@pytest.mark.cuda
+def test_ssd_kernels_refuse_what_they_do_not_take():
+    """f32 x, a head dim other than 64, N above 128, a chunk that is not a
+    multiple of 32 or CPU tensors raise: there is no plain fallback on the
+    card."""
+    from multimodal_llm_pretraining_tpu_torch.ops import ssd
+
+    _needs_cuda()
+    x, dt, A, B, C, D = _ssd_inputs(1, 64, 2, 1, 16, False)
+    for args, chunk in (((x.float(), dt, A, B, C, D), 32), ((x[..., :32], dt, A, B, C, D), 32),
+                        ((x, dt, A, torch.cat([B] * 9, -1), torch.cat([C] * 9, -1), D), 32),
+                        ((x, dt, A, B, C, D), 48), ((x.cpu(), dt.cpu(), A.cpu(), B.cpu(), C.cpu(), D.cpu()), 32)):
+        with pytest.raises(ValueError, match="ssd kernels take"):
+            ssd.ssd_fwd_cuda(*args, chunk)
+
+
+def _granite_session(monkeypatch, mbs, layer_types=None):
+    from multimodal_llm_pretraining_tpu_torch.models import get_model_class
+    from multimodal_llm_pretraining_tpu_torch.models import granite as tgranite
+    from multimodal_llm_pretraining_tpu_torch.profile_step import make_plan
+
+    if layer_types is not None:
+        monkeypatch.setattr(tgranite, "LAYER_TYPES", layer_types)
+    mc = get_model_class("granite-4.0-h-micro")
+    sess = make_plan(mc, mbs, 1, True, "bf16_sr").build_session(mc, device="cuda")
+    state = sess.init_state()
+    batch = {k: v[0] for k, v in sess.make_train_batch(seed=0).items()}
+    return sess, state, batch
+
+
+@pytest.mark.cuda
+def test_granite_micro_batch_runs_on_the_kernels(monkeypatch):
+    """A granite-4.0-h-micro micro-batch at full width and sequence (one row
+    of 16,384 tokens), narrowed to one Mamba-2 and one attention layer,
+    under whole-layer remat in ``bf16_sr``: the SSD, conv and gate pairs and
+    the flash kernels each launch twice forward (the replay runs them again)
+    and once backward; the norm kernels launch 11 times forward (each
+    layer's two stream norms and the mixer's gated norm, twice, and the
+    final norm) and 6 backward; the first loss sits near log(100352)."""
+    from multimodal_llm_pretraining_tpu_torch.ops import causal_conv, gate, rmsnorm, ssd
+
+    _needs_cuda()
+    sess, state, batch = _granite_session(monkeypatch, 1, ("mamba", "attention"))
+    accumulate = sess.accumulate_fn()
+    accumulate(state, batch)
+    torch.cuda.synchronize()
+    for mod in (ssd, causal_conv, gate, fa, rmsnorm):
+        mod.reset_launch_counts()
+    loss = accumulate(state, batch)
+    torch.cuda.synchronize()
+    assert (ssd.SSD_FWD_LAUNCHES, ssd.SSD_BWD_LAUNCHES) == (2, 1)
+    assert (rmsnorm.RMSNORM_FWD_LAUNCHES, rmsnorm.RMSNORM_BWD_LAUNCHES) == (11, 6)
+    assert (causal_conv.CONV_FWD_LAUNCHES, causal_conv.CONV_BWD_LAUNCHES) == (2, 1)
+    assert (gate.GATE_FWD_LAUNCHES, gate.GATE_BWD_LAUNCHES) == (2, 1)
+    assert fa.FWD_LAUNCHES == 2 and fa.BWD_LAUNCHES + fa.DQ_LAUNCHES == 1
+    assert abs(float(loss) - math.log(100352)) < 1.0
+    del sess, state
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.cuda
+def test_granite_cell_micro_batch_counts_its_ssd_calls(monkeypatch):
+    """The cell's micro-batch, 8 rows of 16,384 tokens through all 40
+    layers under whole-layer remat in ``bf16_sr``: 72 SSD forward launches
+    (36 mixers and their replays) and 36 backward, under 80 GB at its peak."""
+    from multimodal_llm_pretraining_tpu_torch.ops import ssd
+
+    _needs_cuda()
+    sess, state, batch = _granite_session(monkeypatch, 8)
+    accumulate = sess.accumulate_fn()
+    accumulate(state, batch)
+    torch.cuda.synchronize()
+    ssd.reset_launch_counts()
+    torch.cuda.reset_peak_memory_stats()
+    loss = accumulate(state, batch)
+    torch.cuda.synchronize()
+    assert (ssd.SSD_FWD_LAUNCHES, ssd.SSD_BWD_LAUNCHES) == (72, 36)
+    assert torch.isfinite(loss)
+    print(f"[granite] mbs 8 peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB, loss {float(loss):.4f}")
+    assert torch.cuda.max_memory_allocated() < 80e9
+    del sess, state
+    torch.cuda.empty_cache()
